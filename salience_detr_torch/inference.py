@@ -1,0 +1,219 @@
+"""Inference entry point of the port: ``Predictor`` and its CLI.
+
+``Predictor(cfg, state_dict, device, seed)`` takes requests as a list of
+uint8 HWC RGB arrays and returns, per request, the top-300 boxes (xyxy in the
+request's pixels), scores and labels.  On the device it resizes each image so
+that its short side is ``cfg.min_size`` and its long side at most
+``cfg.max_size`` (the JAX package's eval geometry, truncated sizes, OpenCV's
+bilinear uint8 arithmetic), pads it at the top left of a landscape (min x max,
+rounded up to 32) or portrait canvas, normalizes, and runs the detector and
+post-processing.  The canvas always holds the resized image.  Requests whose
+orientations differ are served by one forward per canvas.
+
+    python -m salience_detr_torch.inference --image-dir DIR [--device cuda]
+        [--state-dict FILE] [--save-results OUT.json]
+
+``--device`` defaults to ``cuda`` and the CLI raises when that device is
+missing.  Image files are decoded with cv2 where it is installed; ``.npy``
+files holding uint8 HWC RGB arrays are read with numpy everywhere.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import runpy
+import sys
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from salience_detr_torch.models.detectors.salience_detr import normalize_images
+from salience_detr_torch.models.factory import SalienceDETRConfig, build_salience_detr
+
+DEFAULT_CONFIG = (
+    Path(__file__).resolve().parent.parent
+    / "configs" / "salience_detr_torch" / "salience_detr_resnet50_800_1333.py"
+)
+IMAGE_SUFFIXES = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
+CLI_BATCH = 4  # images the CLI hands to one Predictor call
+
+
+def _round_up(x: int, m: int = 32) -> int:
+    return -(-x // m) * m
+
+
+def canvas_for(h: int, w: int, cfg: SalienceDETRConfig) -> Tuple[int, int]:
+    """Landscape (w >= h) or portrait canvas of the eval geometry."""
+    short, long = _round_up(cfg.min_size), _round_up(cfg.max_size)
+    return (short, long) if w >= h else (long, short)
+
+
+def resized_size(h: int, w: int, cfg: SalienceDETRConfig) -> Tuple[int, int]:
+    r = min(cfg.min_size / min(h, w), cfg.max_size / max(h, w))
+    return int(h * r), int(w * r)
+
+
+def _linear_taps(n_in: int, n_out: int):
+    """Source indices and 11-bit fixed-point weights of OpenCV's INTER_LINEAR
+    resampling of ``n_in`` samples to ``n_out``: out = w0 * in[i0] + w1 * in[i1]."""
+    f = ((np.arange(n_out) + 0.5) * (1.0 / (n_out / n_in)) - 0.5).astype(np.float32)
+    i0 = np.floor(f)
+    f -= i0
+    i0 = i0.astype(np.int64)
+    f[(i0 < 0) | (i0 >= n_in - 1)] = 0  # edges repeat the border sample
+    i0 = np.clip(i0, 0, n_in - 1)
+    w0 = np.rint((1 - f) * 2048).astype(np.int32)
+    w1 = np.rint(f * 2048).astype(np.int32)
+    return i0, np.minimum(i0 + 1, n_in - 1), w0, w1
+
+
+def resize_linear_u8(img: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
+    """(h, w, 3) uint8 -> (nh, nw, 3) uint8 in the integer arithmetic of
+    ``cv2.resize(..., INTER_LINEAR)`` on uint8, the resize of the JAX package's
+    eval loader: an exact horizontal pass, then the vertical pass as OpenCV's
+    vectorised path computes it (16-bit high products, rounding shift)."""
+    x0, x1, a0, a1 = (torch.from_numpy(t).to(img.device) for t in _linear_taps(img.shape[1], nw))
+    y0, y1, b0, b1 = (torch.from_numpy(t).to(img.device) for t in _linear_taps(img.shape[0], nh))
+    px = img.to(torch.int32)
+    rows = (a0[:, None] * px[:, x0] + a1[:, None] * px[:, x1]) >> 4
+    out = ((b0[:, None, None] * rows[y0]) >> 16) + ((b1[:, None, None] * rows[y1]) >> 16)
+    return ((out + 2) >> 2).clamp_(0, 255).to(torch.uint8)
+
+
+def letterbox(images: Sequence[np.ndarray], cfg: SalienceDETRConfig, device):
+    """Requests of one canvas -> (canvas (B, 3, H, W) uint8, image_sizes (B, 2),
+    orig_sizes (B, 2)) on ``device``: each request resized and padded with
+    zeros at the top left."""
+    canvas = canvas_for(*images[0].shape[:2], cfg)
+    batch = torch.zeros((len(images), 3, *canvas), dtype=torch.uint8, device=device)
+    sizes, orig = [], []
+    for i, img in enumerate(images):
+        h, w = img.shape[:2]
+        if canvas_for(h, w, cfg) != canvas:
+            raise ValueError(f"request {i} ({h}x{w}) does not belong on canvas {canvas}")
+        nh, nw = resized_size(h, w, cfg)
+        x = torch.from_numpy(np.ascontiguousarray(img)).to(device)
+        batch[i, :, :nh, :nw] = resize_linear_u8(x, nh, nw).permute(2, 0, 1)
+        sizes.append((nh, nw))
+        orig.append((h, w))
+    as_tensor = lambda v: torch.tensor(v, dtype=torch.int64, device=device)
+    return batch, as_tensor(sizes), as_tensor(orig)
+
+
+def preprocess(images: Sequence[np.ndarray], cfg: SalienceDETRConfig, device):
+    """Requests of one canvas -> (images (B, 3, H, W) float32, normalized,
+    image_sizes (B, 2), orig_sizes (B, 2)) on ``device``."""
+    batch, sizes, orig = letterbox(images, cfg, device)
+    return normalize_images(batch.float() / 255.0), sizes, orig
+
+
+def load_config(path) -> SalienceDETRConfig:
+    """A config file assigns ``model_config = SalienceDETRConfig(...)``."""
+    return runpy.run_path(str(path))["model_config"]
+
+
+class Predictor:
+    def __init__(
+        self,
+        cfg: SalienceDETRConfig,
+        state_dict: Optional[Dict[str, torch.Tensor]] = None,
+        device="cuda",
+        seed: int = 0,
+    ):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Predictor: device cuda requested but torch.cuda.is_available() is False")
+        self.cfg = cfg
+        self.model, self.postprocess = build_salience_detr(
+            cfg, self.device, torch.Generator().manual_seed(seed)
+        )
+        if state_dict is not None:
+            self.model.load_state_dict(state_dict, strict=True)
+        self.autocast = self.device.type == "cuda" and cfg.dtype != torch.float32
+
+    @torch.no_grad()
+    def forward(self, images: torch.Tensor, image_sizes: torch.Tensor, orig_sizes: torch.Tensor):
+        """Detector + post-processing on a preprocessed batch."""
+        ctx = (
+            torch.autocast("cuda", dtype=self.cfg.dtype) if self.autocast
+            else contextlib.nullcontext()
+        )
+        with ctx:
+            out = self.model(images, image_sizes)
+        return self.postprocess(out["pred_class"][-1], out["pred_coord"][-1], orig_sizes)
+
+    def groups(self, requests: Sequence[np.ndarray]) -> List[List[int]]:
+        """Request indices grouped by canvas, one forward per group."""
+        by_canvas: Dict[Tuple[int, int], List[int]] = {}
+        for i, img in enumerate(requests):
+            by_canvas.setdefault(canvas_for(*img.shape[:2], self.cfg), []).append(i)
+        return list(by_canvas.values())
+
+    def __call__(self, requests: Sequence[np.ndarray]) -> List[Dict[str, torch.Tensor]]:
+        results: List[Optional[Dict[str, torch.Tensor]]] = [None] * len(requests)
+        for idx in self.groups(requests):
+            dets = self.forward(*preprocess([requests[i] for i in idx], self.cfg, self.device))
+            for j, i in enumerate(idx):
+                results[i] = {k: v[j] for k, v in dets.items()}
+        return results
+
+
+def _read_image(path: Path) -> np.ndarray:
+    if path.suffix == ".npy":
+        return np.load(path)
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError(f"decoding {path.name} needs cv2, which is not installed") from e
+    img = cv2.imread(str(path), cv2.IMREAD_COLOR)
+    if img is None:
+        raise ValueError(f"cannot decode {path}")
+    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser("Salience-DETR inference (PyTorch port)")
+    p.add_argument("--image-dir", required=True)
+    p.add_argument("--model-config", default=str(DEFAULT_CONFIG))
+    p.add_argument("--state-dict", default=None, help="upstream-layout .pth state dict")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--seed", type=int, default=0, help="init seed when no state dict is given")
+    p.add_argument("--score-threshold", type=float, default=0.3)
+    p.add_argument("--save-results", default=None)
+    args = p.parse_args(argv)
+
+    cfg = load_config(args.model_config)
+    state = None
+    if args.state_dict:
+        state = torch.load(args.state_dict, map_location="cpu", weights_only=True)
+        state = state.get("model", state)
+    predictor = Predictor(cfg, state, args.device, args.seed)
+    paths = sorted(
+        q for q in Path(args.image_dir).iterdir() if q.suffix.lower() in IMAGE_SUFFIXES + (".npy",)
+    )
+    results = []
+    for s in range(0, len(paths), CLI_BATCH):
+        chunk = paths[s:s + CLI_BATCH]
+        for path, det in zip(chunk, predictor([_read_image(q) for q in chunk])):
+            keep = det["scores"] > args.score_threshold
+            results.append({
+                "image": str(path),
+                "boxes": det["boxes"][keep].tolist(),
+                "scores": det["scores"][keep].tolist(),
+                "labels": det["labels"][keep].tolist(),
+            })
+            print(f"{path}: {int(keep.sum())} detections", file=sys.stderr)
+    if args.save_results:
+        with open(args.save_results, "w") as f:
+            json.dump(results, f)
+    else:
+        json.dump(results, sys.stdout)
+        print()
+
+
+if __name__ == "__main__":
+    main()

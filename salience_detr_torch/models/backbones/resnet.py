@@ -1,0 +1,107 @@
+"""ResNet backbone family with FrozenBatchNorm (port of
+salience_detr_tpu/models/backbones/resnet.py, DCN stages off).
+
+``forward(images (B, 3, H, W))`` returns {stage_idx: (B, C_i, H/s, W/s)} for
+stage_idx in ``return_indices`` (stage i has stride 4 * 2**i).  Module names
+are torchvision's, so ``state_dict()`` keys are upstream's ``backbone.*``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from salience_detr_torch.models.layers import FrozenBatchNorm2d
+
+# name: block type and blocks per stage (the JAX table's plain ResNets; the
+# wide and ResNeXt entries come with the other backbones)
+ARCH_SETTINGS: Dict[str, Dict] = {
+    "resnet18": dict(block="basic", layers=(2, 2, 2, 2)),
+    "resnet34": dict(block="basic", layers=(3, 4, 6, 3)),
+    "resnet50": dict(block="bottleneck", layers=(3, 4, 6, 3)),
+    "resnet101": dict(block="bottleneck", layers=(3, 4, 23, 3)),
+    "resnet152": dict(block="bottleneck", layers=(3, 8, 36, 3)),
+}
+
+
+def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2, bias=False)
+
+
+def _downsample(cin: int, cout: int, stride: int) -> nn.Sequential:
+    return nn.Sequential(_conv(cin, cout, 1, stride), FrozenBatchNorm2d(cout))
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False):
+        super().__init__()
+        self.conv1 = _conv(inplanes, planes, 3, stride)
+        self.bn1 = FrozenBatchNorm2d(planes)
+        self.conv2 = _conv(planes, planes, 3)
+        self.bn2 = FrozenBatchNorm2d(planes)
+        self.downsample = _downsample(inplanes, planes, stride) if downsample else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        identity = x if self.downsample is None else self.downsample(x)
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        return F.relu(out + identity)
+
+
+class Bottleneck(nn.Module):
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False):
+        super().__init__()
+        out_ch = planes * self.expansion
+        self.conv1 = _conv(inplanes, planes, 1)
+        self.bn1 = FrozenBatchNorm2d(planes)
+        # torchvision puts the stride on the 3x3 conv
+        self.conv2 = _conv(planes, planes, 3, stride)
+        self.bn2 = FrozenBatchNorm2d(planes)
+        self.conv3 = _conv(planes, out_ch, 1)
+        self.bn3 = FrozenBatchNorm2d(out_ch)
+        self.downsample = _downsample(inplanes, out_ch, stride) if downsample else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        identity = x if self.downsample is None else self.downsample(x)
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        return F.relu(out + identity)
+
+
+class ResNetBackbone(nn.Module):
+    def __init__(self, arch: str = "resnet50", return_indices: Tuple[int, ...] = (1, 2, 3)):
+        super().__init__()
+        cfg = ARCH_SETTINGS[arch]
+        block = Bottleneck if cfg["block"] == "bottleneck" else BasicBlock
+        self.return_indices = tuple(return_indices)
+        self.num_channels = [64 * block.expansion * 2**i for i in self.return_indices]
+        self.conv1 = _conv(3, 64, 7, 2)
+        self.bn1 = FrozenBatchNorm2d(64)
+        inplanes = 64
+        for stage in range(4):
+            planes = 64 * 2**stage
+            blocks = []
+            for blk in range(cfg["layers"][stage]):
+                stride = 2 if (stage > 0 and blk == 0) else 1
+                downsample = blk == 0 and (stage > 0 or block is Bottleneck)
+                blocks.append(block(inplanes, planes, stride, downsample))
+                inplanes = planes * block.expansion
+            setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
+
+    def forward(self, x: torch.Tensor) -> Dict[int, torch.Tensor]:
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, 2, 1)
+        outputs = {}
+        for stage in range(4):
+            x = getattr(self, f"layer{stage + 1}")(x)
+            if stage in self.return_indices:
+                outputs[stage] = x
+        return outputs

@@ -1,0 +1,100 @@
+"""Attention bricks (port of salience_detr_tpu/models/bricks/attention.py):
+multi-scale deformable attention with G location groups, and dense
+multi-head attention."""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from salience_detr_torch.ops.deform_attn import compute_sampling_locations, ms_deform_attn
+
+
+def offset_bias_grid(num_groups: int, num_levels: int, num_points: int) -> np.ndarray:
+    """Directional init of the sampling-offset bias, flattened as the Linear's
+    (G, L, P, 2) output.  G = 1 fans the P points over P directions; G > 1 is
+    the reference's star over the G location groups, point i at radius i + 1."""
+    if num_groups == 1:
+        thetas = np.arange(num_points, dtype=np.float64) * (2.0 * math.pi / num_points)
+        grid = np.stack([np.cos(thetas), np.sin(thetas)], -1)  # (P, 2)
+        grid = grid / np.abs(grid).max(-1, keepdims=True)
+        return np.tile(grid[None, None], (1, num_levels, 1, 1)).reshape(-1)
+    thetas = np.arange(num_groups, dtype=np.float64) * (2.0 * math.pi / num_groups)
+    grid = np.stack([np.cos(thetas), np.sin(thetas)], -1)  # (G, 2)
+    grid = grid / np.abs(grid).max(-1, keepdims=True)
+    grid = np.tile(grid[:, None, None, :], (1, num_levels, num_points, 1))
+    grid *= np.arange(1, num_points + 1, dtype=np.float64)[None, None, :, None]
+    return grid.reshape(-1)
+
+
+class MultiScaleDeformableAttention(nn.Module):
+    """Deformable attention with ``sampling_groups`` = G location groups, each
+    shared by H/G heads: G = 1 is head-shared sampling, G = H the reference's
+    exact per-head sampling.  The sampling runs in the MSDA kernel
+    (ops/deform_attn.ms_deform_attn) for every G."""
+
+    def __init__(self, embed_dim: int = 256, num_levels: int = 4, num_heads: int = 8,
+                 num_points: int = 4, sampling_groups: int = 8):
+        super().__init__()
+        G = sampling_groups
+        assert 1 <= G <= num_heads and num_heads % G == 0, (G, num_heads)
+        self.embed_dim, self.num_levels = embed_dim, num_levels
+        self.num_heads, self.num_points, self.sampling_groups = num_heads, num_points, G
+        self.sampling_offsets = nn.Linear(embed_dim, G * num_levels * num_points * 2)
+        self.attention_weights = nn.Linear(embed_dim, num_heads * num_levels * num_points)
+        self.value_proj = nn.Linear(embed_dim, embed_dim)
+        self.output_proj = nn.Linear(embed_dim, embed_dim)
+
+    def forward(
+        self,
+        query: torch.Tensor,  # (B, Q, C)
+        reference_points: torch.Tensor,  # (B, Q, L, 2) or (B, Q, L, 4)
+        value: torch.Tensor,  # (B, S, C)
+        spatial_shapes: Sequence[Tuple[int, int]],
+        key_padding_mask: Optional[torch.Tensor] = None,  # (B, S) True = padding
+    ) -> torch.Tensor:
+        B, Q, _ = query.shape
+        H, L, P, G = self.num_heads, self.num_levels, self.num_points, self.sampling_groups
+        value = self.value_proj(value)
+        if key_padding_mask is not None:
+            value = value.masked_fill(key_padding_mask[..., None], 0.0)
+        offsets = self.sampling_offsets(query).reshape(B, Q, G, L, P, 2)
+        logits = self.attention_weights(query).reshape(B, Q, H, L * P)
+        weights = logits.float().softmax(-1).to(logits.dtype).reshape(B, Q, H, L, P)
+        locations = compute_sampling_locations(
+            reference_points.float(), offsets.float(), spatial_shapes, P
+        )
+        out = ms_deform_attn(value.contiguous(), spatial_shapes, locations, weights)
+        return self.output_proj(out)
+
+
+class MultiheadAttention(nn.Module):
+    """Dense multi-head attention with torch ``nn.MultiheadAttention``'s
+    parameter names (merged ``in_proj``), computed by SDPA.  The JAX package
+    computes this attention outside any kernel, as XLA ops."""
+
+    def __init__(self, embed_dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
+        self.out_proj = nn.Linear(embed_dim, embed_dim)
+
+    def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+        B, Q, C = query.shape
+        H = self.num_heads
+        w_q, w_k, w_v = self.in_proj_weight.chunk(3)
+        b_q, b_k, b_v = self.in_proj_bias.chunk(3)
+
+        def heads(x, w, b):
+            return F.linear(x, w, b).reshape(B, -1, H, C // H).transpose(1, 2)
+
+        out = F.scaled_dot_product_attention(
+            heads(query, w_q, b_q), heads(key, w_k, b_k), heads(value, w_v, b_v)
+        )
+        return self.out_proj(out.transpose(1, 2).reshape(B, Q, C))

@@ -1,0 +1,148 @@
+"""Model factory (port of salience_detr_tpu/models/factory.py, eval-slice fields).
+
+``SalienceDETRConfig`` holds the fields the eval forward reads, with torch
+dtypes; ``build_salience_detr`` composes the detector, initializes it from an
+explicit ``torch.Generator`` with the JAX package's initializers (so that a
+random-weight model at full width samples sane locations), and moves it to
+the given device in eval mode.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from salience_detr_torch.models.backbones.resnet import ARCH_SETTINGS, ResNetBackbone
+from salience_detr_torch.models.bricks.attention import (
+    MultiheadAttention,
+    MultiScaleDeformableAttention,
+    offset_bias_grid,
+)
+from salience_detr_torch.models.bricks.post_process import PostProcess
+from salience_detr_torch.models.bricks.salience_transformer import SalienceTransformer
+from salience_detr_torch.models.detectors.salience_detr import SalienceDETR
+from salience_detr_torch.models.necks.channel_mapper import ChannelMapper
+
+
+@dataclass
+class SalienceDETRConfig:
+    # architecture
+    embed_dim: int = 256
+    num_classes: int = 91
+    num_queries: int = 900
+    num_feature_levels: int = 4
+    num_encoder_layers: int = 6
+    num_decoder_layers: int = 6
+    num_heads: int = 8
+    dim_feedforward: int = 2048
+    num_points: int = 4
+    topk_sa: int = 300
+    level_filter_ratio: Tuple[float, ...] = (0.4, 0.8, 1.0, 1.0)
+    layer_filter_ratio: Tuple[float, ...] = (1.0, 0.8, 0.6, 0.6, 0.4, 0.2)
+    max_num_embedding: int = 200
+    # deformable-attention location groups G (1 <= G <= num_heads, dividing
+    # it): 1 = head-shared sampling, None = one group per head (the
+    # reference's exact sampling).  The JAX config's shared_sampling_locations
+    # / sampling_groups / decoder_sampling_groups map onto these two.
+    encoder_sampling_groups: Optional[int] = None
+    decoder_sampling_groups: Optional[int] = None
+    # backbone
+    backbone: str = "resnet50"
+    backbone_return_indices: Tuple[int, ...] = (1, 2, 3)
+    # eval geometry: shortest side min_size, longest side at most max_size
+    min_size: int = 800
+    max_size: int = 1333
+    select_box_nums_for_evaluation: int = 300
+    # compute dtype on CUDA (autocast); CPU runs float32
+    dtype: torch.dtype = torch.float32
+
+    def encoder_groups(self) -> int:
+        return self.encoder_sampling_groups or self.num_heads
+
+    def decoder_groups(self) -> int:
+        return self.decoder_sampling_groups or self.num_heads
+
+
+def _prior_bias(prior_prob: float = 0.01) -> float:
+    return -math.log((1 - prior_prob) / prior_prob)
+
+
+@torch.no_grad()
+def init_weights(model: SalienceDETR, generator: torch.Generator) -> None:
+    """The JAX package's initializers, drawn from ``generator``."""
+    g = generator
+    for name, m in model.named_modules():
+        if isinstance(m, nn.Conv2d):
+            if name.startswith("backbone."):
+                nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu", generator=g)
+            else:
+                nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5), generator=g)
+            if m.bias is not None:
+                bound = 1.0 / math.sqrt(m.weight[0].numel())
+                nn.init.uniform_(m.bias, -bound, bound, generator=g)
+        elif isinstance(m, nn.Linear):
+            nn.init.xavier_uniform_(m.weight, generator=g)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d)):
+            m.reset_parameters()
+        elif isinstance(m, nn.Embedding):
+            nn.init.normal_(m.weight, generator=g)
+        elif isinstance(m, MultiheadAttention):
+            nn.init.xavier_uniform_(m.in_proj_weight, generator=g)
+            nn.init.zeros_(m.in_proj_bias)
+    for m in model.modules():
+        if isinstance(m, MultiScaleDeformableAttention):
+            nn.init.zeros_(m.sampling_offsets.weight)
+            grid = offset_bias_grid(m.sampling_groups, m.num_levels, m.num_points)
+            m.sampling_offsets.bias.copy_(torch.from_numpy(grid).float())
+            nn.init.zeros_(m.attention_weights.weight)
+            nn.init.zeros_(m.attention_weights.bias)
+    t = model.transformer
+    for head in [t.encoder_class_head, *t.decoder.class_head]:
+        nn.init.kaiming_uniform_(head.weight, a=math.sqrt(5), generator=g)
+        nn.init.constant_(head.bias, _prior_bias())
+    for mlp in [t.encoder_bbox_head, *t.decoder.bbox_head]:
+        nn.init.zeros_(mlp.layers[-1].weight)
+        nn.init.zeros_(mlp.layers[-1].bias)
+    nn.init.normal_(t.level_embeds, generator=g)
+    nn.init.uniform_(t.alpha, -0.3, 0.3, generator=g)
+    bg = t.encoder.background_embedding
+    nn.init.uniform_(bg.row_embed.weight, 0.0, 1.0, generator=g)
+    nn.init.uniform_(bg.col_embed.weight, 0.0, 1.0, generator=g)
+
+
+def build_salience_detr(
+    cfg: SalienceDETRConfig,
+    device: torch.device,
+    generator: Optional[torch.Generator] = None,
+):
+    """Returns (model, postprocess); the model is in eval mode on ``device``,
+    initialized from ``generator`` (seed 0 when None)."""
+    if cfg.backbone not in ARCH_SETTINGS:
+        raise ValueError(f"the port has no backbone {cfg.backbone!r} yet")
+    backbone = ResNetBackbone(cfg.backbone, cfg.backbone_return_indices)
+    neck = ChannelMapper(backbone.num_channels, cfg.embed_dim, cfg.num_feature_levels)
+    transformer = SalienceTransformer(
+        num_classes=cfg.num_classes,
+        embed_dim=cfg.embed_dim,
+        num_encoder_layers=cfg.num_encoder_layers,
+        num_decoder_layers=cfg.num_decoder_layers,
+        num_heads=cfg.num_heads,
+        d_ffn=cfg.dim_feedforward,
+        num_feature_levels=cfg.num_feature_levels,
+        num_points=cfg.num_points,
+        topk_sa=cfg.topk_sa,
+        two_stage_num_proposals=cfg.num_queries,
+        level_filter_ratio=cfg.level_filter_ratio,
+        layer_filter_ratio=cfg.layer_filter_ratio,
+        max_num_embedding=cfg.max_num_embedding,
+        encoder_sampling_groups=cfg.encoder_groups(),
+        decoder_sampling_groups=cfg.decoder_groups(),
+    )
+    model = SalienceDETR(backbone, neck, transformer, cfg.num_classes)
+    init_weights(model, generator if generator is not None else torch.Generator().manual_seed(0))
+    return model.to(device).eval(), PostProcess(cfg.select_box_nums_for_evaluation)

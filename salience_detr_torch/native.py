@@ -1,0 +1,137 @@
+"""Build and load the port's CUDA kernels.
+
+``csrc/*.cu`` compile with ``nvcc`` into one shared library with a plain C
+interface, ``build/salience_detr_torch/<source-hash>/libkernels.so`` under the
+repository root, on first use; the library is loaded with ``ctypes``.  Every
+pointer and the stream are passed as ``c_void_p``; the stream is PyTorch's
+current stream.  Each C entry point returns ``cudaGetLastError()`` after its
+launch, and :func:`check` raises when that is not 0.  A failed build raises
+with nvcc's stderr.  Nothing here runs at import time.
+
+``LAUNCHES`` counts kernel launches per kernel; each wrapper adds one where it
+launches its kernel and nowhere else, so a run can show that its main path
+went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "salience_detr_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+MAX_LEVELS = 16  # kLevelsMax in csrc/levels.cuh
+
+LAUNCHES = {"msda": 0, "grid_nms": 0}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+class LevelTable(ctypes.Structure):
+    """Mirror of ``LevelTable`` in csrc/levels.cuh, passed by value."""
+
+    _fields_ = [
+        ("num_levels", ctypes.c_int),
+        ("h", ctypes.c_int * MAX_LEVELS),
+        ("w", ctypes.c_int * MAX_LEVELS),
+        ("start", ctypes.c_int * MAX_LEVELS),
+    ]
+
+
+def level_table(spatial_shapes: Sequence[Tuple[int, int]]) -> LevelTable:
+    if len(spatial_shapes) > MAX_LEVELS:
+        raise ValueError(f"at most {MAX_LEVELS} levels, got {len(spatial_shapes)}")
+    table = LevelTable()
+    table.num_levels = len(spatial_shapes)
+    start = 0
+    for i, (h, w) in enumerate(spatial_shapes):
+        table.h[i], table.w[i], table.start[i] = h, w, start
+        start += h * w
+    return table
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    return digest.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_ROOT / source_hash() / "libkernels.so"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; cannot build the kernels")
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into libkernels.so unless that source hash is built."""
+    out = library_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.msda_forward.argtypes = [
+            ptr, i32, LevelTable, ptr, ptr, ptr,
+            i32, i32, i32, i32, i32, i32, i32, ptr,
+        ]
+        lib.msda_forward.restype = i32
+        lib.grid_nms_forward.argtypes = [ptr, LevelTable, ptr, i32, i32, i32, ptr]
+        lib.grid_nms_forward.restype = i32
+        lib.cuda_error_string.argtypes = [i32]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        msg = load().cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: cudaError {err} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,11 @@
+"""Box coordinate conversions (port of salience_detr_tpu/ops/boxes.py)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def box_cxcywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
+    """(..., 4) center-size -> corner format."""
+    cx, cy, w, h = boxes.unbind(-1)
+    return torch.stack([cx - 0.5 * w, cy - 0.5 * h, cx + 0.5 * w, cy + 0.5 * h], dim=-1)

@@ -1,0 +1,164 @@
+"""Multi-scale deformable attention sampling (port of salience_detr_tpu/ops/deform_attn.py).
+
+One function covers every location-group count G (G divides the head count
+H): G = 1 is the head-shared sampling of ``ms_deform_attn_core_shared``, G = H
+the exact per-head sampling of ``ms_deform_attn_core`` /
+``ms_deform_attn_core_quad``, and 1 < G < H the grouped sampling of
+``ms_deform_attn_core_grouped``.  Head h uses location group h * G // H.
+
+* :func:`ms_deform_attn_plain` is the plain PyTorch version (explicit corner
+  gathers), the spec of the kernel, and runs on any device;
+* :func:`ms_deform_attn` is the wrapper of the CUDA kernel
+  ``csrc/msda.cu``: a CPU tensor goes to the plain version, a CUDA tensor
+  launches the kernel or raises.
+
+Semantics: grid_sample with align_corners=False and zero padding; corners
+outside their level get weight 0 and are never read.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from salience_detr_torch import native
+from salience_detr_torch.ops.misc import device_constant
+
+
+def compute_sampling_locations(
+    reference_points: torch.Tensor,
+    sampling_offsets: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    num_points: int,
+) -> torch.Tensor:
+    """reference_points (B, Q, L, 2) points or (B, Q, L, 4) boxes;
+    sampling_offsets (B, Q, G, L, P, 2) -> locations (B, Q, G, L, P, 2)."""
+    if reference_points.shape[-1] == 2:
+        wh = device_constant(
+            [(w, h) for h, w in spatial_shapes], sampling_offsets.device, sampling_offsets.dtype
+        )
+        return reference_points[:, :, None, :, None, :] + sampling_offsets / wh[:, None, :]
+    if reference_points.shape[-1] == 4:
+        return (
+            reference_points[:, :, None, :, None, :2]
+            + sampling_offsets / num_points * reference_points[:, :, None, :, None, 2:] * 0.5
+        )
+    raise ValueError(
+        f"reference_points last dim must be 2 or 4, got {reference_points.shape[-1]}"
+    )
+
+
+def _check_shapes(value, spatial_shapes, locations, weights):
+    if value.dim() != 3 or locations.dim() != 6 or weights.dim() != 5:
+        raise ValueError(
+            "expected value (B,S,C), locations (B,Q,G,L,P,2), weights (B,Q,H,L,P); got "
+            f"{tuple(value.shape)}, {tuple(locations.shape)}, {tuple(weights.shape)}"
+        )
+    B, S, C = value.shape
+    _, Q, G, L, P, two = locations.shape
+    H = weights.shape[2]
+    if (
+        two != 2
+        or locations.shape[:2] != (B, Q)
+        or tuple(weights.shape) != (B, Q, H, L, P)
+        or L != len(spatial_shapes)
+        or sum(h * w for h, w in spatial_shapes) != S
+        or C % H != 0
+        or H % G != 0
+    ):
+        raise ValueError(
+            f"inconsistent MSDA shapes: value {tuple(value.shape)}, levels "
+            f"{list(spatial_shapes)}, locations {tuple(locations.shape)}, weights "
+            f"{tuple(weights.shape)}"
+        )
+    return B, S, C, Q, G, L, P, H
+
+
+def ms_deform_attn_plain(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    locations: torch.Tensor,
+    weights: torch.Tensor,
+) -> torch.Tensor:
+    """value (B, S, C) with padding zeroed; locations (B, Q, G, L, P, 2) in
+    [0, 1] (x, y); weights (B, Q, H, L, P) -> (B, Q, C) in the value dtype,
+    accumulated in f32."""
+    B, S, C, Q, G, L, P, H = _check_shapes(value, spatial_shapes, locations, weights)
+    D = C // H
+    # rows of (B, S*H, D): token s, head h sits at s*H + h
+    v = value.float().reshape(B, S * H, D)
+    heads = torch.arange(H, device=value.device)
+    group_of_head = heads * G // H
+    loc = locations.float()[:, :, group_of_head]  # (B, Q, H, L, P, 2)
+    attn = weights.float()
+    out = torch.zeros(B, Q, H, D, dtype=torch.float32, device=value.device)
+    start = 0
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        x = loc[:, :, :, lvl, :, 0] * w - 0.5  # (B, Q, H, P)
+        y = loc[:, :, :, lvl, :, 1] * h - 0.5
+        x0 = torch.floor(x)
+        y0 = torch.floor(y)
+        fx = x - x0
+        fy = y - y0
+        x0i = x0.long()
+        y0i = y0.long()
+        a = attn[:, :, :, lvl]  # (B, Q, H, P)
+        for dy, wy in ((0, 1.0 - fy), (1, fy)):
+            for dx, wx in ((0, 1.0 - fx), (1, fx)):
+                cx = x0i + dx
+                cy = y0i + dy
+                valid = (cx >= 0) & (cx < w) & (cy >= 0) & (cy < h)
+                token = start + cy.clamp(0, h - 1) * w + cx.clamp(0, w - 1)
+                row = (token * H + heads[:, None]).reshape(B, -1, 1).expand(-1, -1, D)
+                rows = torch.gather(v, 1, row).reshape(B, Q, H, P, D)
+                cw = torch.where(valid, wx * wy, torch.zeros_like(wx)) * a
+                out += (cw[..., None] * rows).sum(dim=3)
+        start += h * w
+    return out.reshape(B, Q, C).to(value.dtype)
+
+
+def ms_deform_attn(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    locations: torch.Tensor,
+    weights: torch.Tensor,
+) -> torch.Tensor:
+    """Wrapper of the MSDA kernel (csrc/msda.cu); same contract as
+    :func:`ms_deform_attn_plain`.
+
+    On CUDA the value must be a contiguous float32 or bfloat16 tensor whose
+    channels split into 32 lanes of 1, 2 or 8 channels each lying in one
+    head (C in {32, 64, 256}); locations and weights are cast to float32
+    here, since autocast does not reach the kernel call.
+    """
+    if value.device.type == "cpu":
+        return ms_deform_attn_plain(value, spatial_shapes, locations, weights)
+    if value.device.type != "cuda":
+        raise RuntimeError(f"ms_deform_attn: no kernel for device {value.device}")
+    B, S, C, Q, G, L, P, H = _check_shapes(value, spatial_shapes, locations, weights)
+    if value.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"ms_deform_attn: value dtype {value.dtype} is not float32/bfloat16")
+    if not value.is_contiguous() or value.data_ptr() % 16:
+        raise ValueError("ms_deform_attn: value must be contiguous and 16-byte aligned")
+    cpl = C // 32
+    if C % 32 or cpl not in (1, 2, 8) or (C // H) % cpl:
+        raise ValueError(
+            f"ms_deform_attn: kernel takes C in (32, 64, 256) with C/H divisible by "
+            f"C/32; got C={C}, H={H}"
+        )
+    if locations.device != value.device or weights.device != value.device:
+        raise ValueError("ms_deform_attn: all inputs must be on one device")
+    loc = locations.to(torch.float32).contiguous()
+    attn = weights.to(torch.float32).contiguous()
+    out = torch.empty((B, Q, C), dtype=value.dtype, device=value.device)
+    lib = native.load()
+    with torch.cuda.device(value.device):
+        err = lib.msda_forward(
+            value.data_ptr(), int(value.dtype == torch.bfloat16),
+            native.level_table(spatial_shapes), loc.data_ptr(), attn.data_ptr(),
+            out.data_ptr(), B, S, Q, C, H, G, P, native.stream_of(value),
+        )
+    native.check(err, "msda_forward")
+    native.LAUNCHES["msda"] += 1
+    return out

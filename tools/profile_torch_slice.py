@@ -1,0 +1,145 @@
+#!/usr/bin/env python3
+"""Where the time of the PyTorch port's flagship eval forward goes, on one CUDA card.
+
+    python tools/profile_torch_slice.py [--out FILE.json]
+
+Builds the flagship R50 model (random weights from seed 0, bf16 autocast),
+serves one batch of 4 landscape requests padded to the 800x1344 canvas, and
+reports:
+
+* wall ms per forward: host clock around ``Predictor.forward`` (model and
+  post-processing) ending in a synchronisation, profiler off, median of 5,
+  and all 5;
+* device ms per forward: the sum of the durations of the device activities
+  that ``torch.profiler`` (device tracing only) records over 5 more forwards;
+* host ms per profiled forward, the same clock around those 5 forwards.
+  Tracing adds host time to every launch of this launch-bound forward, so
+  the device window inside the profiler is not the window without it;
+* the device idle share: 1 - device ms / wall ms, at the median wall time
+  and at the fastest and slowest of the 5 (the host's speed varies);
+* device ms per forward by category of kernel name, and the top kernels.
+
+Prints one JSON line (also written to ``--out`` when given).  Fails without a
+CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import statistics
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from salience_detr_torch.inference import DEFAULT_CONFIG, Predictor, load_config, preprocess  # noqa: E402
+
+# first matching pattern names the category of a kernel
+CATEGORIES = [
+    ("msda", r"msda_forward_kernel"),
+    ("grid_nms", r"grid_nms_kernel"),
+    ("conv", r"fprop|dgrad|conv|cudnn|nchw|nhwc|implicit"),
+    ("sdpa", r"flash|fmha|attention"),
+    ("gemm", r"gemm|cutlass|cublas|matmul|splitK"),
+    ("sort_topk", r"sort|radix|topk"),
+    ("index_scatter", r"index|gather|scatter"),
+    ("norm", r"norm|welford"),
+    ("elementwise_reduce", r"elementwise|vectorized|reduce|unrolled|CatArray|copy|fill"),
+]
+BATCH = 4
+ITERS = 5
+SEED = 0
+
+
+def category(name: str) -> str:
+    for cat, pattern in CATEGORIES:
+        if re.search(pattern, name, re.IGNORECASE):
+            return cat
+    return "other"
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--out", default=None)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_torch_slice: needs a CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+    cfg = load_config(DEFAULT_CONFIG)
+    predictor = Predictor(cfg, None, "cuda", seed=SEED)
+    rng = np.random.default_rng(SEED)
+    sizes = [(480, 640), (800, 1200), (600, 600), (720, 1280)]
+    requests = [
+        rng.integers(0, 256, size=(*sizes[i % len(sizes)], 3), dtype=np.uint8)
+        for i in range(BATCH)
+    ]
+    inputs = preprocess(requests, cfg, "cuda")
+    for _ in range(2):
+        predictor.forward(*inputs)
+    torch.cuda.synchronize()
+
+    wall = []
+    for _ in range(ITERS):
+        t0 = time.perf_counter()
+        predictor.forward(*inputs)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = statistics.median(wall)
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            predictor.forward(*inputs)
+        torch.cuda.synchronize()
+        profiled_wall_ms = (time.perf_counter() - t0) * 1e3 / ITERS
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            entry = by_name[e.name]
+            entry[0] += e.time_range.elapsed_us() / 1e3 / ITERS
+            entry[1] += 1
+    by_cat = defaultdict(float)
+    for name, (ms, _) in by_name.items():
+        by_cat[category(name)] += ms
+    device_ms = sum(by_cat.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
+    report = {
+        "card": card,
+        "batch": BATCH,
+        "canvas": list(inputs[0].shape[-2:]),
+        "wall_ms_per_forward": wall_ms,
+        "wall_ms_all": wall,
+        "profiled_wall_ms_per_forward": profiled_wall_ms,
+        "device_ms_per_forward": device_ms,
+        "device_idle_share": 1.0 - device_ms / wall_ms,
+        "device_idle_share_fastest_slowest": [1.0 - device_ms / min(wall), 1.0 - device_ms / max(wall)],
+        "kernels_per_forward": sum(n for _, n in by_name.values()) / ITERS,
+        "device_ms_by_category": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
+        "top_kernels": [
+            {"name": name[:120], "ms_per_forward": ms, "launches_per_forward": n / ITERS}
+            for name, (ms, n) in top
+        ],
+    }
+    line = json.dumps(report)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(line + "\n")
+    print(line)
+
+
+if __name__ == "__main__":
+    main()
