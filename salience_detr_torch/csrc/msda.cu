@@ -39,61 +39,9 @@
 #include <stdint.h>
 
 #include "levels.cuh"
+#include "msda_common.cuh"
 
 namespace {
-
-constexpr int kWarpsPerBlock = 8;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// CPL consecutive elements at p (16 B aligned when CPL * sizeof(T) is a
-// multiple of 16) -> f32 registers.
-template <typename T, int CPL>
-__device__ __forceinline__ void load_chunk(const T* __restrict__ p, float (&v)[CPL]) {
-  constexpr int kBytes = CPL * static_cast<int>(sizeof(T));
-  if constexpr (kBytes % 16 == 0) {
-    constexpr int kPerVec = 16 / static_cast<int>(sizeof(T));
-#pragma unroll
-    for (int i = 0; i < kBytes / 16; ++i) {
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p) + i);
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int j = 0; j < kPerVec; ++j) v[i * kPerVec + j] = to_float(e[j]);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < CPL; ++i) v[i] = to_float(p[i]);
-  }
-}
-
-template <typename T, int CPL>
-__device__ __forceinline__ void store_chunk(T* __restrict__ p, const float (&v)[CPL]) {
-  constexpr int kBytes = CPL * static_cast<int>(sizeof(T));
-  if constexpr (kBytes % 16 == 0) {
-    constexpr int kPerVec = 16 / static_cast<int>(sizeof(T));
-#pragma unroll
-    for (int i = 0; i < kBytes / 16; ++i) {
-      uint4 raw;
-      T* e = reinterpret_cast<T*>(&raw);
-#pragma unroll
-      for (int j = 0; j < kPerVec; ++j) e[j] = from_float<T>(v[i * kPerVec + j]);
-      reinterpret_cast<uint4*>(p)[i] = raw;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < CPL; ++i) p[i] = from_float<T>(v[i]);
-  }
-}
 
 // value (B, S, C), loc (B, Q, G, L, P, 2) f32, attn (B, Q, H, L, P) f32,
 // out (B, Q, C).  Lane `lane` of the warp for (b, q) owns channels
@@ -128,8 +76,8 @@ msda_forward_kernel(const T* __restrict__ value, const LevelTable levels,
       const float a = __ldg(attn_q + l * P + p);
       // clamping to [-2, size + 1] changes no corner's validity and keeps the
       // float -> int conversion defined for far-away points
-      const float x = fminf(fmaxf(xy.x * lw - 0.5f, -2.f), lw + 1.f);
-      const float y = fminf(fmaxf(xy.y * lh - 0.5f, -2.f), lh + 1.f);
+      const float x = fminf(fmaxf(pixel_coord(xy.x, lw), -2.f), lw + 1.f);
+      const float y = fminf(fmaxf(pixel_coord(xy.y, lh), -2.f), lh + 1.f);
       const float x0f = floorf(x), y0f = floorf(y);
       const float fx = x - x0f, fy = y - y0f;
       const int x0 = static_cast<int>(x0f), y0 = static_cast<int>(y0f);
@@ -184,11 +132,7 @@ int dispatch(const void* value, const LevelTable& levels, const void* loc, const
 extern "C" int msda_forward(const void* value, int value_is_bf16, LevelTable levels,
                             const void* loc, const void* attn, void* out, int B, int S,
                             int Q, int C, int H, int G, int P, void* stream) {
-  if (C <= 0 || C % 32 != 0 || H <= 0 || C % H != 0 || (C / H) % (C / 32) != 0 || G <= 0 ||
-      H % G != 0 || levels.num_levels <= 0 || levels.num_levels > kLevelsMax ||
-      level_table_tokens(levels) != S) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!shapes_ok(levels, S, C, H, G)) return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<int64_t>(B) * Q == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (value_is_bf16) {

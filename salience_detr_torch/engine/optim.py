@@ -1,0 +1,129 @@
+"""Optimizer of the port (port of salience_detr_tpu/engine/optim.py): AdamW
+with the reference's six parameter groups, the warmup + multi-step schedule,
+and global-norm gradient clipping over the trainable parameters.
+
+The JAX chain is freeze -> clip the global norm -> Adam (eps 1e-8) ->
+decoupled weight decay -> lr multiplier -> schedule.  Frozen parameters have
+``requires_grad=False`` here and are in no group; ``torch.optim.AdamW`` with
+one group per (lr multiplier, weight decay) pair, its lr set to
+schedule(step) * multiplier before each step, computes the same update:
+p -= lr * mult * (adam + wd * p).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Iterable, Sequence, Tuple
+
+import torch
+from torch import nn
+
+LR_MULT = {
+    "other": 1.0,
+    "other_norm": 1.0,
+    "backbone": 0.1,
+    "backbone_norm": 0.1,
+    "linear_projection": 0.1,
+    "linear_projection_norm": 0.1,
+}
+WD_APPLIES = {
+    "other": True,
+    "backbone": True,
+    "linear_projection": True,
+    "other_norm": False,
+    "backbone_norm": False,
+    "linear_projection_norm": False,
+}
+
+
+def param_group_of(name: str, in_layer_norm: bool) -> str:
+    """The group of the parameter ``name`` (a ``named_parameters`` name),
+    ``in_layer_norm`` telling whether its module is a LayerNorm.
+
+    The JAX classifier reads flax paths: backbone and deformable-attention
+    projections (sampling_offsets / reference_points) at 0.1x lr, biases and
+    parameters under a path component containing "norm" without weight
+    decay.  On the port's names that is: a leaf ending in "bias" (the merged
+    ``in_proj_bias`` is flax's q/k/v ``bias``), or a LayerNorm's parameter
+    (every flax LayerNorm has "norm" in its name; GroupNorm and BatchNorm
+    live under "gn" / "bn" there and stay in the decayed groups)."""
+    comps = name.split(".")
+    is_backbone = comps[0] == "backbone"
+    is_proj = any(c in ("sampling_offsets", "reference_points") for c in comps)
+    is_norm_bias = comps[-1].endswith("bias") or in_layer_norm
+    if is_backbone and not is_proj:
+        return "backbone_norm" if is_norm_bias else "backbone"
+    if is_proj and not is_backbone:
+        return "linear_projection_norm" if is_norm_bias else "linear_projection"
+    return "other_norm" if is_norm_bias else "other"
+
+
+def named_param_groups(model: nn.Module) -> Dict[str, str]:
+    """{parameter name: group} for every trainable parameter."""
+    groups = {}
+    for mod_name, module in model.named_modules():
+        for p_name, param in module.named_parameters(recurse=False):
+            if param.requires_grad:
+                name = f"{mod_name}.{p_name}" if mod_name else p_name
+                groups[name] = param_group_of(name, isinstance(module, nn.LayerNorm))
+    return groups
+
+
+def make_lr_schedule(
+    base_lr: float,
+    steps_per_epoch: int,
+    milestones: Sequence[int] = (10,),
+    gamma: float = 0.1,
+    warmup_factor: float = 1.0 / 1000,
+    warmup_steps: int = None,
+) -> Callable[[int], float]:
+    """Warmup (linear from ``warmup_factor``, epoch 0 only) and multi-step
+    epoch decay, as a function of the step."""
+    if warmup_steps is None:
+        warmup_steps = min(1000, steps_per_epoch)
+
+    def schedule(step: int) -> float:
+        warm = 1.0
+        if step < warmup_steps:
+            warm = warmup_factor + (1.0 - warmup_factor) * step / max(warmup_steps, 1)
+        decay = gamma ** sum(step >= m * steps_per_epoch for m in milestones)
+        return base_lr * warm * decay
+
+    return schedule
+
+
+def build_optimizer(
+    model: nn.Module,
+    base_lr: float = 1e-4,
+    weight_decay: float = 1e-4,
+    betas: Tuple[float, float] = (0.9, 0.999),
+) -> torch.optim.AdamW:
+    """AdamW over the trainable parameters, one group per (lr multiplier,
+    weight decay); each group carries its ``lr_mult``."""
+    params = dict(model.named_parameters())
+    buckets: Dict[Tuple[float, float], list] = {}
+    for name, group in named_param_groups(model).items():
+        key = (LR_MULT[group], weight_decay if WD_APPLIES[group] else 0.0)
+        buckets.setdefault(key, []).append(params[name])
+    groups = [
+        {"params": ps, "lr": base_lr * mult, "lr_mult": mult, "weight_decay": wd}
+        for (mult, wd), ps in buckets.items()
+    ]
+    return torch.optim.AdamW(groups, lr=base_lr, betas=betas, eps=1e-8, weight_decay=weight_decay)
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    for group in optimizer.param_groups:
+        group["lr"] = lr * group["lr_mult"]
+
+
+@torch.no_grad()
+def clip_grad_global_norm_(params: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm in place: when the global norm of the
+    gradients exceeds ``max_norm`` they are scaled by max_norm / norm (no
+    epsilon, unlike ``torch.nn.utils.clip_grad_norm_``).  Returns the norm
+    before clipping, on the device."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    scale = torch.where(norm > max_norm, max_norm / norm, torch.ones_like(norm))
+    torch._foreach_mul_(grads, scale)
+    return norm

@@ -8,7 +8,7 @@ are torchvision's, so ``state_dict()`` keys are upstream's ``backbone.*``.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -105,3 +105,14 @@ class ResNetBackbone(nn.Module):
             if stage in self.return_indices:
                 outputs[stage] = x
         return outputs
+
+
+def freeze_stages(backbone: ResNetBackbone, freeze_indices: Sequence[int]) -> None:
+    """Stop training the stem and the given stages (the JAX package's
+    ``frozen_param_predicate``, the reference's ``_freeze_stages``): any
+    frozen stage also freezes the stem.  The BatchNorms are frozen anyway."""
+    if len(freeze_indices) == 0:
+        return
+    backbone.conv1.requires_grad_(False)
+    for idx in freeze_indices:
+        getattr(backbone, f"layer{idx + 1}").requires_grad_(False)

@@ -76,7 +76,13 @@ class MultiScaleDeformableAttention(nn.Module):
 class MultiheadAttention(nn.Module):
     """Dense multi-head attention with torch ``nn.MultiheadAttention``'s
     parameter names (merged ``in_proj``), computed by SDPA.  The JAX package
-    computes this attention outside any kernel, as XLA ops."""
+    computes this attention outside any kernel, as XLA ops.
+
+    ``attn_mask`` has the JAX package's polarity: True means BLOCKED (the
+    JAX code fills those logits with -1e30), shape (Q, K) or (B, Q, K).  It is
+    inverted once here for SDPA, whose boolean mask means attend.  Every row
+    must keep at least one key: the CDN mask lets each dead slot see itself.
+    """
 
     def __init__(self, embed_dim: int, num_heads: int):
         super().__init__()
@@ -85,7 +91,8 @@ class MultiheadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
 
-    def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+    def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
+                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, Q, C = query.shape
         H = self.num_heads
         w_q, w_k, w_v = self.in_proj_weight.chunk(3)
@@ -94,7 +101,11 @@ class MultiheadAttention(nn.Module):
         def heads(x, w, b):
             return F.linear(x, w, b).reshape(B, -1, H, C // H).transpose(1, 2)
 
+        attend = None
+        if attn_mask is not None:
+            attend = ~(attn_mask[:, None] if attn_mask.dim() == 3 else attn_mask)
         out = F.scaled_dot_product_attention(
-            heads(query, w_q, b_q), heads(key, w_k, b_k), heads(value, w_v, b_v)
+            heads(query, w_q, b_q), heads(key, w_k, b_k), heads(value, w_v, b_v),
+            attn_mask=attend,
         )
         return self.out_proj(out.transpose(1, 2).reshape(B, Q, C))

@@ -1,4 +1,4 @@
-"""Salience transformer, eval forward (port of
+"""Salience transformer, eval and train forward (port of
 salience_detr_tpu/models/bricks/salience_transformer.py).
 
 Hierarchical salience filtering encoder, two-stage proposal selection with
@@ -11,13 +11,18 @@ from ``layer_filter_ratio``, and the two-stage NMS returns exactly
 backfill.  Every top-k goes through ``stable_topk``: padded tokens share one
 minimum score and the JAX selections break such ties by lower index.
 
+In training, the contrastive-denoising queries go in front of the matching
+queries and the decoder's self-attention takes the CDN mask; gradients stop
+where the JAX package stops them (the proposals fed to the decoder, each
+layer's reference input and the refinement's input).
+
 Token tensors are (B, S, C) in row-major y*w+x order per level, levels
 concatenated; feature maps enter and leave the RepVGG neck as NCHW.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -145,9 +150,9 @@ class SalienceDecoderLayer(nn.Module):
         self.norm3 = nn.LayerNorm(embed_dim, eps=LN_EPS)
 
     def forward(self, query, query_pos, reference_points, value, spatial_shapes,
-                key_padding_mask):
+                key_padding_mask, attn_mask=None):
         qk = query + query_pos
-        query = self.norm2(query + self.self_attn(qk, qk, query))
+        query = self.norm2(query + self.self_attn(qk, qk, query, attn_mask))
         q2 = self.cross_attn(
             query + query_pos, reference_points, value, spatial_shapes, key_padding_mask
         )
@@ -298,6 +303,9 @@ class SalienceTransformer(nn.Module):
         multi_level_pos: List[torch.Tensor],  # [(B, h, w, C)] channel-last
         valid_hw: List[torch.Tensor],  # [(B, 2)] valid (h, w) per level
         valid_ratios: torch.Tensor,  # (B, L, 2) (w, h) ratios
+        noised_label_query: Optional[torch.Tensor] = None,  # (B, NDN, C) CDN, train only
+        noised_box_query: Optional[torch.Tensor] = None,  # (B, NDN, 4) logits
+        attn_mask: Optional[torch.Tensor] = None,  # (NDN + Q, NDN + Q) True = blocked
     ):
         spatial_shapes = [tuple(f.shape[-2:]) for f in multi_level_feats]
         level_sizes = [h * w for h, w in spatial_shapes]
@@ -400,22 +408,31 @@ class SalienceTransformer(nn.Module):
         enc_coord = _take(enc_outputs_coord, nms_index)
 
         target = self.tgt_embed.weight[None, :num_proposals].expand(B, -1, -1).to(memory.dtype)
+        reference_points = enc_coord.detach()
+        if noised_label_query is not None and noised_box_query is not None:
+            target = torch.cat([noised_label_query.to(target.dtype), target], 1)
+            reference_points = torch.cat([noised_box_query.sigmoid(), reference_points], 1)
         outputs_classes, outputs_coords = self._decode(
-            target, enc_coord.detach(), memory, mask_flatten, spatial_shapes, valid_ratios
+            target, reference_points, memory, mask_flatten, spatial_shapes, valid_ratios, attn_mask
         )
         return outputs_classes, outputs_coords, enc_class, enc_coord, salience_score, nms_index
 
     def _decode(self, query, reference_points, value, key_padding_mask, spatial_shapes,
-                valid_ratios):
-        """Decoder with look-forward-twice box refinement."""
+                valid_ratios, attn_mask=None):
+        """Decoder with look-forward-twice box refinement: each layer's box
+        output keeps the gradient through the previous layer's refined
+        reference, while the layer input and the next refinement see it
+        detached."""
         dec = self.decoder
         outputs_classes, outputs_coords = [], []
         vr_scale = torch.cat([valid_ratios, valid_ratios], -1)[:, None]  # (B, 1, L, 4)
         for i, layer in enumerate(dec.layers):
-            ref_in = reference_points[:, :, None] * vr_scale  # (B, Q, L, 4)
+            ref_in = reference_points.detach()[:, :, None] * vr_scale  # (B, Q, L, 4)
             query_sine = get_sine_pos_embed(ref_in[:, :, 0, :], num_pos_feats=self.embed_dim // 2)
             query_pos = dec.ref_point_head(query_sine.to(query.dtype))
-            query = layer(query, query_pos, ref_in, value, spatial_shapes, key_padding_mask)
+            query = layer(
+                query, query_pos, ref_in, value, spatial_shapes, key_padding_mask, attn_mask
+            )
             normed = dec.norm(query)
             outputs_classes.append(dec.class_head[i](normed))
             outputs_coords.append(
@@ -424,6 +441,6 @@ class SalienceTransformer(nn.Module):
             if i == len(dec.layers) - 1:
                 break
             reference_points = (
-                dec.bbox_head[i](query) + inverse_sigmoid(reference_points)
+                dec.bbox_head[i](query) + inverse_sigmoid(reference_points.detach())
             ).sigmoid()
         return torch.stack(outputs_classes), torch.stack(outputs_coords)

@@ -1,27 +1,29 @@
-"""Model factory (port of salience_detr_tpu/models/factory.py, eval-slice fields).
+"""Model factory (port of salience_detr_tpu/models/factory.py).
 
-``SalienceDETRConfig`` holds the fields the eval forward reads, with torch
-dtypes; ``build_salience_detr`` composes the detector, initializes it from an
-explicit ``torch.Generator`` with the JAX package's initializers (so that a
-random-weight model at full width samples sane locations), and moves it to
-the given device in eval mode.
+``SalienceDETRConfig`` holds the fields the eval and train paths read, with
+torch dtypes; ``build_salience_detr`` composes the detector, initializes it
+from an explicit ``torch.Generator`` with the JAX package's initializers (so
+that a random-weight model at full width samples sane locations), freezes the
+configured backbone stages, and moves it to the given device in eval mode;
+``build_criteria`` makes the matching and salience criteria.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from salience_detr_torch.models.backbones.resnet import ARCH_SETTINGS, ResNetBackbone
+from salience_detr_torch.models.backbones.resnet import ARCH_SETTINGS, ResNetBackbone, freeze_stages
 from salience_detr_torch.models.bricks.attention import (
     MultiheadAttention,
     MultiScaleDeformableAttention,
     offset_bias_grid,
 )
+from salience_detr_torch.models.bricks.criterion import SalienceCriterion, SetCriterion
 from salience_detr_torch.models.bricks.post_process import PostProcess
 from salience_detr_torch.models.bricks.salience_transformer import SalienceTransformer
 from salience_detr_torch.models.detectors.salience_detr import SalienceDETR
@@ -53,11 +55,24 @@ class SalienceDETRConfig:
     # backbone
     backbone: str = "resnet50"
     backbone_return_indices: Tuple[int, ...] = (1, 2, 3)
+    backbone_freeze_indices: Tuple[int, ...] = (0,)
+    # contrastive denoising: 2 * denoising_nums CDN slots in training
+    denoising_nums: int = 100
+    # matcher and losses
+    cost_class: float = 2.0
+    cost_bbox: float = 5.0
+    cost_giou: float = 2.0
+    focal_alpha: float = 0.25
+    focal_gamma: float = 2.0
+    salience_limit_range: Sequence[Tuple[float, float]] = (
+        (-1, 64), (64, 128), (128, 256), (256, 99999),
+    )
     # eval geometry: shortest side min_size, longest side at most max_size
     min_size: int = 800
     max_size: int = 1333
     select_box_nums_for_evaluation: int = 300
-    # compute dtype on CUDA (autocast); CPU runs float32
+    # compute dtype on CUDA (autocast; the master weights stay float32); CPU
+    # runs float32
     dtype: torch.dtype = torch.float32
 
     def encoder_groups(self) -> int:
@@ -143,6 +158,17 @@ def build_salience_detr(
         encoder_sampling_groups=cfg.encoder_groups(),
         decoder_sampling_groups=cfg.decoder_groups(),
     )
-    model = SalienceDETR(backbone, neck, transformer, cfg.num_classes)
+    model = SalienceDETR(backbone, neck, transformer, cfg.num_classes, cfg.denoising_nums)
     init_weights(model, generator if generator is not None else torch.Generator().manual_seed(0))
+    freeze_stages(backbone, cfg.backbone_freeze_indices)
     return model.to(device).eval(), PostProcess(cfg.select_box_nums_for_evaluation)
+
+
+def build_criteria(cfg: SalienceDETRConfig):
+    """(SetCriterion, SalienceCriterion) of the config: hybrid IoU-aware
+    matching loss and the salience supervision, as the JAX factory builds."""
+    criterion = SetCriterion(
+        cfg.num_classes, cfg.cost_class, cfg.cost_bbox, cfg.cost_giou, cfg.focal_alpha,
+        cfg.focal_gamma, hybrid=True,
+    )
+    return criterion, SalienceCriterion(cfg.salience_limit_range, cfg.focal_alpha, cfg.focal_gamma)

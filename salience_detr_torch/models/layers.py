@@ -3,8 +3,8 @@
 Convolutions are NCHW on cuDNN.  Submodule names follow the upstream
 PyTorch layout, so ``state_dict()`` keys are the weight converter's source
 names.  The JAX package's ``Linear`` (a Dense with torch's default init) is
-``torch.nn.Linear`` here, and its ``BatchNorm`` is ``torch.nn.BatchNorm2d``,
-which uses its running statistics in eval mode.
+``torch.nn.Linear`` here, and its ``BatchNorm`` is :class:`BatchNorm2d`, which
+uses its running statistics in eval mode and trains as flax does.
 """
 
 from __future__ import annotations
@@ -29,6 +29,24 @@ class FrozenBatchNorm2d(nn.Module):
         w = self.weight * torch.rsqrt(self.running_var + self.eps)
         b = self.bias - self.running_mean * w
         return x * w[:, None, None].to(x.dtype) + b[:, None, None].to(x.dtype)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train mode follows flax's ``nn.BatchNorm``:
+    normalise with the batch mean and biased variance (f32 statistics), and
+    update the running statistics as ``r = 0.9 r + 0.1 batch`` (flax momentum
+    0.9, torch momentum 0.1) with the BIASED batch variance, where
+    ``nn.BatchNorm2d`` would use the unbiased one (n / (n - 1) larger).
+    Eval mode is ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
 
 class ConvNormAct(nn.Sequential):

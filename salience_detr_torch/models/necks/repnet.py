@@ -3,8 +3,9 @@ salience_detr_tpu/models/necks/repnet.py).
 
 The JAX package runs its grouped convs as dense convs with a block-diagonal
 kernel, a TPU lane workaround; here they are plain ``nn.Conv2d(groups=4)``
-holding the grouped weight.  BatchNorm runs in eval mode on its running
-statistics.
+holding the grouped weight.  BatchNorm (``models.layers.BatchNorm2d``) uses
+its running statistics in eval mode and, in train mode, batch statistics with
+flax's running update.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import List, Sequence
 import torch
 from torch import nn
 
-from salience_detr_torch.models.layers import GlobalContextSE
+from salience_detr_torch.models.layers import BatchNorm2d, GlobalContextSE
 
 
 def nearest_resize(x: torch.Tensor, out_hw) -> torch.Tensor:
@@ -34,7 +35,7 @@ class ConvBNAct(nn.Sequential):
         layers = [
             nn.Conv2d(cin, cout, kernel_size, stride, (kernel_size - 1) // 2,
                       groups=groups, bias=False),
-            nn.BatchNorm2d(cout, eps=1e-5),
+            BatchNorm2d(cout, eps=1e-5),
         ]
         if act:
             layers.append(nn.SiLU())

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` compile with ``nvcc`` into one shared library with a plain C
-interface, ``build/salience_detr_torch/<source-hash>/libkernels.so`` under the
+``csrc/*.cu`` compile with ``nvcc``, one process per source in parallel, into
+one shared library with a plain C interface,
+``build/salience_detr_torch/<source-hash>/libkernels.so`` under the
 repository root, on first use; the library is loaded with ``ctypes``.  Every
 pointer and the stream are passed as ``c_void_p``; the stream is PyTorch's
 current stream.  Each C entry point returns ``cudaGetLastError()`` after its
@@ -29,12 +30,11 @@ import torch
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "salience_detr_torch"
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 MAX_LEVELS = 16  # kLevelsMax in csrc/levels.cuh
 
-LAUNCHES = {"msda": 0, "grid_nms": 0}
+LAUNCHES = {"msda": 0, "msda_backward": 0, "grid_nms": 0, "hungarian": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -90,21 +90,35 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into libkernels.so unless that source hash is built."""
+    """Compile csrc/*.cu into libkernels.so unless that source hash is built:
+    one nvcc per source, all started together, then one link.  nvcc's
+    register and shared-memory report (``-Xptxas -v``) goes to build.log
+    beside the library."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    work = Path(tempfile.mkdtemp(dir=out.parent))
+    try:
+        jobs = []
+        for src in sorted(CSRC_DIR.glob("*.cu")):
+            cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(work / f"{src.stem}.o"),
+                   str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        log = [(cmd, proc.communicate()[1], proc) for cmd, proc in jobs]
+        for cmd, err, proc in log:
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+        objs = sorted(str(o) for o in work.glob("*.o"))
+        link = [_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(work / "libkernels.so"), *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(link)}\n{proc.stderr}")
+        (out.parent / "build.log").write_text("".join(err for _, err, _ in log))
+        os.replace(work / "libkernels.so", out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -119,8 +133,15 @@ def load() -> ctypes.CDLL:
             i32, i32, i32, i32, i32, i32, i32, ptr,
         ]
         lib.msda_forward.restype = i32
+        lib.msda_backward.argtypes = [
+            ptr, i32, LevelTable, ptr, ptr, ptr, ptr, ptr, ptr,
+            i32, i32, i32, i32, i32, i32, i32, ptr,
+        ]
+        lib.msda_backward.restype = i32
         lib.grid_nms_forward.argtypes = [ptr, LevelTable, ptr, i32, i32, i32, ptr]
         lib.grid_nms_forward.restype = i32
+        lib.hungarian_forward.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
+        lib.hungarian_forward.restype = i32
         lib.cuda_error_string.argtypes = [i32]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -6,14 +6,17 @@ the exact per-head sampling of ``ms_deform_attn_core`` /
 ``ms_deform_attn_core_quad``, and 1 < G < H the grouped sampling of
 ``ms_deform_attn_core_grouped``.  Head h uses location group h * G // H.
 
-* :func:`ms_deform_attn_plain` is the plain PyTorch version (explicit corner
-  gathers), the spec of the kernel, and runs on any device;
-* :func:`ms_deform_attn` is the wrapper of the CUDA kernel
-  ``csrc/msda.cu``: a CPU tensor goes to the plain version, a CUDA tensor
-  launches the kernel or raises.
+* :func:`ms_deform_attn_plain` is the plain PyTorch forward (explicit corner
+  gathers), the spec of the forward kernel ``csrc/msda.cu``, and
+  :func:`ms_deform_attn_backward_plain` the plain backward, the spec of the
+  backward kernel ``csrc/msda_backward.cu``; both run on any device;
+* :func:`ms_deform_attn` is the differentiable wrapper of the two kernels (a
+  ``torch.autograd.Function``): on CPU tensors its forward and backward are
+  the plain versions, on CUDA tensors they launch the kernels or raise.
 
 Semantics: grid_sample with align_corners=False and zero padding; corners
-outside their level get weight 0 and are never read.
+outside their level get weight 0 and are never read (nor written by the
+backward).
 """
 
 from __future__ import annotations
@@ -118,25 +121,76 @@ def ms_deform_attn_plain(
     return out.reshape(B, Q, C).to(value.dtype)
 
 
-def ms_deform_attn(
+def ms_deform_attn_backward_plain(
     value: torch.Tensor,
     spatial_shapes: Sequence[Tuple[int, int]],
     locations: torch.Tensor,
     weights: torch.Tensor,
-) -> torch.Tensor:
-    """Wrapper of the MSDA kernel (csrc/msda.cu); same contract as
-    :func:`ms_deform_attn_plain`.
+    d_out: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Vector-Jacobian product of :func:`ms_deform_attn_plain`: d_out (B, Q, C)
+    -> (d_value (B, S, C), d_locations (B, Q, G, L, P, 2), d_weights
+    (B, Q, H, L, P)), each in its input's dtype, accumulated in f32.
 
-    On CUDA the value must be a contiguous float32 or bfloat16 tensor whose
-    channels split into 32 lanes of 1, 2 or 8 channels each lying in one
-    head (C in {32, 64, 256}); locations and weights are cast to float32
-    here, since autocast does not reach the kernel call.
-    """
-    if value.device.type == "cpu":
-        return ms_deform_attn_plain(value, spatial_shapes, locations, weights)
+    Per corner: d_weights gains cw * <d_out_h, row>, d_value gains
+    attn * cw * d_out_h (``index_add_``), and d_locations the corner weight's
+    derivative (d wx / d x = -1 or +1, times the level width) times
+    attn * <d_out_h, row>, summed over the heads of each location group."""
+    B, S, C, Q, G, L, P, H = _check_shapes(value, spatial_shapes, locations, weights)
+    D = C // H
+    v = value.float().reshape(B, S * H, D)
+    heads = torch.arange(H, device=value.device)
+    loc = locations.float()[:, :, heads * G // H]  # (B, Q, H, L, P, 2)
+    attn = weights.float()
+    g = d_out.float().reshape(B, Q, H, 1, D)
+    d_v = torch.zeros(B * S * H, D, dtype=torch.float32, device=value.device)
+    d_attn = torch.zeros(B, Q, H, L, P, dtype=torch.float32, device=value.device)
+    d_x = torch.zeros(B, Q, H, L, P, dtype=torch.float32, device=value.device)
+    d_y = torch.zeros_like(d_x)
+    batch_rows = (torch.arange(B, device=value.device) * (S * H))[:, None, None, None]
+    start = 0
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        x = loc[:, :, :, lvl, :, 0] * w - 0.5  # (B, Q, H, P)
+        y = loc[:, :, :, lvl, :, 1] * h - 0.5
+        x0 = torch.floor(x)
+        y0 = torch.floor(y)
+        fx = x - x0
+        fy = y - y0
+        x0i = x0.long()
+        y0i = y0.long()
+        a = attn[:, :, :, lvl]  # (B, Q, H, P)
+        for dy, wy, sy in ((0, 1.0 - fy, -1.0), (1, fy, 1.0)):
+            for dx, wx, sx in ((0, 1.0 - fx, -1.0), (1, fx, 1.0)):
+                cx = x0i + dx
+                cy = y0i + dy
+                valid = ((cx >= 0) & (cx < w) & (cy >= 0) & (cy < h)).float()
+                token = start + cy.clamp(0, h - 1) * w + cx.clamp(0, w - 1)
+                row = token * H + heads[:, None]  # (B, Q, H, P)
+                rows = torch.gather(
+                    v, 1, row.reshape(B, -1, 1).expand(-1, -1, D)
+                ).reshape(B, Q, H, P, D)
+                dot = (rows * g).sum(-1) * valid  # <d_out_h, row>, 0 off the level
+                d_attn[:, :, :, lvl] += wx * wy * dot
+                d_x[:, :, :, lvl] += sx * wy * a * dot
+                d_y[:, :, :, lvl] += sy * wx * a * dot
+                contrib = (a * wx * wy * valid)[..., None] * g  # (B, Q, H, P, D)
+                d_v.index_add_(0, (row + batch_rows).reshape(-1), contrib.reshape(-1, D))
+        start += h * w
+    wh = device_constant([(w, h) for h, w in spatial_shapes], value.device)  # (L, 2)
+    d_loc = torch.stack([d_x, d_y], -1) * wh[:, None]  # (B, Q, H, L, P, 2)
+    d_loc = d_loc.reshape(B, Q, G, H // G, L, P, 2).sum(3)
+    return (
+        d_v.reshape(B, S, C).to(value.dtype),
+        d_loc.to(locations.dtype),
+        d_attn.to(weights.dtype),
+    )
+
+
+def _check_kernel_inputs(value, spatial_shapes, locations, weights):
     if value.device.type != "cuda":
         raise RuntimeError(f"ms_deform_attn: no kernel for device {value.device}")
-    B, S, C, Q, G, L, P, H = _check_shapes(value, spatial_shapes, locations, weights)
+    dims = _check_shapes(value, spatial_shapes, locations, weights)
+    C, H = dims[2], dims[7]
     if value.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"ms_deform_attn: value dtype {value.dtype} is not float32/bfloat16")
     if not value.is_contiguous() or value.data_ptr() % 16:
@@ -149,6 +203,11 @@ def ms_deform_attn(
         )
     if locations.device != value.device or weights.device != value.device:
         raise ValueError("ms_deform_attn: all inputs must be on one device")
+    return dims
+
+
+def _forward_cuda(value, spatial_shapes, locations, weights):
+    B, S, C, Q, G, L, P, H = _check_kernel_inputs(value, spatial_shapes, locations, weights)
     loc = locations.to(torch.float32).contiguous()
     attn = weights.to(torch.float32).contiguous()
     out = torch.empty((B, Q, C), dtype=value.dtype, device=value.device)
@@ -162,3 +221,72 @@ def ms_deform_attn(
     native.check(err, "msda_forward")
     native.LAUNCHES["msda"] += 1
     return out
+
+
+def _backward_cuda(value, spatial_shapes, locations, weights, d_out):
+    """K3: d_value accumulates by f32 atomics into a zeroed scratch buffer,
+    cast once to the value dtype; d_locations and d_weights are written
+    directly, in float32."""
+    B, S, C, Q, G, L, P, H = _check_kernel_inputs(value, spatial_shapes, locations, weights)
+    if tuple(d_out.shape) != (B, Q, C) or d_out.device != value.device:
+        raise ValueError(f"ms_deform_attn backward: d_out {tuple(d_out.shape)} != {(B, Q, C)}")
+    loc = locations.to(torch.float32).contiguous()
+    attn = weights.to(torch.float32).contiguous()
+    grad = d_out.to(value.dtype).contiguous()
+    d_value = torch.zeros((B, S, C), dtype=torch.float32, device=value.device)
+    d_loc = torch.empty((B, Q, G, L, P, 2), dtype=torch.float32, device=value.device)
+    d_attn = torch.empty((B, Q, H, L, P), dtype=torch.float32, device=value.device)
+    lib = native.load()
+    with torch.cuda.device(value.device):
+        err = lib.msda_backward(
+            value.data_ptr(), int(value.dtype == torch.bfloat16),
+            native.level_table(spatial_shapes), loc.data_ptr(), attn.data_ptr(),
+            grad.data_ptr(), d_value.data_ptr(), d_loc.data_ptr(), d_attn.data_ptr(),
+            B, S, Q, C, H, G, P, native.stream_of(value),
+        )
+    native.check(err, "msda_backward")
+    native.LAUNCHES["msda_backward"] += 1
+    return d_value.to(value.dtype), d_loc.to(locations.dtype), d_attn.to(weights.dtype)
+
+
+class _MSDeformAttn(torch.autograd.Function):
+    """Forward K1 / backward K3 on CUDA tensors, the plain versions on CPU
+    tensors; nothing on CUDA gives way to a plain version."""
+
+    @staticmethod
+    def forward(ctx, value, locations, weights, spatial_shapes):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, locations, weights)
+        if value.device.type == "cpu":
+            return ms_deform_attn_plain(value, spatial_shapes, locations, weights)
+        return _forward_cuda(value, spatial_shapes, locations, weights)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        value, locations, weights = ctx.saved_tensors
+        args = (value, ctx.spatial_shapes, locations, weights, d_out)
+        if value.device.type == "cpu":
+            grads = ms_deform_attn_backward_plain(*args)
+        else:
+            grads = _backward_cuda(*args)
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None)
+
+
+def ms_deform_attn(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    locations: torch.Tensor,
+    weights: torch.Tensor,
+) -> torch.Tensor:
+    """Differentiable MSDA through the kernels (csrc/msda.cu forward,
+    csrc/msda_backward.cu backward); same contract as
+    :func:`ms_deform_attn_plain`.
+
+    On CUDA the value must be a contiguous float32 or bfloat16 tensor whose
+    channels split into 32 lanes of 1, 2 or 8 channels each lying in one
+    head (C in {32, 64, 256}); locations and weights are cast to float32
+    for the kernels, since autocast does not reach a kernel call, and their
+    gradients come back in their own dtypes.
+    """
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    return _MSDeformAttn.apply(value, locations, weights, shapes)

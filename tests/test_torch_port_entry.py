@@ -107,6 +107,29 @@ print("ok")
     assert proc.stdout.strip().endswith("ok")
 
 
+def test_trainer_trains_without_jax():
+    """The train path (CDN, criteria, assignment, optimizer, loop) imports
+    no JAX."""
+    script = f"""
+import sys
+import torch
+from salience_detr_torch.engine.train import train_one_epoch
+from salience_detr_torch.models.factory import SalienceDETRConfig
+from salience_detr_torch.train import Trainer, load_train_config
+cfg = SalienceDETRConfig(**{TINY_TORCH!r})
+tc = dict(load_train_config(), max_gt=6, train_canvas=(96, 128), print_freq=1)
+trainer = Trainer(cfg, "cpu", seed=0, steps_per_epoch=2, train_cfg=tc)
+batches = trainer.batches(2, seed=0, counts=(3, 1))
+steps, metrics = train_one_epoch(trainer.step, batches, trainer.generator, 0, 1)
+assert steps == 2 and all(bool(torch.isfinite(v)) for v in metrics.values()), metrics
+assert "jax" not in sys.modules and "salience_detr_tpu" not in sys.modules, sorted(sys.modules)
+print("ok")
+"""
+    proc = run_python(["-c", script])
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
 @pytest.fixture
 def image_dir(tmp_path):
     rng = np.random.default_rng(1)

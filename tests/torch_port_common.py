@@ -28,7 +28,7 @@ TINY = dict(
     topk_sa=12, level_filter_ratio=(0.4, 0.8, 1.0, 1.0), layer_filter_ratio=(1.0, 0.5),
     max_num_embedding=16, min_size=96, max_size=128, select_box_nums_for_evaluation=20,
 )
-TINY_TORCH = dict(TINY, encoder_sampling_groups=1)
+TINY_TORCH = dict(TINY, encoder_sampling_groups=1, denoising_nums=4)
 TINY_JAX = dict(TINY, shared_sampling_locations=True, decoder_sampling_groups=0, denoising_nums=4)
 CANVAS = (96, 128)
 

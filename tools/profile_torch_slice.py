@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's flagship eval forward goes, on one CUDA card.
+"""Where the time of the PyTorch port's flagship eval forward and train step
+goes, on one CUDA card.
 
     python tools/profile_torch_slice.py [--out FILE.json]
 
 Builds the flagship R50 model (random weights from seed 0, bf16 autocast),
 serves one batch of 4 landscape requests padded to the 800x1344 canvas, and
-reports:
+reports for that forward (top-level keys) and, under "train", for the train
+step of ``salience_detr_torch.train.Trainer`` on synthetic B=4 800x1344
+batches (steps in place of forwards, plus the peak device memory):
 
 * wall ms per forward: host clock around ``Predictor.forward`` (model and
   post-processing) ending in a synchronisation, profiler off, median of 5,
@@ -43,11 +46,14 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from salience_detr_torch.inference import DEFAULT_CONFIG, Predictor, load_config, preprocess  # noqa: E402
+from salience_detr_torch.train import Trainer  # noqa: E402
 
 # first matching pattern names the category of a kernel
 CATEGORIES = [
     ("msda", r"msda_forward_kernel"),
+    ("msda_backward", r"msda_backward_kernel"),
     ("grid_nms", r"grid_nms_kernel"),
+    ("hungarian", r"hungarian_kernel"),
     ("conv", r"fprop|dgrad|conv|cudnn|nchw|nhwc|implicit"),
     ("sdpa", r"flash|fmha|attention"),
     ("gemm", r"gemm|cutlass|cublas|matmul|splitK"),
@@ -66,6 +72,49 @@ def category(name: str) -> str:
         if re.search(pattern, name, re.IGNORECASE):
             return cat
     return "other"
+
+
+def measure(run, iters: int):
+    """Host-clock ms of ``iters`` calls of ``run`` (profiler off), then the
+    device activities of ``iters`` more under device-only tracing."""
+    wall = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = statistics.median(wall)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+        profiled_wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            entry = by_name[e.name]
+            entry[0] += e.time_range.elapsed_us() / 1e3 / iters
+            entry[1] += 1
+    by_cat = defaultdict(float)
+    for name, (ms, _) in by_name.items():
+        by_cat[category(name)] += ms
+    device_ms = sum(by_cat.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
+    return {
+        "wall_ms_per_forward": wall_ms,
+        "wall_ms_all": wall,
+        "profiled_wall_ms_per_forward": profiled_wall_ms,
+        "device_ms_per_forward": device_ms,
+        "device_idle_share": 1.0 - device_ms / wall_ms,
+        "device_idle_share_fastest_slowest": [1.0 - device_ms / min(wall), 1.0 - device_ms / max(wall)],
+        "kernels_per_forward": sum(n for _, n in by_name.values()) / iters,
+        "device_ms_by_category": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
+        "top_kernels": [
+            {"name": name[:120], "ms_per_forward": ms, "launches_per_forward": n / iters}
+            for name, (ms, n) in top
+        ],
+    }
 
 
 def main(argv=None):
@@ -91,49 +140,22 @@ def main(argv=None):
     for _ in range(2):
         predictor.forward(*inputs)
     torch.cuda.synchronize()
+    report = {"card": card, "batch": BATCH, "canvas": list(inputs[0].shape[-2:])}
+    report.update(measure(lambda: predictor.forward(*inputs), ITERS))
+    del predictor
 
-    wall = []
-    for _ in range(ITERS):
-        t0 = time.perf_counter()
-        predictor.forward(*inputs)
-        torch.cuda.synchronize()
-        wall.append((time.perf_counter() - t0) * 1e3)
-    wall_ms = statistics.median(wall)
+    # the train step: warm-up, then steps on one batch (a fresh batch per
+    # step would add host time that the step itself does not spend)
+    trainer = Trainer(cfg, "cuda", seed=SEED, steps_per_epoch=1000)
+    batch = next(trainer.batches(1, seed=SEED))
+    for _ in range(2):
+        trainer.step(batch, trainer.generator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train = measure(lambda: trainer.step(batch, trainer.generator), ITERS)
+    train["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    report["train"] = {k.replace("_per_forward", "_per_step"): v for k, v in train.items()}
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(ITERS):
-            predictor.forward(*inputs)
-        torch.cuda.synchronize()
-        profiled_wall_ms = (time.perf_counter() - t0) * 1e3 / ITERS
-    by_name = defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            entry = by_name[e.name]
-            entry[0] += e.time_range.elapsed_us() / 1e3 / ITERS
-            entry[1] += 1
-    by_cat = defaultdict(float)
-    for name, (ms, _) in by_name.items():
-        by_cat[category(name)] += ms
-    device_ms = sum(by_cat.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
-    report = {
-        "card": card,
-        "batch": BATCH,
-        "canvas": list(inputs[0].shape[-2:]),
-        "wall_ms_per_forward": wall_ms,
-        "wall_ms_all": wall,
-        "profiled_wall_ms_per_forward": profiled_wall_ms,
-        "device_ms_per_forward": device_ms,
-        "device_idle_share": 1.0 - device_ms / wall_ms,
-        "device_idle_share_fastest_slowest": [1.0 - device_ms / min(wall), 1.0 - device_ms / max(wall)],
-        "kernels_per_forward": sum(n for _, n in by_name.values()) / ITERS,
-        "device_ms_by_category": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
-        "top_kernels": [
-            {"name": name[:120], "ms_per_forward": ms, "launches_per_forward": n / ITERS}
-            for name, (ms, n) in top
-        ],
-    }
     line = json.dumps(report)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
