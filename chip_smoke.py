@@ -37,7 +37,17 @@ non-zero exit and no result line:
    autocast, gts padded to 100 with 24, 7, 40 and 1 valid: one warm-up step
    through ``train_one_epoch``, then 3 timed steps whose launch counters must
    show 12 MSDA forward, 12 MSDA backward, 1 NMS and 7 assignment launches
-   each; losses finite, trainable parameters moved, frozen ones not.
+   each; losses finite, trainable parameters moved, frozen ones not;
+11. msda_stages: the staged MSDA shootout's entry point
+   (python -m salience_detr_torch.tools.msda_stages --q 11403 --iters 3:
+   every pipeline checked against the plain MSDA at Q=256, then timed beside
+   K1, the kernel-only timings and the row-width scan); its launch counters
+   must show each stage kernel K5-K8 launched.  Then, at the hot layer (B=4,
+   Q=11403, bf16 rows), each stage kernel against its plain version with
+   times (K6 with f32 and bf16 weights, K7 and K8 with f32 and bf16 outputs,
+   K8 with bf16 weights), and each of the seven pipelines against K1 within
+   the shootout's check bound (rtol 0.05, atol 0.02).  The serve and train
+   phases' counters show no stage-kernel launch.
 
 The line before the last is {"kernels": [...]}, the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
@@ -47,7 +57,6 @@ from __future__ import annotations
 
 import json
 import statistics
-import subprocess
 import sys
 import time
 
@@ -61,6 +70,7 @@ from salience_detr_torch.models.bricks.attention import MultiScaleDeformableAtte
 from salience_detr_torch.models.bricks.criterion import Targets, compute_matching_cost
 from salience_detr_torch.models.bricks.denoising import cdn_draws
 from salience_detr_torch.models.factory import SalienceDETRConfig
+from salience_detr_torch.ops import msda_stages as stages
 from salience_detr_torch.ops.deform_attn import (
     _backward_cuda,
     ms_deform_attn,
@@ -69,6 +79,8 @@ from salience_detr_torch.ops.deform_attn import (
 )
 from salience_detr_torch.ops.hungarian import batched_assignment, batched_assignment_plain
 from salience_detr_torch.ops.nms import grid_nms_topk, grid_nms_topk_plain
+from salience_detr_torch.timing import card_line, cuda_ms
+from salience_detr_torch.tools import msda_stages as stage_tool
 from salience_detr_torch.train import GT_COUNTS, Trainer, load_train_config
 
 LEVELS = [(100, 168), (50, 84), (25, 42), (13, 21)]  # 800x1344 canvas, strides 8..64
@@ -91,6 +103,8 @@ BWD_TOL = {
     torch.bfloat16: {"d_value": (1e-3, 1e-2), "d_locations": (1e-5, 1e-4), "d_weights": (1e-5, 1e-4)},
 }
 HUNGARIAN_COUNTS = [(24, 7, 40, 1), (100, 0, 57, 100)]
+STAGE_KERNELS = ("gather_sum", "weighted_reduce", "corner_collapse_blocked", "corner_collapse_packed")
+NO_STAGE_LAUNCHES = {k: 0 for k in STAGE_KERNELS}
 SMALL = dict(
     backbone="resnet18", embed_dim=32, num_classes=5, num_queries=24,
     num_encoder_layers=2, num_decoder_layers=2, num_heads=4, dim_feedforward=64,
@@ -99,25 +113,10 @@ SMALL = dict(
 )
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device milliseconds per call over ``iters`` calls, after one warm-up."""
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def phase_device():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: torch.cuda.is_available() is False")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(smi)
     print(f"device: torch {torch.__version__} cuda {torch.version.cuda} "
           f"name={torch.cuda.get_device_name(0)} count={torch.cuda.device_count()}")
@@ -234,7 +233,8 @@ def phase_serve(smi):
     torch.cuda.synchronize()
     launches = dict(native.LAUNCHES)
     layers = cfg.num_encoder_layers + cfg.num_decoder_layers
-    if launches != {"msda": layers * forwards, "grid_nms": forwards, "msda_backward": 0, "hungarian": 0}:
+    if launches != {"msda": layers * forwards, "grid_nms": forwards, "msda_backward": 0, "hungarian": 0,
+                    **NO_STAGE_LAUNCHES}:
         raise AssertionError(f"launch counts {launches} for {forwards} forwards")
     k = cfg.select_box_nums_for_evaluation
     for sizes, batch in zip(SERVE_BATCHES, results):
@@ -440,7 +440,7 @@ def phase_train_slice():
 
 def phase_train(smi):
     cfg = load_config(DEFAULT_CONFIG)  # the flagship
-    per_step = {"msda": 12, "msda_backward": 12, "grid_nms": 1, "hungarian": 7}
+    per_step = {"msda": 12, "msda_backward": 12, "grid_nms": 1, "hungarian": 7, **NO_STAGE_LAUNCHES}
     timed = 3
     trainer = Trainer(cfg, "cuda", seed=0, steps_per_epoch=1 + timed)
     batches = list(trainer.batches(1 + timed, seed=0, counts=GT_COUNTS))
@@ -497,6 +497,94 @@ def phase_train(smi):
     return launches
 
 
+def phase_msda_stages(smi):
+    """The shootout's entry point at the hot layer, counted; then K5-K8
+    against their plain versions and the pipelines against K1 (uncounted)."""
+    t0 = time.perf_counter()
+    for k in native.LAUNCHES:
+        native.LAUNCHES[k] = 0
+    rc = stage_tool.main(["--q", "11403", "--iters", "3"])
+    torch.cuda.synchronize()
+    launches = {k: native.LAUNCHES[k] for k in STAGE_KERNELS}
+    if rc != 0 or not all(launches.values()):
+        raise AssertionError(f"msda_stages entry point: exit {rc}, stage launches {launches}")
+    B, Q = 4, 11403
+    parts, results = stage_checks(torch.device("cuda"), B, Q)
+    print(f"msda_stages: entry point exit {rc}, stage launches {launches}; B={B} Q={Q} C=256 bf16 rows; "
+          f"{'; '.join(parts)}; phase_s={time.perf_counter() - t0:.2f}; card: {smi}")
+    return launches, results
+
+
+def stage_checks(dev, B, Q):
+    """K5-K8 against their plain versions (times beside) and the pipelines
+    against K1, on the shootout's inputs over LEVELS.  Returns the report's
+    parts and, per kernel, (largest error, (ms, plain ms) of its first case)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    value, locs, w = stages.make_inputs(Q, LEVELS, B, generator=gen, device=dev)
+    C = value.shape[-1]
+    results, parts = {}, []
+
+    def kernel_vs_plain(key, label, fn, plain, dtype):
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        max_abs, _, bad, atol, rtol = compare(got, want, dtype)
+        del got, want
+        ms, plain_ms = cuda_ms(fn, 10), cuda_ms(plain, 3)
+        parts.append(f"{label} max_abs_err={max_abs:.3e} (atol {atol} rtol {rtol}, violations {bad}) "
+                     f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+        if bad:
+            raise AssertionError(f"{label}: the kernel disagrees with its plain version in {bad} elements")
+        worst, timing = results.get(key, (0.0, (ms, plain_ms)))  # first case: the main path's
+        results[key] = (max(worst, max_abs), timing)
+
+    gv, gidx = stage_tool.gather_inputs(Q, LEVELS, gen, dev)
+    gidx = gidx.permute(0, 2, 1, 3).contiguous()
+    kernel_vs_plain("gather_sum", f"K5 gather_sum (B,H,Q,G)={tuple(gidx.shape)} bf16",
+                    lambda: stages.gather_sum(gv, gidx), lambda: stages.gather_sum_plain(gv, gidx),
+                    torch.bfloat16)
+    del gv, gidx
+
+    base, wt = stages.quad_base_and_weights(locs, w, LEVELS)
+    rows = stage_tool.gather_rows(stages.build_quad(value, LEVELS), base).reshape(B * Q, 16, 4 * C)
+    for wdtype in (torch.float32, torch.bfloat16):
+        wq = wt.reshape(B * Q, 16, -1).to(wdtype)
+        kernel_vs_plain("weighted_reduce", f"K6 weighted_reduce quad rows weights {str(wdtype)[6:]}",
+                        lambda: stages.weighted_reduce(rows, wq, 4),
+                        lambda: stages.weighted_reduce_plain(rows, wq, 4), torch.float32)
+    del rows, wt, wq
+
+    idx, cw, n_items, _ = stages.corner_blocked(locs, LEVELS, stage_tool.BLK)
+    rows = torch.index_select(value.reshape(-1, C), 0, idx).reshape(cw.shape[0], -1, C)
+    cw = cw.reshape(cw.shape[0], -1)
+    for out in (torch.float32, torch.bfloat16):
+        kernel_vs_plain("corner_collapse_blocked", f"K7 corner_collapse_blocked out {str(out)[6:]}",
+                        lambda: stages.corner_collapse_blocked(rows, cw, n_items, out),
+                        lambda: stages.corner_collapse_blocked_plain(rows, cw, n_items, out), out)
+    del rows, cw
+
+    idx, cw = stages.corners_pmajor(locs, LEVELS)
+    rows = stage_tool.gather_rows(value, idx).reshape(n_items, 4 * C)
+    cw = cw.reshape(n_items, 4)
+    for wdtype, out in ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+                        (torch.bfloat16, torch.bfloat16)):
+        wp = cw.to(wdtype)
+        kernel_vs_plain("corner_collapse_packed",
+                        f"K8 corner_collapse_packed weights {str(wdtype)[6:]} out {str(out)[6:]}",
+                        lambda: stages.corner_collapse_packed(rows, wp, out),
+                        lambda: stages.corner_collapse_packed_plain(rows, wp, out), out)
+    del rows, cw, wp
+
+    k1 = ms_deform_attn(value, LEVELS, locs[:, :, None].contiguous(), w).float()
+    for name, fn in stage_tool.PIPELINES.items():
+        err = (fn(value, LEVELS, locs, w).float() - k1).abs()
+        bound = stage_tool.CHECK_ATOL + stage_tool.CHECK_RTOL * k1.abs()
+        ratio = float((err / bound).max())
+        parts.append(f"{name}_vs_K1 max_abs_err={float(err.max()):.3e} max_err/bound={ratio:.3e}")
+        if ratio > 1:
+            raise AssertionError(f"pipeline {name} disagrees with K1 beyond rtol 0.05 / atol 0.02")
+    return parts, results
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -510,7 +598,9 @@ def main():
     hung_err, hung_t = phase_hungarian()
     phase_train_slice()
     train_launches = phase_train(smi)
-    print(f"serve launches {serve_launches}; train launches {train_launches}")
+    stage_launches, stage_results = phase_msda_stages(smi)
+    print(f"serve launches {serve_launches}; train launches {train_launches}; "
+          f"msda_stages launches {stage_launches}")
     kernels = [
         {"name": "msda_forward", "route": "cuda", "source": "salience_detr_torch/csrc/msda.cu",
          "replaces": "salience_detr_tpu/ops/deform_attn.py:768", "launches": train_launches["msda"],
@@ -527,6 +617,17 @@ def main():
          "replaces": "salience_detr_tpu/ops/hungarian.py:36", "launches": train_launches["hungarian"],
          "max_abs_err": hung_err, "ms": hung_t[0], "plain_ms": hung_t[1]},
     ]
+    for name, source, replaces in (
+        ("gather_sum", "gather_sum.cu", "tools/bench_gather.py:64"),
+        ("weighted_reduce", "weighted_reduce.cu", "tools/bench_msda2.py:201, tools/bench_msda3.py:44"),
+        ("corner_collapse_blocked", "corner_collapse.cu", "tools/bench_msda2.py:638"),
+        ("corner_collapse_packed", "corner_collapse.cu",
+         "tools/bench_msda2.py:677, tools/bench_msda5.py:73, tools/bench_msda5.py:165"),
+    ):
+        err, (ms, plain_ms) = stage_results[name]
+        kernels.append({"name": name, "route": "cuda", "source": f"salience_detr_torch/csrc/{source}",
+                        "replaces": replaces, "launches": stage_launches[name], "max_abs_err": err,
+                        "ms": ms, "plain_ms": plain_ms})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -34,7 +34,12 @@ NVCC_FLAGS = (
 )
 MAX_LEVELS = 16  # kLevelsMax in csrc/levels.cuh
 
-LAUNCHES = {"msda": 0, "msda_backward": 0, "grid_nms": 0, "hungarian": 0}
+LAUNCHES = {
+    "msda": 0, "msda_backward": 0, "grid_nms": 0, "hungarian": 0,
+    # the stage kernels of the MSDA shootout (ops/msda_stages.py)
+    "gather_sum": 0, "weighted_reduce": 0, "corner_collapse_blocked": 0,
+    "corner_collapse_packed": 0,
+}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -127,7 +132,7 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.msda_forward.argtypes = [
             ptr, i32, LevelTable, ptr, ptr, ptr,
             i32, i32, i32, i32, i32, i32, i32, ptr,
@@ -142,6 +147,14 @@ def load() -> ctypes.CDLL:
         lib.grid_nms_forward.restype = i32
         lib.hungarian_forward.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
         lib.hungarian_forward.restype = i32
+        lib.gather_sum.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
+        lib.gather_sum.restype = i32
+        lib.weighted_reduce.argtypes = [ptr, ptr, i32, ptr, i64, i32, i32, i32, i32, ptr]
+        lib.weighted_reduce.restype = i32
+        lib.corner_collapse_blocked.argtypes = [ptr, ptr, i32, ptr, i32, i64, i32, i32, ptr]
+        lib.corner_collapse_blocked.restype = i32
+        lib.corner_collapse_packed.argtypes = [ptr, ptr, i32, ptr, i32, i64, i32, ptr]
+        lib.corner_collapse_packed.restype = i32
         lib.cuda_error_string.argtypes = [i32]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

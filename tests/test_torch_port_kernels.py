@@ -15,6 +15,7 @@ from salience_detr_torch.ops.deform_attn import (
     ms_deform_attn_backward_plain,
     ms_deform_attn_plain,
 )
+from salience_detr_torch.ops import msda_stages as st
 from salience_detr_torch.ops.hungarian import batched_assignment, batched_assignment_plain
 from salience_detr_torch.ops.nms import grid_nms_topk, grid_nms_topk_plain
 
@@ -36,9 +37,13 @@ def test_library_path_tracks_the_sources():
     assert path.name == "libkernels.so" and path.parent.name == native.source_hash()
     assert path.parent.parent == native.BUILD_ROOT
     assert {p.name for p in native.CSRC_DIR.glob("*.cu")} == {
-        "msda.cu", "msda_backward.cu", "grid_nms.cu", "hungarian.cu"
+        "msda.cu", "msda_backward.cu", "grid_nms.cu", "hungarian.cu",
+        "gather_sum.cu", "weighted_reduce.cu", "corner_collapse.cu",
     }
-    assert set(native.LAUNCHES) == {"msda", "msda_backward", "grid_nms", "hungarian"}
+    assert set(native.LAUNCHES) == {
+        "msda", "msda_backward", "grid_nms", "hungarian",
+        "gather_sum", "weighted_reduce", "corner_collapse_blocked", "corner_collapse_packed",
+    }
 
 
 @pytest.fixture
@@ -166,3 +171,102 @@ def test_hungarian_kernel_stops_on_nan_costs(cuda):
     assert bool((got[1] == -1).all()) and bool((got[3] == -1).all())
     keep = torch.tensor([0, 2], device=cuda)
     torch.testing.assert_close(got[keep], batched_assignment_plain(cost[keep], valid[keep]), rtol=0, atol=0)
+
+
+# the MSDA stage kernels K5-K8: f32 outputs within (atol 1e-5, rtol 1e-4),
+# f32 sums in another order; bf16 outputs within one bf16 ulp (both sides
+# round one f32 value)
+STAGE_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (4e-3, 1e-2)}
+
+
+def stage_close(got, want, dtype):
+    atol, rtol = STAGE_TOL[dtype]
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+def counted(name, fn, *args):
+    before = native.LAUNCHES[name]
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES[name] == before + 1, name
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [70, 5])
+def test_gather_sum_kernel_matches_plain(cuda, G):
+    """Q=37 queries of G rows each (70: two index windows, the second
+    ragged); a few indices outside [0, S) are skipped on the card, so the
+    plain version gets them as index 0 over a zero row 0."""
+    g = torch.Generator().manual_seed(10)
+    value = torch.randn(2, S, 4, 32, generator=g)
+    value[:, 0] = 0
+    idx = torch.randint(0, S, (2, 4, 37, G), generator=g, dtype=torch.int32)
+    bad = idx.clone()
+    bad[0, 0, 0, :3] = torch.tensor([-1, S, 1 << 30], dtype=torch.int32)
+    value = value.to(cuda, torch.bfloat16)
+    got = counted("gather_sum", st.gather_sum, value, bad.to(cuda))
+    idx[0, 0, 0, :3] = 0
+    stage_close(got, st.gather_sum_plain(value, idx.to(cuda)), torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,H", [(4, 8), (2, 32), (1, 1)])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_weighted_reduce_kernel_matches_plain(cuda, K, H, wdtype):
+    """N=45 rows (no multiple of any tile), I=5 items; C=256, and 512 for
+    K=1 (two channel chunks per lane)."""
+    g = torch.Generator().manual_seed(11)
+    C = 512 if K == 1 else 256
+    rows = torch.randn(45, 5, K * C, generator=g).to(cuda, torch.bfloat16)
+    wt = torch.rand(45, 5 * K, H, generator=g)  # each head's weights sum to 1
+    wt = (wt / wt.sum(1, keepdim=True)).reshape(45, 5, K * H).to(cuda, wdtype)
+    got = counted("weighted_reduce", st.weighted_reduce, rows, wt, K)
+    stage_close(got, st.weighted_reduce_plain(rows, wt, K), torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_corner_collapse_kernels_match_plain(cuda, out_dtype, wdtype):
+    """K7 on 3 groups of blk=16 with 37 items (the last group ragged) and K8
+    on 37 packed items; C=256 and 512."""
+    g = torch.Generator().manual_seed(12)
+    for C in (256, 512):
+        blocked = torch.randn(3, 64, C, generator=g).to(cuda, torch.bfloat16)
+        bw = torch.rand(3, 64, generator=g).to(cuda, wdtype)
+        got = counted("corner_collapse_blocked", st.corner_collapse_blocked, blocked, bw, 37, out_dtype)
+        assert tuple(got.shape) == (37, C)
+        stage_close(got, st.corner_collapse_blocked_plain(blocked, bw, 37, out_dtype), out_dtype)
+        packed = torch.randn(37, 4 * C, generator=g).to(cuda, torch.bfloat16)
+        pw = torch.rand(37, 4, generator=g).to(cuda, wdtype)
+        got = counted("corner_collapse_packed", st.corner_collapse_packed, packed, pw, out_dtype)
+        stage_close(got, st.corner_collapse_packed_plain(packed, pw, out_dtype), out_dtype)
+
+
+@pytest.mark.gpu
+def test_stage_kernels_reject_what_they_cannot_take(cuda):
+    rows = torch.randn(6, 4, 4 * 256, device=cuda).to(torch.bfloat16)
+    wt = torch.rand(6, 4, 4 * 8, device=cuda)
+    with pytest.raises(TypeError):
+        st.weighted_reduce(rows.float(), wt, 4)
+    with pytest.raises(TypeError):
+        st.weighted_reduce(rows, wt.double(), 4)
+    with pytest.raises(ValueError):
+        st.weighted_reduce(rows.transpose(0, 1), wt.transpose(0, 1), 4)  # not contiguous
+    with pytest.raises(ValueError):
+        st.weighted_reduce(rows, wt, 3)
+    packed, pw = rows.reshape(24, 1024), torch.rand(24, 4, device=cuda)
+    with pytest.raises(ValueError):
+        st.corner_collapse_packed(packed[:, :512], pw, torch.float32)  # not contiguous, C=128
+    with pytest.raises(TypeError):
+        st.corner_collapse_packed(packed, pw, torch.float16)
+    with pytest.raises(ValueError):
+        st.corner_collapse_blocked(packed.reshape(6, 16, 256), pw.reshape(6, 16), 25, torch.float32)
+    value = torch.randn(2, S, 4, 32, device=cuda).to(torch.bfloat16)
+    idx = torch.randint(0, S, (2, 4, 5, 7), device=cuda, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        st.gather_sum(value, idx.long())
+    with pytest.raises(ValueError):
+        st.gather_sum(value[..., :24].contiguous(), idx)  # D=24
