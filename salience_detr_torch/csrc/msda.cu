@@ -30,9 +30,12 @@
 // (16 B per lane in bf16) and, for G = 1, one row read serves all heads.
 // Nothing is staged in shared memory and no intermediate leaves registers:
 // the gathered rows are consumed as they arrive, which is what the TPU stage
-// kernels could not do across their separate passes.  Making it faster
-// (several queries per warp for memory-level parallelism, L2-friendly query
-// order) is later work.
+// kernels could not do across their separate passes.  Two redesigns were
+// measured against it on the train step's own inputs and lost (PERF.md):
+// one block per (image, head, query tile) with the head's slice of
+// the coarse levels staged in shared memory (1.9x slower on the encoder's
+// inputs), and this layout with each point's four corner loads issued
+// together (15% slower there).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,6 +74,9 @@ msda_forward_kernel(const T* __restrict__ value, const LevelTable levels,
 
   for (int l = 0; l < L; ++l) {
     const int lh = levels.h[l], lw = levels.w[l], ls = levels.start[l];
+    // unrolled (P = 4 in every configuration) so that the next points'
+    // loads can issue before this point's sums
+#pragma unroll 4
     for (int p = 0; p < P; ++p) {
       const float2 xy = __ldg(reinterpret_cast<const float2*>(loc_q) + l * P + p);
       const float a = __ldg(attn_q + l * P + p);

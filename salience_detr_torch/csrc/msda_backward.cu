@@ -20,20 +20,29 @@
 // constant and contributes nothing.
 //
 // What bounds it on an H100: the d_value scatter.  Every corner adds C
-// floats into d_value with atomics (f32 RED to L2): at the flagship's first
-// encoder layer (B=4, Q=11403, L=P=4, C=256) that is 187M atomic adds into a
-// 91 MB f32 buffer, and neighbouring queries of the head-shared encoder
+// floats into d_value with atomics (reductions in L2): at the flagship's
+// first encoder layer (B=4, Q=11403, L=P=4, C=256) up to 187M float adds into
+// a 91 MB f32 buffer, and neighbouring queries of the head-shared encoder
 // sample the same corners, so the adds collide.  The gathers (the corner
 // rows re-read for the dot products) are the same bytes the forward reads.
 //
-// What this simple design does about it: the forward's layout, one warp per
-// (b, q) with lanes over channels, so a corner's C adds are one coalesced
-// 32-lane request and each corner row is read once for all heads; the dot
-// products reduce across the lanes of a head (d_weights) and of a location
-// group (d_locations) with warp shuffles, and those two outputs are written
-// once by one lane, without atomics.  Sums are f32.  Privatised or sorted
-// scatters that avoid the collisions are later work.  Atomics add in no fixed
-// order, so d_value differs from run to run in its last bits.
+// What this design does about it: one warp per (b, q), each corner row read
+// once for all heads; the lanes hold the channels in chunks of VW = 4 (or
+// C / 32) floats, chunk k of lane l at channels k * 32 * VW + l * VW, so that
+// each warp-wide vector reduction (sm_90's float4 / float2 atomicAdd, one
+// RED of 16 B per lane) covers 32 * VW * 4 contiguous bytes: at C = 256, 2
+// instructions of 512 B per corner, where a lane owning 8 adjacent channels
+// needed 8 scalar instructions touching 32 sectors each.  A corner whose
+// attn * cw is exactly 0 (a sixth of the in-level corners of the encoder's
+// first layer at init, where most sampling points sit on pixel centres)
+// adds nothing and is not scattered; its row is still read for d_locations.  d_weights and d_locations reduce across the lanes (and
+// chunks) of a head or location group with warp shuffles and are written
+// once, without atomics.  Sums are f32; the atomics add in no fixed order,
+// so d_value differs from run to run in its last bits.  One block per
+// (image, head, query tile) that added the two coarsest levels into a
+// private f32 slice in shared memory was measured and lost at G = 1
+// (PERF.md): shared-memory f32 atomics are compare-and-swap loops on this
+// card.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,101 +53,160 @@
 
 namespace {
 
+// One sampling point on a level of lh x lw pixels: the top-left corner
+// (x0, y0) of its four bilinear corners and the fractions (fx, fy).
+// Clamping to [-2, size + 1] changes no corner's validity (a clamped point
+// has no corner in its level) and keeps the float -> int conversion defined
+// for far-away points.
+struct Bilinear {
+  int x0, y0;
+  float fx, fy;
+};
+
+__device__ __forceinline__ Bilinear bilinear(float2 xy, int lh, int lw) {
+  const float x = fminf(fmaxf(pixel_coord(xy.x, lw), -2.f), lw + 1.f);
+  const float y = fminf(fmaxf(pixel_coord(xy.y, lh), -2.f), lh + 1.f);
+  const float x0f = floorf(x), y0f = floorf(y);
+  return {static_cast<int>(x0f), static_cast<int>(y0f), x - x0f, y - y0f};
+}
+
+// VW floats at p (aligned to 4 * VW bytes) added to global memory by one
+// vector reduction.
+template <int VW>
+__device__ __forceinline__ void red_add(float* p, const float (&v)[VW]) {
+  if constexpr (VW == 4) {
+    atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  } else if constexpr (VW == 2) {
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+  } else {
+    atomicAdd(p, v[0]);
+  }
+}
+
+// Sums each chunk's partial v[k] over its channel group of `width` channels
+// (a power of two dividing C: a head, D = C / H, or a location group, C / G).
+// A group narrower than a chunk is a run of width / VW aligned lanes (xor
+// shuffles); a wider one is whole chunks, summed in registers first.  Every
+// lane ends with its groups' totals.  All 32 lanes must call it.
+template <int VW, int NCH>
+__device__ __forceinline__ void group_sum(float (&v)[NCH], int width) {
+  static_assert(NCH == 1 || NCH == 2, "chunks per lane");
+  if (width >= 32 * VW) {
+    if (NCH == 2 && width == 64 * VW) {
+      float t = v[0] + v[NCH - 1];
+      for (int off = 16; off > 0; off >>= 1) t += __shfl_xor_sync(0xffffffffu, t, off);
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) v[k] = t;
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < NCH; ++k)
+      for (int off = 16; off > 0; off >>= 1) v[k] += __shfl_xor_sync(0xffffffffu, v[k], off);
+    return;
+  }
+  for (int off = width / VW / 2; off > 0; off >>= 1) {
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) v[k] += __shfl_xor_sync(0xffffffffu, v[k], off);
+  }
+}
+
 // value (B, S, C), loc (B, Q, G, L, P, 2) f32, attn (B, Q, H, L, P) f32,
 // d_out (B, Q, C) in the value dtype; d_value (B, S, C) f32, zeroed by the
 // caller; d_loc (B, Q, G, L, P, 2) f32 and d_attn (B, Q, H, L, P) f32, every
-// element written here.
-template <typename T, int CPL>
+// element written here.  C = 32 * VW * NCH.
+template <typename T, int VW, int NCH>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 msda_backward_kernel(const T* __restrict__ value, const LevelTable levels,
                      const float* __restrict__ loc, const float* __restrict__ attn,
                      const T* __restrict__ d_out, float* __restrict__ d_value,
                      float* __restrict__ d_loc, float* __restrict__ d_attn, int B, int S,
                      int Q, int H, int G, int P) {
+  constexpr int C = 32 * VW * NCH;
   const int64_t bq = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / 32;
   if (bq >= static_cast<int64_t>(B) * Q) return;  // whole warps leave together
   const int lane = threadIdx.x & 31;
-  const int C = 32 * CPL;
   const int L = levels.num_levels;
+  const int LP = L * P;
   const int b = static_cast<int>(bq / Q);
-  const int c0 = lane * CPL;
-  const int h = c0 / (C / H);
-  const int g = h * G / H;
-  // heads and groups hold aligned, power-of-two runs of lanes (H divides 32)
-  const int lanes_per_head = 32 / H;
-  const int lanes_per_group = 32 / G;
+  const int D = C / H, CG = C / G;  // channels of a head, of a location group
 
-  const float* loc_q = loc + ((bq * G + g) * L) * P * 2;
-  const float* attn_q = attn + ((bq * H + h) * L) * P;
-  float* d_attn_q = d_attn + ((bq * H + h) * L) * P;
-  float2* d_loc_q = reinterpret_cast<float2*>(d_loc) + (bq * G + g) * L * P;
-  const int64_t batch_offset = static_cast<int64_t>(b) * S * C + c0;
+  int c0[NCH], h[NCH], g[NCH];
+  float go[NCH][VW];
+#pragma unroll
+  for (int k = 0; k < NCH; ++k) {
+    c0[k] = k * 32 * VW + lane * VW;
+    h[k] = c0[k] / D;
+    g[k] = c0[k] / CG;
+    load_chunk<T, VW>(d_out + bq * C + c0[k], go[k]);
+  }
+  const int64_t batch_offset = static_cast<int64_t>(b) * S * C;
   const T* value_b = value + batch_offset;
   float* d_value_b = d_value + batch_offset;
-
-  float go[CPL];
-  load_chunk<T, CPL>(d_out + bq * C + c0, go);
 
   for (int l = 0; l < L; ++l) {
     const int lh = levels.h[l], lw = levels.w[l], ls = levels.start[l];
     for (int p = 0; p < P; ++p) {
-      const float2 xy = __ldg(reinterpret_cast<const float2*>(loc_q) + l * P + p);
-      const float a = __ldg(attn_q + l * P + p);
-      // the forward's clamp: it changes no corner's validity, and a clamped
-      // point has no in-level corner, so its gradient is 0 either way
-      const float x = fminf(fmaxf(pixel_coord(xy.x, lw), -2.f), lw + 1.f);
-      const float y = fminf(fmaxf(pixel_coord(xy.y, lh), -2.f), lh + 1.f);
-      const float x0f = floorf(x), y0f = floorf(y);
-      const float fx = x - x0f, fy = y - y0f;
-      const int x0 = static_cast<int>(x0f), y0 = static_cast<int>(y0f);
-      float s = 0.f, gx = 0.f, gy = 0.f;  // this lane's partial sums
+      float s[NCH], gx[NCH], gy[NCH];  // this lane's partial sums, per chunk
 #pragma unroll
-      for (int dy = 0; dy < 2; ++dy) {
-        const int cy = y0 + dy;
-        if (cy < 0 || cy >= lh) continue;
-        const float wy = dy ? fy : 1.f - fy;
+      for (int k = 0; k < NCH; ++k) {
+        const float2 xy =
+            __ldg(reinterpret_cast<const float2*>(loc) + (bq * G + g[k]) * LP + l * P + p);
+        const float a = __ldg(attn + (bq * H + h[k]) * LP + l * P + p);
+        const Bilinear pt = bilinear(xy, lh, lw);
+        s[k] = gx[k] = gy[k] = 0.f;
 #pragma unroll
-        for (int dx = 0; dx < 2; ++dx) {
-          const int cx = x0 + dx;
-          if (cx < 0 || cx >= lw) continue;
-          const float wx = dx ? fx : 1.f - fx;
-          const int64_t row = static_cast<int64_t>(ls + cy * lw + cx) * C;
-          float v[CPL];
-          load_chunk<T, CPL>(value_b + row, v);
-          float dot = 0.f;
+        for (int dy = 0; dy < 2; ++dy) {
+          const int cy = pt.y0 + dy;
+          if (cy < 0 || cy >= lh) continue;
+          const float wy = dy ? pt.fy : 1.f - pt.fy;
 #pragma unroll
-          for (int i = 0; i < CPL; ++i) dot = fmaf(go[i], v[i], dot);
-          s = fmaf(wx * wy, dot, s);
-          gx = fmaf(dx ? wy : -wy, dot, gx);
-          gy = fmaf(dy ? wx : -wx, dot, gy);
-          const float aw = a * (wx * wy);
-          float* dst = d_value_b + row;
+          for (int dx = 0; dx < 2; ++dx) {
+            const int cx = pt.x0 + dx;
+            if (cx < 0 || cx >= lw) continue;
+            const float wx = dx ? pt.fx : 1.f - pt.fx;
+            const int64_t row = static_cast<int64_t>(ls + cy * lw + cx) * C + c0[k];
+            float v[VW];
+            load_chunk<T, VW>(value_b + row, v);
+            float dot = 0.f;
 #pragma unroll
-          for (int i = 0; i < CPL; ++i) atomicAdd(dst + i, aw * go[i]);
+            for (int i = 0; i < VW; ++i) dot = fmaf(go[k][i], v[i], dot);
+            s[k] = fmaf(wx * wy, dot, s[k]);
+            gx[k] = fmaf(dx ? wy : -wy, dot, gx[k]);
+            gy[k] = fmaf(dy ? wx : -wx, dot, gy[k]);
+            const float aw = a * (wx * wy);
+            if (aw != 0.f) {  // adding +-0 changes nothing
+              float add[VW];
+#pragma unroll
+              for (int i = 0; i < VW; ++i) add[i] = aw * go[k][i];
+              red_add<VW>(d_value_b + row, add);
+            }
+          }
         }
+        gx[k] *= a;
+        gy[k] *= a;
       }
       // every lane reaches the shuffles: the loops above are warp-uniform
-      for (int off = lanes_per_head / 2; off > 0; off >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      if ((lane & (lanes_per_head - 1)) == 0) d_attn_q[l * P + p] = s;
-      gx *= a;
-      gy *= a;
-      for (int off = lanes_per_group / 2; off > 0; off >>= 1) {
-        gx += __shfl_xor_sync(0xffffffffu, gx, off);
-        gy += __shfl_xor_sync(0xffffffffu, gy, off);
+      group_sum<VW, NCH>(s, D);
+      group_sum<VW, NCH>(gx, CG);
+      group_sum<VW, NCH>(gy, CG);
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) {
+        if (c0[k] % D == 0) d_attn[(bq * H + h[k]) * LP + l * P + p] = s[k];
+        if (c0[k] % CG == 0)
+          reinterpret_cast<float2*>(d_loc)[(bq * G + g[k]) * LP + l * P + p] =
+              make_float2(gx[k] * lw, gy[k] * lh);
       }
-      if ((lane & (lanes_per_group - 1)) == 0) d_loc_q[l * P + p] = make_float2(gx * lw, gy * lh);
     }
   }
 }
 
-template <typename T, int CPL>
+template <typename T, int VW, int NCH>
 void launch(const void* value, const LevelTable& levels, const void* loc, const void* attn,
             const void* d_out, void* d_value, void* d_loc, void* d_attn, int B, int S, int Q,
             int H, int G, int P, cudaStream_t stream) {
   const int64_t warps = static_cast<int64_t>(B) * Q;
   const unsigned blocks = static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  msda_backward_kernel<T, CPL><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+  msda_backward_kernel<T, VW, NCH><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
       static_cast<const T*>(value), levels, static_cast<const float*>(loc),
       static_cast<const float*>(attn), static_cast<const T*>(d_out),
       static_cast<float*>(d_value), static_cast<float*>(d_loc), static_cast<float*>(d_attn), B,
@@ -149,18 +217,18 @@ template <typename T>
 int dispatch(const void* value, const LevelTable& levels, const void* loc, const void* attn,
              const void* d_out, void* d_value, void* d_loc, void* d_attn, int B, int S, int Q,
              int C, int H, int G, int P, cudaStream_t stream) {
-  switch (C / 32) {
-    case 1:
-      launch<T, 1>(value, levels, loc, attn, d_out, d_value, d_loc, d_attn, B, S, Q, H, G, P,
-                   stream);
+  switch (C) {
+    case 32:
+      launch<T, 1, 1>(value, levels, loc, attn, d_out, d_value, d_loc, d_attn, B, S, Q, H, G, P,
+                      stream);
       break;
-    case 2:
-      launch<T, 2>(value, levels, loc, attn, d_out, d_value, d_loc, d_attn, B, S, Q, H, G, P,
-                   stream);
+    case 64:
+      launch<T, 2, 1>(value, levels, loc, attn, d_out, d_value, d_loc, d_attn, B, S, Q, H, G, P,
+                      stream);
       break;
-    case 8:
-      launch<T, 8>(value, levels, loc, attn, d_out, d_value, d_loc, d_attn, B, S, Q, H, G, P,
-                   stream);
+    case 256:
+      launch<T, 4, 2>(value, levels, loc, attn, d_out, d_value, d_loc, d_attn, B, S, Q, H, G, P,
+                      stream);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -1,6 +1,6 @@
 // Shared by the MSDA forward (msda.cu) and backward (msda_backward.cu)
-// kernels: the warp-per-query geometry and the f32 <-> storage conversions of
-// one lane's channel chunk.
+// kernels and the stage kernels: the pixel coordinate, the shape contract
+// and the f32 <-> storage conversions of one lane's channel chunk.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,8 +26,9 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-// CPL consecutive elements at p (16 B aligned when CPL * sizeof(T) is a
-// multiple of 16) -> f32 registers.
+// CPL consecutive elements at p -> f32 registers, in loads as wide as the
+// chunk (16 B when CPL * sizeof(T) is a multiple of 16, else one 8 or 4 B
+// load; p aligned to that width).
 template <typename T, int CPL>
 __device__ __forceinline__ void load_chunk(const T* __restrict__ p, float (&v)[CPL]) {
   constexpr int kBytes = CPL * static_cast<int>(sizeof(T));
@@ -40,6 +41,16 @@ __device__ __forceinline__ void load_chunk(const T* __restrict__ p, float (&v)[C
 #pragma unroll
       for (int j = 0; j < kPerVec; ++j) v[i * kPerVec + j] = to_float(e[j]);
     }
+  } else if constexpr (kBytes == 8) {
+    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) v[j] = to_float(e[j]);
+  } else if constexpr (kBytes == 4) {
+    const unsigned raw = __ldg(reinterpret_cast<const unsigned*>(p));
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) v[j] = to_float(e[j]);
   } else {
 #pragma unroll
     for (int i = 0; i < CPL; ++i) v[i] = to_float(p[i]);

@@ -67,20 +67,20 @@ def level_table(spatial_shapes: Sequence[Tuple[int, int]]) -> LevelTable:
     return table
 
 
-def _sources():
-    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+def _sources(csrc_dir: Path = CSRC_DIR):
+    return sorted(csrc_dir.glob("*.cu")) + sorted(csrc_dir.glob("*.cuh"))
 
 
-def source_hash() -> str:
+def source_hash(csrc_dir: Path = CSRC_DIR) -> str:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in _sources():
+    for path in _sources(csrc_dir):
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
     return digest.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return BUILD_ROOT / source_hash() / "libkernels.so"
+def library_path(csrc_dir: Path = CSRC_DIR) -> Path:
+    return BUILD_ROOT / source_hash(csrc_dir) / "libkernels.so"
 
 
 def _nvcc() -> str:
@@ -94,19 +94,20 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; cannot build the kernels")
 
 
-def build() -> Path:
-    """Compile csrc/*.cu into libkernels.so unless that source hash is built:
-    one nvcc per source, all started together, then one link.  nvcc's
-    register and shared-memory report (``-Xptxas -v``) goes to build.log
-    beside the library."""
-    out = library_path()
+def build(csrc_dir: Path = CSRC_DIR) -> Path:
+    """Compile ``csrc_dir``'s *.cu into libkernels.so unless that source hash
+    is built: one nvcc per source, all started together, then one link.
+    nvcc's register and shared-memory report (``-Xptxas -v``) goes to
+    build.log beside the library.  Another directory than the package's own
+    builds another version of the kernels, for comparing the two."""
+    out = library_path(csrc_dir)
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(dir=out.parent))
     try:
         jobs = []
-        for src in sorted(CSRC_DIR.glob("*.cu")):
+        for src in sorted(csrc_dir.glob("*.cu")):
             cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(work / f"{src.stem}.o"),
                    str(src)]
             jobs.append((cmd, subprocess.Popen(
@@ -127,22 +128,31 @@ def build() -> Path:
     return out
 
 
+def bind_msda(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of the MSDA entry points (msda_forward,
+    msda_backward, cuda_error_string) on ``lib``."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.msda_forward.argtypes = [
+        ptr, i32, LevelTable, ptr, ptr, ptr,
+        i32, i32, i32, i32, i32, i32, i32, ptr,
+    ]
+    lib.msda_forward.restype = i32
+    lib.msda_backward.argtypes = [
+        ptr, i32, LevelTable, ptr, ptr, ptr, ptr, ptr, ptr,
+        i32, i32, i32, i32, i32, i32, i32, ptr,
+    ]
+    lib.msda_backward.restype = i32
+    lib.cuda_error_string.argtypes = [i32]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = bind_msda(ctypes.CDLL(str(build())))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.msda_forward.argtypes = [
-            ptr, i32, LevelTable, ptr, ptr, ptr,
-            i32, i32, i32, i32, i32, i32, i32, ptr,
-        ]
-        lib.msda_forward.restype = i32
-        lib.msda_backward.argtypes = [
-            ptr, i32, LevelTable, ptr, ptr, ptr, ptr, ptr, ptr,
-            i32, i32, i32, i32, i32, i32, i32, ptr,
-        ]
-        lib.msda_backward.restype = i32
         lib.grid_nms_forward.argtypes = [ptr, LevelTable, ptr, i32, i32, i32, ptr]
         lib.grid_nms_forward.restype = i32
         lib.hungarian_forward.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
@@ -155,8 +165,6 @@ def load() -> ctypes.CDLL:
         lib.corner_collapse_blocked.restype = i32
         lib.corner_collapse_packed.argtypes = [ptr, ptr, i32, ptr, i32, i64, i32, ptr]
         lib.corner_collapse_packed.restype = i32
-        lib.cuda_error_string.argtypes = [i32]
-        lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 

@@ -128,6 +128,76 @@ def test_msda_backward_kernel_matches_plain(cuda, dtype, atol, rtol, G, H, C):
         torch.testing.assert_close(x.grad.float(), ref.float(), rtol=rtol, atol=atol, msg=name)
 
 
+# Inputs for the MSDA kernels at B=2, Q=8500: enough queries that the
+# clustered case piles thousands of adds on a few rows.
+BIG_LEVELS = [(150, 200), (120, 180)]  # not even one head's slice of a level fits shared memory
+
+
+def shaped_inputs(case, device, dtype, G, C, H=8, B=2, Q=8500, P=4, seed=5):
+    levels = BIG_LEVELS if case == "large_levels" else LEVELS
+    L, S_ = len(levels), sum(h * w for h, w in levels)
+    g = torch.Generator().manual_seed(seed)
+    value = torch.randn(B, S_, C, generator=g)
+    w = torch.rand(B, Q, H, L, P, generator=g)
+    w = w / w.sum((-2, -1), keepdim=True)
+    if case == "clustered":
+        # every query on the same few pixel centres of each level: most
+        # corners have weight 0 and the rest collide on a few rows
+        locs = torch.empty(B, Q, G, L, P, 2)
+        for lvl, (h, wd) in enumerate(levels):
+            pick = torch.randint(0, 3, (B, Q, G, P, 2), generator=g)
+            xs = (torch.tensor([0, wd // 2, wd - 1])[pick[..., 0]] + 0.5) / wd
+            ys = (torch.tensor([0, h // 2, h - 1])[pick[..., 1]] + 0.5) / h
+            locs[:, :, :, lvl, :, 0], locs[:, :, :, lvl, :, 1] = xs, ys
+    elif case == "outside":  # beyond every level on at least one axis
+        locs = torch.rand(B, Q, G, L, P, 2, generator=g) * 1.4 - 0.2
+        far = torch.rand(B, Q, G, L, P, generator=g) * 2 + 1.3  # x * w - 0.5 >= w on every level
+        side = torch.randint(0, 2, (B, Q, G, L, P), generator=g).bool()
+        locs[..., 0] = torch.where(side, far, -far + 1)
+    else:  # "uniform", "large_levels": a third of the points partly outside
+        locs = torch.rand(B, Q, G, L, P, 2, generator=g) * 1.6 - 0.3
+    return levels, value.to(device, dtype), locs.to(device), w.to(device)
+
+
+# MSDA backward on the card, (atol as a share of the reference's largest
+# magnitude, rtol): float32 sums by atomics and shuffles in other orders;
+# bfloat16 d_value is one f32 sum rounded once on both sides (one ulp).
+MSDA_GRAD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-3, 1e-2)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [32, 64, 256])
+@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("case", ["uniform", "clustered", "outside", "large_levels"])
+def test_msda_kernels_match_plain_on_shaped_inputs(cuda, case, G, C, dtype):
+    """K1 and K3 against their plain versions at H=8 on uniform points,
+    clustered pixel-centred points (zero-weight corners, heavy collisions),
+    points outside every level (all outputs and gradients exactly 0) and
+    levels too large to stage in shared memory."""
+    levels, value, locs, w = shaped_inputs(case, cuda, dtype, G, C)
+    d_out = torch.randn(value.shape[0], locs.shape[1], C, device=cuda).to(dtype)
+    inputs = [x.clone().requires_grad_() for x in (value, locs, w)]
+    before = dict(native.LAUNCHES)
+    out = ms_deform_attn(inputs[0], levels, inputs[1], inputs[2])
+    out.backward(d_out)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["msda"] == before["msda"] + 1
+    assert native.LAUNCHES["msda_backward"] == before["msda_backward"] + 1
+    atol, rtol = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (4e-3, 1e-2)}[dtype]
+    want = ms_deform_attn_plain(value, levels, locs, w)
+    torch.testing.assert_close(out.detach().float(), want.float(), rtol=rtol, atol=atol)
+    grads = ms_deform_attn_backward_plain(value, levels, locs, w, d_out)
+    for name, x, ref in zip(("d_value", "d_locations", "d_weights"), inputs, grads):
+        share, rtol = MSDA_GRAD_TOL[dtype] if name == "d_value" else MSDA_GRAD_TOL[torch.float32]
+        ref = ref.float()
+        torch.testing.assert_close(x.grad.float(), ref, rtol=rtol,
+                                   atol=share * float(ref.abs().max()) + 1e-30, msg=name)
+    if case == "outside":
+        assert not bool(out.detach().float().abs().any())
+        assert all(not bool(x.grad.float().abs().any()) for x in inputs)
+
+
 @pytest.mark.gpu
 def test_msda_gradient_reaches_the_value_on_cuda(cuda):
     """The forward kernel's output carries a grad_fn: a loss on it reaches
