@@ -5,8 +5,9 @@ Targets are padded to a static ``max_gt``: labels (B, M) int, boxes (B, M, 4)
 normalised cxcywh, valid (B, M) bool with each image's valid gts first, and
 ``counts``, the per-image valid counts as host integers (the CDN layout reads
 them, so that it costs no synchronisation).  The assignment runs in the
-assignment kernel (ops/hungarian.py) on the device.  Every loss is computed
-in float32; call the criteria outside autocast.
+assignment kernel (ops/hungarian.py) on the device, one launch for all the
+sets of a step.  Every loss is computed in float32; call the criteria
+outside autocast.
 """
 
 from __future__ import annotations
@@ -41,17 +42,21 @@ def _take(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
 
 def compute_matching_cost(pred_logits, pred_boxes, targets: Targets, cost_class=2.0,
                           cost_bbox=5.0, cost_giou=2.0, focal_alpha=0.25, focal_gamma=2.0):
-    """(B, Q, M) matching cost (the reference's hungarian_matcher.py:41-70)."""
+    """(B, Q, M) matching cost (the reference's hungarian_matcher.py:41-70),
+    as the transposed view of a contiguous (B, M, Q) tensor: one gt's costs
+    over the queries are contiguous, the layout the assignment kernel reads,
+    so it needs no copy.  Each term is symmetric in its two box sets, so the
+    values are those of the (B, Q, M) computation."""
     prob = pred_logits.float().sigmoid()
     pred_boxes = pred_boxes.float()
     neg_cost = -(1 - focal_alpha) * prob**focal_gamma * torch.log(1 - prob + 1e-6)
     pos_cost = -focal_alpha * (1 - prob) ** focal_gamma * torch.log(prob + 1e-6)
     labels = targets.labels.clamp(0, pred_logits.shape[-1] - 1)
-    cls = (pos_cost - neg_cost).gather(2, labels[:, None, :].expand(-1, prob.shape[1], -1))
+    cls = (pos_cost - neg_cost).transpose(1, 2).gather(1, labels[:, :, None].expand(-1, -1, prob.shape[1]))
     tgt_boxes = targets.boxes.float()
-    bbox = (pred_boxes[:, :, None, :] - tgt_boxes[:, None, :, :]).abs().sum(-1)
-    giou = -generalized_box_iou_pairwise(box_cxcywh_to_xyxy(pred_boxes), box_cxcywh_to_xyxy(tgt_boxes))
-    return cost_bbox * bbox + cost_class * cls + cost_giou * giou
+    bbox = (tgt_boxes[:, :, None, :] - pred_boxes[:, None, :, :]).abs().sum(-1)
+    giou = -generalized_box_iou_pairwise(box_cxcywh_to_xyxy(tgt_boxes), box_cxcywh_to_xyxy(pred_boxes))
+    return (cost_bbox * bbox + cost_class * cls + cost_giou * giou).transpose(1, 2)
 
 
 class SetCriterion:
@@ -77,6 +82,28 @@ class SetCriterion:
             self.alpha, self.gamma,
         )
         return batched_assignment(cost, targets.valid)
+
+    @torch.no_grad()
+    def match_sets(self, outputs_class, outputs_coord, enc_class, enc_coord,
+                   targets: Targets) -> List[torch.Tensor]:
+        """One (B, M) assignment per decoder layer of ``outputs_*`` (L, B, Q,
+        .) and one for the encoder's ``enc_*`` (B, Q', .), in that order.
+        Each image of each set is its own problem, so the sets are stacked to
+        (L + 1) * B images for one cost computation and one assignment launch;
+        an encoder set with another query count is matched in its own call."""
+        n_layers = outputs_class.shape[0]
+        if enc_class.shape[1] == outputs_class.shape[2]:
+            outputs_class = torch.cat([outputs_class, enc_class[None]])
+            outputs_coord = torch.cat([outputs_coord, enc_coord[None]])
+            enc_match = None
+        else:
+            enc_match = self.match(enc_class, enc_coord, targets)
+        sets = outputs_class.shape[0]
+        stacked = Targets(targets.labels.repeat(sets, 1), targets.boxes.repeat(sets, 1, 1),
+                          targets.valid.repeat(sets, 1), targets.counts * sets)
+        matches = self.match(outputs_class.flatten(0, 1), outputs_coord.flatten(0, 1), stacked)
+        matches = list(matches.view(sets, *targets.valid.shape).unbind(0))
+        return matches if enc_match is None else matches[:n_layers] + [enc_match]
 
     def calculate_loss(self, pred_logits, pred_boxes, targets: Targets, num_boxes,
                        gt_to_query: Optional[torch.Tensor] = None,
@@ -119,14 +146,16 @@ class SetCriterion:
     def __call__(self, outputs_class, outputs_coord, enc_class, enc_coord, targets: Targets,
                  num_boxes) -> Dict[str, torch.Tensor]:
         """Final, auxiliary (one per earlier decoder layer) and encoder losses;
-        one assignment each."""
+        all their assignments in one call of :meth:`match_sets`."""
         losses = {}
         n_layers = outputs_class.shape[0]
+        matches = self.match_sets(outputs_class, outputs_coord, enc_class, enc_coord, targets)
         for i in range(n_layers):
-            layer = self.calculate_loss(outputs_class[i], outputs_coord[i], targets, num_boxes)
+            layer = self.calculate_loss(outputs_class[i], outputs_coord[i], targets, num_boxes,
+                                        gt_to_query=matches[i])
             suffix = "" if i == n_layers - 1 else f"_{i}"
             losses.update({k + suffix: v for k, v in layer.items()})
-        enc = self.calculate_loss(enc_class, enc_coord, targets, num_boxes)
+        enc = self.calculate_loss(enc_class, enc_coord, targets, num_boxes, gt_to_query=matches[-1])
         losses.update({k + "_enc": v for k, v in enc.items()})
         return losses
 

@@ -155,8 +155,8 @@ def load() -> ctypes.CDLL:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.grid_nms_forward.argtypes = [ptr, LevelTable, ptr, i32, i32, i32, ptr]
         lib.grid_nms_forward.restype = i32
-        lib.hungarian_forward.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
-        lib.hungarian_forward.restype = i32
+        lib.assignment_forward.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+        lib.assignment_forward.restype = i32
         lib.gather_sum.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
         lib.gather_sum.restype = i32
         lib.weighted_reduce.argtypes = [ptr, ptr, i32, ptr, i64, i32, i32, i32, i32, ptr]

@@ -10,8 +10,8 @@ matched query per gt and -1 for padded gts.
   synchronises with the host;
 * :func:`batched_assignment` is the wrapper of the CUDA kernel
   ``csrc/hungarian.cu`` (shortest augmenting paths with potentials, one CTA
-  per image): a CPU tensor goes to the plain version, a CUDA tensor launches
-  the kernel or raises.
+  per image, all images in one launch): a CPU tensor goes to the plain
+  version, a CUDA tensor launches the kernel or raises.
 
 Both are exact, so they agree wherever the optimum is unique and otherwise
 reach the same total cost.
@@ -23,6 +23,8 @@ import torch
 
 from salience_detr_torch import native
 
+# queries the kernel takes: 32 columns per thread of its 256
+MAX_QUERIES = 8192
 _INF = 1e15
 # improvements below this are f32 ties; keeps the fixpoint from livelocking
 _TOL = 1e-6
@@ -77,8 +79,7 @@ def batched_assignment_plain(cost: torch.Tensor, gt_valid: torch.Tensor) -> torc
 
 def batched_assignment(cost: torch.Tensor, gt_valid: torch.Tensor) -> torch.Tensor:
     """Wrapper of the assignment kernel (csrc/hungarian.cu); same contract as
-    :func:`batched_assignment_plain`.  On CUDA it takes M <= N and at most
-    about 8,000 queries (the kernel's state is in shared memory)."""
+    :func:`batched_assignment_plain`.  On CUDA it takes M <= N <= 8192."""
     if cost.device.type == "cpu":
         return batched_assignment_plain(cost, gt_valid)
     if cost.device.type != "cuda":
@@ -89,19 +90,25 @@ def batched_assignment(cost: torch.Tensor, gt_valid: torch.Tensor) -> torch.Tens
             f"{tuple(cost.shape)} and {tuple(gt_valid.shape)}"
         )
     B, N, M = cost.shape
-    if M > N:
-        raise ValueError(f"batched_assignment: more gt slots ({M}) than queries ({N})")
+    if not M <= N <= MAX_QUERIES:
+        raise ValueError(f"batched_assignment: need gt slots ({M}) <= queries ({N}) <= {MAX_QUERIES}")
     if gt_valid.device != cost.device:
         raise ValueError("batched_assignment: cost and gt_valid must be on one device")
-    cost_t = cost.to(torch.float32).transpose(1, 2).contiguous()
-    valid = gt_valid.to(torch.uint8).contiguous()
+    # one gt's costs contiguous, each row a multiple of 16 bytes for the
+    # kernel's bulk copies: the criterion's costs come so, others are copied
+    cost_t = cost.transpose(1, 2)
+    ld = -(-N // 4) * 4
+    if cost_t.dtype != torch.float32 or ld != N or not cost_t.is_contiguous():
+        cost_t = torch.zeros((B, M, ld), dtype=torch.float32, device=cost.device)
+        cost_t[..., :N] = cost.transpose(1, 2)
+    valid = gt_valid.to(torch.bool).contiguous().view(torch.uint8)
     out = torch.empty((B, M), dtype=torch.int32, device=cost.device)
     lib = native.load()
     with torch.cuda.device(cost.device):
-        err = lib.hungarian_forward(
-            cost_t.data_ptr(), valid.data_ptr(), out.data_ptr(), B, N, M,
+        err = lib.assignment_forward(
+            cost_t.data_ptr(), valid.data_ptr(), out.data_ptr(), B, N, M, ld,
             native.stream_of(cost),
         )
-    native.check(err, "hungarian_forward")
+    native.check(err, "assignment_forward")
     native.LAUNCHES["hungarian"] += 1
     return out

@@ -9,7 +9,8 @@ survivors in rank order, then the best-ranked suppressed candidates.
 * :func:`grid_nms_topk_plain` is the plain PyTorch version, the JAX package's
   dense-rank-map fixpoint, batched; it runs on any device;
 * :func:`grid_nms_topk` is the wrapper of the CUDA kernel
-  ``csrc/grid_nms.cu``: a CPU tensor goes to the plain version, a CUDA tensor
+  ``csrc/grid_nms.cu`` (the same fixpoint in parallel rounds on the card, one
+  block per image): a CPU tensor goes to the plain version, a CUDA tensor
   launches the kernel or raises.
 """
 
@@ -22,8 +23,10 @@ import torch.nn.functional as F
 
 from salience_detr_torch import native
 
-# dynamic shared memory the kernel may use: 9K + S bytes
-SMEM_BUDGET_BYTES = 200 * 1024
+# dynamic shared memory the kernel may use (13K + 2S + 1 bytes), and the
+# candidates its 16-bit rank map can hold
+SMEM_BUDGET_BYTES = 226 * 1024
+MAX_CANDIDATES = 65535
 # relaxation steps of the plain fixpoint between convergence checks
 UNROLL = 8
 
@@ -111,10 +114,10 @@ def grid_nms_topk(
         )
     B, K = topk_index.shape
     S = sum(h * w for h, w in spatial_shapes)
-    if not 0 <= num_out <= K or S + 9 * K > SMEM_BUDGET_BYTES:
+    if not 0 <= num_out <= K <= MAX_CANDIDATES or 13 * K + 2 * S + 1 > SMEM_BUDGET_BYTES:
         raise ValueError(
-            f"grid_nms_topk: need 0 <= num_out <= K and S + 9K <= {SMEM_BUDGET_BYTES}; "
-            f"got num_out={num_out}, K={K}, S={S}"
+            f"grid_nms_topk: need 0 <= num_out <= K <= {MAX_CANDIDATES} and 13K + 2S + 1 <= "
+            f"{SMEM_BUDGET_BYTES}; got num_out={num_out}, K={K}, S={S}"
         )
     out = torch.empty((B, num_out), dtype=torch.int32, device=topk_index.device)
     lib = native.load()

@@ -109,6 +109,68 @@ def test_grid_nms_kernel_matches_plain(cuda):
         grid_nms_topk(topk, LEVELS, 121)
 
 
+# a pyramid with levels large enough for long suppression chains
+NMS_LEVELS = [(40, 60), (20, 30), (10, 15), (5, 8)]
+
+
+def snake_path(h, w):
+    """An h x w level's tokens on a path through rows 0, 2, 4, ..., joined
+    at alternating ends by one cell of the row between: no two cells touch
+    but neighbours on the path, so greedy NMS along it is one chain."""
+    grid = torch.arange(h * w).view(h, w)
+    parts = []
+    for k, r in enumerate(range(0, h, 2)):
+        parts.append(grid[r] if k % 2 == 0 else grid[r].flip(0))
+        if r + 2 < h:
+            parts.append(grid[r + 1, -1:] if k % 2 == 0 else grid[r + 1, :1])
+    return torch.cat(parts)
+
+
+def nms_order(case, seed=0):
+    """(4, K) candidate orders over NMS_LEVELS: every token of level 0 in a
+    random order; the first K tokens in raster order (chains about h + w
+    rounds deep); ``snake_path`` on level 0, forwards and backwards (one
+    chain of K); random draws over the pyramid."""
+    g = torch.Generator().manual_seed(seed)
+    h, w = NMS_LEVELS[0]
+    S_ = sum(a * b for a, b in NMS_LEVELS)
+    if case == "one_level":
+        rows = [torch.randperm(h * w, generator=g) for _ in range(4)]
+    elif case == "raster":
+        rows = [torch.arange(1500)] * 4
+    elif case == "snake":
+        snake = snake_path(h, w)
+        rows = [snake[:900], snake.flip(0)[:900], snake[100:1000], snake[:900].flip(0)]
+    else:
+        rows = [torch.randperm(S_, generator=g)[:1500] for _ in range(4)]
+    return torch.stack(rows).to(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,num_out", [("one_level", 2400), ("one_level", 700), ("raster", 600),
+                                          ("snake", 900), ("snake", 450), ("random", 1500), ("random", 900)])
+def test_grid_nms_kernel_bit_exact_on_chain_orders(cuda, case, num_out):
+    """Bit-exact against the plain fixpoint (run on the CPU) for orders whose
+    chains are short (random), about h + w deep (raster) or as long as the
+    candidate list (snake), and with every candidate on one level."""
+    topk = nms_order(case)
+    got = grid_nms_topk(topk.to(cuda).contiguous(), NMS_LEVELS, num_out)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), grid_nms_topk_plain(topk, NMS_LEVELS, num_out), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_grid_nms_kernel_bit_exact_on_random_orders(cuda, seed):
+    g = torch.Generator().manual_seed(100 + seed)
+    S_ = sum(a * b for a, b in NMS_LEVELS)
+    k = [40, 333, 1024, 3190][seed]
+    topk = torch.stack([torch.randperm(S_, generator=g)[:k] for _ in range(3)]).to(torch.int32)
+    for num_out in (k, k // 2 + 1):
+        got = grid_nms_topk(topk.to(cuda).contiguous(), NMS_LEVELS, num_out)
+        torch.testing.assert_close(got.cpu(), grid_nms_topk_plain(topk, NMS_LEVELS, num_out), rtol=0, atol=0)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 1e-4), (torch.bfloat16, 4e-3, 1e-2)])
 @pytest.mark.parametrize("G,H,C", [(1, 8, 256), (8, 8, 256), (2, 8, 256), (1, 4, 32), (4, 4, 32), (2, 8, 64)])
@@ -240,6 +302,68 @@ def test_hungarian_kernel_stops_on_nan_costs(cuda):
     torch.cuda.synchronize()
     assert bool((got[1] == -1).all()) and bool((got[3] == -1).all())
     keep = torch.tensor([0, 2], device=cuda)
+    torch.testing.assert_close(got[keep], batched_assignment_plain(cost[keep], valid[keep]), rtol=0, atol=0)
+
+
+def total_cost(cost, match, valid):
+    """Each image's cost of its matching, in float64 on the host."""
+    cost, match, valid = cost.double().cpu(), match.long().cpu(), valid.cpu()
+    out = []
+    for b in range(cost.shape[0]):
+        cols = torch.nonzero(valid[b])[:, 0]
+        assert len(set(match[b, cols].tolist())) == len(cols) and bool((match[b, cols] >= 0).all())
+        assert bool((match[b][~valid[b]] == -1).all())
+        out.append(float(cost[b, match[b, cols], cols].sum()))
+    return out
+
+
+@pytest.mark.gpu
+def test_hungarian_kernel_batched_sets_with_ties(cuda):
+    """Seven sets of four images in one launch, integer costs with many tied
+    optima: every image gets a matching of the plain version's optimal total,
+    and the same one as in a launch of its own set."""
+    g = torch.Generator().manual_seed(6)
+    sets, B, N, M = 7, 4, 120, 25
+    cost = torch.randint(0, 4, (sets * B, N, M), generator=g).float().to(cuda)
+    counts = torch.tensor([25, 7, 0, 1] * sets).view(-1, 1)
+    valid = (torch.arange(M)[None] < counts).to(cuda)
+    before = native.LAUNCHES["hungarian"]
+    got = batched_assignment(cost, valid)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["hungarian"] == before + 1
+    per_set = torch.cat([batched_assignment(cost[s * B:(s + 1) * B], valid[s * B:(s + 1) * B])
+                         for s in range(sets)])
+    torch.testing.assert_close(got, per_set, rtol=0, atol=0)
+    want = batched_assignment_plain(cost, valid)
+    assert total_cost(cost, got, valid) == total_cost(cost, want, valid)
+
+
+@pytest.mark.gpu
+def test_hungarian_kernel_rows_past_shared_memory(cuda):
+    """100 valid gts at N=901 (rows padded to 904 floats): about 60 rows are
+    staged in shared memory and the rest read from device memory; an image
+    with no valid gt beside it reports -1 everywhere."""
+    g = torch.Generator().manual_seed(7)
+    cost = (torch.rand(3, 901, 100, generator=g) * 30 - 5).to(cuda)
+    valid = (torch.arange(100)[None] < torch.tensor([[100], [0], [63]])).to(cuda)
+    got = batched_assignment(cost, valid)
+    torch.cuda.synchronize()
+    assert bool((got[1] == -1).all())
+    torch.testing.assert_close(got, batched_assignment_plain(cost, valid), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_hungarian_kernel_nan_set_reports_only_its_image(cuda):
+    """In a launch of seven sets, one image with NaN costs reports -1 for all
+    its gts; every other image matches the plain version."""
+    g = torch.Generator().manual_seed(8)
+    cost = (torch.rand(28, 90, 12, generator=g) * 10).to(cuda)
+    cost[13] = float("nan")
+    valid = (torch.arange(12)[None] < torch.tensor([12, 5, 9, 1] * 7).view(-1, 1)).to(cuda)
+    got = batched_assignment(cost, valid)
+    torch.cuda.synchronize()
+    assert bool((got[13] == -1).all())
+    keep = torch.tensor([b for b in range(28) if b != 13], device=cuda)
     torch.testing.assert_close(got[keep], batched_assignment_plain(cost[keep], valid[keep]), rtol=0, atol=0)
 
 
