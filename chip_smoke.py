@@ -63,7 +63,25 @@ non-zero exit and no result line:
    K4 on the captured costs as the baseline's one launch per set of 4
    images against the shipped single launch, then both as single launches,
    and on phase 8's costs;
-13. msda_stages: the staged MSDA shootout's entry point
+13. msda_groups (after phase 7): K1 and K3 at G=2 and G=4 location groups at
+   the encoder's flagship shape (B=4, Q=11403, bf16), against their plain
+   versions, with times and bounds;
+14. nms_keep: the greedy NMS keep-mask kernel (K9) against its plain version,
+   exactly, on the post-process boxes of a flagship serve forward (B=4,
+   N=300) at IoU thresholds 0.5 and 0.7, on a chain of boxes, on identical
+   boxes and on random boxes at N = 300, 600 and 1024, with times and bounds;
+   with ``--baseline-csrc``, each directory's keep-mask kernel timed in turns
+   with this one on every case (``keep_ab:``);
+15. eval: the evaluation path (python -m salience_detr_torch.test) on a
+   COCO-format split of 8 .npy images of mixed sizes and orientations written
+   under build/chip_smoke_eval/: the flagship in exact mode from a strict load
+   of a seed-initialised exact-mode state dict, with the NMS and confidence
+   filters on, through the entry point's functions; then the entry point's
+   ``main`` on the hybrid flagship with the filters off, its saved
+   predictions re-scored to the same stats.  Launches per forward: 12 MSDA,
+   1 grid NMS, 1 or 0 NMS keep mask; the 12 stats finite; K1 held on the
+   exact-mode encoder inputs (G=8, Q=11403); wall seconds and img/s;
+16. msda_stages: the staged MSDA shootout's entry point
    (python -m salience_detr_torch.tools.msda_stages --q 11403 --iters 3:
    every pipeline checked against the plain MSDA at Q=256, then timed beside
    K1, the kernel-only timings and the row-width scan); its launch counters
@@ -76,7 +94,8 @@ non-zero exit and no result line:
    no stage-kernel launch.
 
 The line before the last is {"kernels": [...]}: per kernel its launches in
-the counted train steps (3; K4 launches once a step), its largest error, its time, its plain version's
+the counted train steps (3; K4 launches once a step; K9 in the eval phase's
+first run), its largest error, its time, its plain version's
 time, its bound (``bound_ms``: bytes over 3.35 TB/s or f32 operations over
 67 TFLOP/s, whichever is larger, ``bound_by`` which) and the time of one
 PyTorch call of the same function (``library_ms``, null where there is
@@ -98,14 +117,18 @@ import numpy as np
 import torch
 
 from salience_detr_torch import native
-from salience_detr_torch.engine.train import train_one_epoch
+from salience_detr_torch import test as eval_entry
+from salience_detr_torch.data.coco import CocoDetection
+from salience_detr_torch.data.loader import DetectionLoader, DevicePrefetcher
+from salience_detr_torch.engine.train import evaluate, train_one_epoch
 from salience_detr_torch.inference import DEFAULT_CONFIG, Predictor, load_config, preprocess
 from salience_detr_torch.models.bricks import attention, salience_transformer
 from salience_detr_torch.models.bricks import criterion as criterion_module
 from salience_detr_torch.models.bricks.attention import MultiScaleDeformableAttention
 from salience_detr_torch.models.bricks.criterion import Targets, compute_matching_cost
 from salience_detr_torch.models.bricks.denoising import cdn_draws
-from salience_detr_torch.models.factory import SalienceDETRConfig
+from salience_detr_torch.models.bricks.post_process import PostProcess
+from salience_detr_torch.models.factory import SalienceDETRConfig, build_salience_detr, exact_sampling
 from salience_detr_torch.ops import msda_stages as stages
 from salience_detr_torch.ops.deform_attn import (
     _backward_cuda,
@@ -113,11 +136,14 @@ from salience_detr_torch.ops.deform_attn import (
     ms_deform_attn_backward_plain,
     ms_deform_attn_plain,
 )
+from salience_detr_torch.ops.boxes import box_iou_pairwise
 from salience_detr_torch.ops.hungarian import batched_assignment, batched_assignment_plain
-from salience_detr_torch.ops.nms import grid_nms_topk, grid_nms_topk_plain
+from salience_detr_torch.ops.nms import grid_nms_topk, grid_nms_topk_plain, nms_keep_mask, nms_keep_mask_plain
+from salience_detr_torch.parallel.train_step import make_eval_step
 from salience_detr_torch.timing import card_line, cuda_ms
 from salience_detr_torch.tools import msda_stages as stage_tool
 from salience_detr_torch.train import GT_COUNTS, Trainer, load_train_config
+from salience_detr_torch.utils.coco_eval import METRIC_NAMES, CocoEvaluator
 
 LEVELS = [(100, 168), (50, 84), (25, 42), (13, 21)]  # 800x1344 canvas, strides 8..64
 # (atol, rtol).  bf16: both sides round one f32 sum, so they differ by at most
@@ -146,6 +172,13 @@ HBM_BYTES_PER_MS = 3.35e12 / 1e3
 F32_OPS_PER_MS = 67e12 / 1e3
 STAGE_KERNELS = ("gather_sum", "weighted_reduce", "corner_collapse_blocked", "corner_collapse_packed")
 NO_STAGE_LAUNCHES = {k: 0 for k in STAGE_KERNELS}
+# f32 operations of one pair's IoU test: 4 max/min, 2 differences and their
+# clamps, the intersection, union (2) and its clamp, the quotient, the compare
+IOU_OPS = 14
+# the eval phase's split: the first two serve batches' sizes (5 landscape, 3
+# portrait), and where it is written (an ignored directory of the checkout)
+EVAL_SIZES = SERVE_BATCHES[0] + SERVE_BATCHES[1]
+EVAL_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_eval"
 SMALL = dict(
     backbone="resnet18", embed_dim=32, num_classes=5, num_queries=24,
     num_encoder_layers=2, num_decoder_layers=2, num_heads=4, dim_feedforward=64,
@@ -362,7 +395,7 @@ def phase_serve(smi):
     launches = dict(native.LAUNCHES)
     layers = cfg.num_encoder_layers + cfg.num_decoder_layers
     if launches != {"msda": layers * forwards, "grid_nms": forwards, "msda_backward": 0, "hungarian": 0,
-                    **NO_STAGE_LAUNCHES}:
+                    "nms_keep": 0, **NO_STAGE_LAUNCHES}:
         raise AssertionError(f"launch counts {launches} for {forwards} forwards")
     k = cfg.select_box_nums_for_evaluation
     for sizes, batch in zip(SERVE_BATCHES, results):
@@ -458,6 +491,37 @@ def phase_msda_backward():
             if G == 1 and dtype == torch.bfloat16:  # the encoder's hot shape on the main path
                 timing = (ms, plain_ms, *msda_bounds(value, locs, weights)[1])
     return worst, timing
+
+
+def phase_msda_groups(smi):
+    """K1 and K3 at G=2 and G=4 location groups (the JAX grouped core, 1 < G
+    < H) at the encoder's flagship shape (B=4, Q=11403, S=22323, bf16,
+    uniform inputs), against their plain versions (K3 also against autograd
+    of the plain forward), with times and bounds."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    S, Q = sum(h * w for h, w in LEVELS), 11403
+    for G in (2, 4):
+        value32, locs, weights = uniform_msda_inputs(gen, G, Q)
+        value = value32.to(torch.bfloat16)
+        d_out = torch.randn(value.shape[0], Q, value.shape[2], generator=gen, device=dev).to(torch.bfloat16)
+        del value32
+        got, want = ms_deform_attn(value, LEVELS, locs, weights), ms_deform_attn_plain(value, LEVELS, locs, weights)
+        torch.cuda.synchronize()
+        max_abs, _, bad, atol, rtol = compare(got, want, torch.bfloat16)
+        if bad:
+            raise AssertionError(f"msda kernel disagrees with plain at G={G} bf16: {bad} elements")
+        del got, want
+        _, parts = backward_checks(value, locs, weights, d_out, f"G={G} bf16")
+        fwd_ms = cuda_ms(lambda: ms_deform_attn(value, LEVELS, locs, weights), 20)
+        fwd_plain = cuda_ms(lambda: ms_deform_attn_plain(value, LEVELS, locs, weights), 5)
+        bwd_ms = cuda_ms(lambda: _backward_cuda(value, LEVELS, locs, weights, d_out), 10)
+        bwd_plain = cuda_ms(lambda: ms_deform_attn_backward_plain(value, LEVELS, locs, weights, d_out), 3)
+        (fb, fby), (bb, bby) = msda_bounds(value, locs, weights)
+        print(f"msda_groups: G={G} B={value.shape[0]} Q={Q} S={S} C={value.shape[2]} bf16 uniform; "
+              f"K1 max_abs_err={max_abs:.3e} (atol {atol} rtol {rtol}) kernel_ms={fwd_ms:.4f} "
+              f"plain_ms={fwd_plain:.4f} bound_ms={fb:.4f} ({fby}); K3 {' '.join(parts)} kernel_ms={bwd_ms:.4f} "
+              f"plain_ms={bwd_plain:.4f} bound_ms={bb:.4f} ({bby}); card: {smi}")
 
 
 def hungarian_costs(dev):
@@ -589,7 +653,7 @@ def phase_train_slice():
 def phase_train(smi):
     cfg = load_config(DEFAULT_CONFIG)  # the flagship
     # the criterion matches all 7 sets (6 decoder layers, the encoder) in one launch
-    per_step = {"msda": 12, "msda_backward": 12, "grid_nms": 1, "hungarian": 1, **NO_STAGE_LAUNCHES}
+    per_step = {"msda": 12, "msda_backward": 12, "grid_nms": 1, "hungarian": 1, "nms_keep": 0, **NO_STAGE_LAUNCHES}
     timed = 3
     trainer = Trainer(cfg, "cuda", seed=0, steps_per_epoch=1 + timed)
     batches = list(trainer.batches(1 + timed, seed=0, counts=GT_COUNTS))
@@ -706,6 +770,7 @@ def baseline_library(csrc_dir):
         "grid_nms_forward": [ptr, native.LevelTable, ptr, i32, i32, i32, ptr],
         "assignment_forward": [ptr, ptr, ptr, i32, i32, i32, i32, ptr],
         "hungarian_forward": [ptr, ptr, ptr, i32, i32, i32, ptr],
+        "nms_keep_forward": [ptr, ctypes.c_float, ptr, i32, i32, ptr],
     }
     for name, argtypes in signatures.items():
         if hasattr(lib, name):
@@ -1161,6 +1226,223 @@ def stage_checks(dev, B, Q):
     return parts, results
 
 
+def capture_post_boxes():
+    """The (B, 300, 4) scaled top-k boxes of a flagship serve forward's
+    post-process (B=4, the TIMED_BATCH canvas, random weights from seed 0):
+    what its NMS filter hands to ``nms_keep_mask``."""
+    cfg = load_config(DEFAULT_CONFIG)
+    predictor = Predictor(cfg, None, "cuda", seed=0)
+    return predictor.forward(*preprocess(make_requests(TIMED_BATCH, 7), cfg, "cuda"))["boxes"].contiguous()
+
+
+def greedy_iou_tests(boxes, keep, thr):
+    """The IoU tests the greedy rule needs on these boxes: for each kept box,
+    one with every later box that no better-ranked kept box suppressed."""
+    N = boxes.shape[1]
+    iou, _ = box_iou_pairwise(boxes, boxes)
+    rank = torch.arange(N, device=boxes.device)
+    later = rank[:, None] < rank[None, :]  # (i, j): i ranked before j
+    suppress = (iou > float(np.float32(thr))) & later & keep[:, :, None]
+    first = torch.where(suppress.any(1), suppress.float().argmax(1), N)  # (B, N) first kept suppressor
+    return int((keep[:, :, None] & later & (first[:, None, :] >= rank[None, :, None])).sum())
+
+
+def keep_launcher(boxes, thr):
+    """A launch-only call of a library's keep-mask kernel on these boxes
+    (output allocated once)."""
+    B, N, _ = boxes.shape
+    keep = torch.empty(B, N, dtype=torch.bool, device=boxes.device)
+    stream, thr32 = native.stream_of(boxes), float(np.float32(thr))
+
+    def run(lib):
+        native.check(lib.nms_keep_forward(boxes.data_ptr(), thr32, keep.data_ptr(), B, N, stream),
+                     "nms_keep_forward")
+
+    return run, keep
+
+
+def phase_nms_keep(smi, baselines):
+    """K9 against its plain version, exactly, on a flagship serve forward's
+    post-process boxes (thresholds 0.5 and 0.7), on a chain of boxes each
+    overlapping only its neighbours (IoU 0.6, 1/3 two apart) and on identical
+    boxes; then on random boxes at N = 300, 600 and 1024, with times of the
+    launch alone and of the wrapper.  With ``--baseline-csrc``, each
+    directory's keep-mask kernel is timed in turns with this one on every
+    case (``keep_ab:``)."""
+    dev = torch.device("cuda")
+    boxes = capture_post_boxes()
+    B, N, _ = boxes.shape
+    x = torch.arange(N, device=dev, dtype=torch.float32) * 2.5
+    chain = torch.stack([x, torch.zeros_like(x), x + 10, torch.full_like(x, 10)], -1).expand(B, N, 4).contiguous()
+    identical = torch.tensor([3.0, 4.0, 50.0, 60.0], device=dev).expand(B, N, 4).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cases = [("captured serve", boxes, 0.5), ("captured serve", boxes, 0.7), ("chain", chain, 0.5),
+             ("identical", identical, 0.7)]
+    for n in (300, 600, 1024):
+        xy = torch.rand(B, n, 2, generator=gen, device=dev) * 400
+        cases.append((f"random N={n}", torch.cat([xy, xy + 5 + torch.rand(B, n, 2, generator=gen, device=dev) * 60],
+                                                 -1), 0.5))
+    timing, new = None, native.load()
+    bases = [(d, baseline_library(d)) for d in baselines]
+    for name, bx, thr in cases:
+        got, want = nms_keep_mask(bx, thr), nms_keep_mask_plain(bx, thr)
+        torch.cuda.synchronize()
+        mismatches = int((got != want).sum())
+        if mismatches:
+            raise AssertionError(f"nms_keep kernel differs from plain in {mismatches} entries on {name} at {thr}")
+        run, _ = keep_launcher(bx, thr)
+        ms = cuda_ms(lambda: run(new), 200)  # the launch alone
+        wrapper_ms = cuda_ms(lambda: nms_keep_mask(bx, thr), 20)
+        plain_ms = cuda_ms(lambda: nms_keep_mask_plain(bx, thr), 3)
+        tests = greedy_iou_tests(bx, got, thr)
+        # reads the boxes, writes the mask; IOU_OPS per needed IoU test
+        t = (ms, plain_ms, *bound(nbytes(bx, got), tests * IOU_OPS))
+        print(f"nms_keep: {name} B={bx.shape[0]} N={bx.shape[1]} thr={thr} kept={got.sum(1).tolist()} "
+              f"mismatches={mismatches} kernel_ms={ms:.4f} (launch only) wrapper_ms={wrapper_ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={t[2]:.6f} ({t[3]}) iou_tests={tests} "
+              f"kernel_us_per_rank={1000 * ms / bx.shape[1]:.4f}; card: {smi}")
+        if (name, thr) == ("captured serve", 0.7):  # the eval phase's filter
+            timing = t
+        for base_dir, base in bases:
+            if hasattr(base, "nms_keep_forward"):
+                print(f"keep_ab: {name} N={bx.shape[1]} thr={thr} baseline={base_dir}: K9 ms base/new/new/base "
+                      f"{[round(x, 4) for x in in_turns(run, base, new, 200)]}; card: {smi}")
+    return timing
+
+
+def write_eval_split(root, seed=12):
+    """EVAL_SIZES as ``.npy`` uint8 RGB images drawn from ``seed`` (the card's
+    machine has no cv2) and a COCO annotation file with 5 random boxes per
+    image, the last a crowd box, labels in 1..90; returns (image dir,
+    annotation path)."""
+    rng = np.random.default_rng(seed)
+    img_dir = root / "images"
+    img_dir.mkdir(parents=True, exist_ok=True)
+    images, anns = [], []
+    for i, (h, w) in enumerate(EVAL_SIZES):
+        np.save(img_dir / f"{i:03d}.npy", rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        images.append({"id": i + 1, "file_name": f"{i:03d}.npy", "height": h, "width": w})
+        for k in range(5):
+            bw, bh = rng.uniform(0.05, 0.5) * w, rng.uniform(0.05, 0.5) * h
+            x, y = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            anns.append({"id": len(anns) + 1, "image_id": i + 1, "category_id": int(rng.integers(1, 91)),
+                         "bbox": [x, y, bw, bh], "area": bw * bh, "iscrowd": int(k == 4)})
+    ann = root / "annotations.json"
+    ann.write_text(json.dumps({"images": images, "annotations": anns,
+                               "categories": [{"id": c, "name": f"class{c}"} for c in range(91)]}))
+    return img_dir, ann
+
+
+def check_stats(stats, label):
+    if list(stats) != METRIC_NAMES or not all(np.isfinite(v) for v in stats.values()):
+        raise AssertionError(f"{label}: stats {stats}")
+
+
+def phase_eval(smi):
+    """The evaluation path on a COCO-format split of EVAL_SIZES written under
+    build/: run 1 builds the flagship in exact mode (``exact_sampling``),
+    loads a seed-initialised exact-mode state dict strictly and runs the
+    entry point's functions (``make_eval_step`` with ``PostProcess(0.7 NMS,
+    0.05 confidence)``, ``evaluate`` over ``DetectionLoader`` and
+    ``DevicePrefetcher``) at B=4; run 2 calls the entry point's ``main`` on
+    the hybrid flagship, filters off, with --save-results (its wall time
+    includes building the model), then re-scores the file with
+    --result-file.  Launches per forward must be 12 MSDA, 1
+    grid NMS and 1 (run 1) or 0 (run 2) NMS keep mask.  K1 is held against
+    its plain version on run 1's first encoder layer (G=8, Q=11403)."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    img_dir, ann = write_eval_split(EVAL_DIR)
+    flagship = load_config(DEFAULT_CONFIG)
+    exact = exact_sampling(flagship)
+    ckpt = EVAL_DIR / "exact_flagship_seed1.pth"
+    model, _ = build_salience_detr(exact, dev, torch.Generator().manual_seed(1))
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, ckpt)
+    del model
+    dataset = CocoDetection(str(img_dir), str(ann))
+    forwards = sum(1 for _ in DetectionLoader(dataset, 4))
+    layers = flagship.num_encoder_layers + flagship.num_decoder_layers
+    expect = {k: 0 for k in native.LAUNCHES}
+
+    model, _ = build_salience_detr(exact, dev, torch.Generator().manual_seed(2))
+    model.load_state_dict(eval_entry.load_state_dict(str(ckpt)), strict=True)
+    post = PostProcess(exact.select_box_nums_for_evaluation, nms_iou_threshold=0.7, confidence_score=0.05)
+    evaluator = CocoEvaluator(dataset.coco)
+    captured, real = {}, attention.ms_deform_attn
+
+    def recording(value, spatial_shapes, locations, weights):
+        if not captured:  # the first batch's first encoder layer
+            captured.update(value=value, locations=locations, weights=weights,
+                            levels=[tuple(x) for x in spatial_shapes])
+        return real(value, spatial_shapes, locations, weights)
+
+    for k in native.LAUNCHES:
+        native.LAUNCHES[k] = 0
+    attention.ms_deform_attn = recording
+    try:
+        t1 = time.perf_counter()
+        stats1 = evaluate(make_eval_step(model, post, exact.dtype),
+                          DevicePrefetcher(DetectionLoader(dataset, 4), exact, dev), evaluator)
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t1
+    finally:
+        attention.ms_deform_attn = real
+    launches1 = dict(native.LAUNCHES)
+    if launches1 != {**expect, "msda": layers * forwards, "grid_nms": forwards, "nms_keep": forwards}:
+        raise AssertionError(f"eval run 1: launch counts {launches1} for {forwards} forwards")
+    check_stats(stats1, "eval run 1")
+    kept = sum(len(p["scores"]) for p in evaluator.predictions.values())
+    t3 = time.perf_counter()  # the host's share of the wall time: the COCO protocol again
+    evaluator.accumulate()
+    evaluator.summarize()
+    accumulate_s = time.perf_counter() - t3
+    del model
+
+    value, locs, weights, levels = (captured[k] for k in ("value", "locations", "weights", "levels"))
+    Bk, Q, G = locs.shape[:3]
+    if (G, Q, levels) != (exact.num_heads, 11403, LEVELS):
+        raise AssertionError(f"captured exact-mode encoder layer: G={G} Q={Q} levels {levels}")
+    got, want = ms_deform_attn(value, levels, locs, weights), ms_deform_attn_plain(value, levels, locs, weights)
+    torch.cuda.synchronize()
+    max_abs, _, bad, atol, rtol = compare(got, want, value.dtype)
+    if bad:
+        raise AssertionError(f"msda kernel disagrees with plain on the exact-mode encoder inputs: {bad} elements")
+    k1_ms = cuda_ms(lambda: ms_deform_attn(value, levels, locs, weights), 20)
+    k1_plain = cuda_ms(lambda: ms_deform_attn_plain(value, levels, locs, weights), 5)
+    (fb, fby), _ = msda_bounds(value, locs, weights)
+    del captured, value, locs, weights, got, want
+
+    pred = EVAL_DIR / "predictions.json"
+    split = ["--coco-img", str(img_dir), "--coco-ann", str(ann)]
+    for k in native.LAUNCHES:
+        native.LAUNCHES[k] = 0
+    t2 = time.perf_counter()
+    stats2 = eval_entry.main(split + ["--batch-size", "4", "--seed", "0", "--save-results", str(pred)])
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t2
+    launches2 = dict(native.LAUNCHES)
+    if launches2 != {**expect, "msda": layers * forwards, "grid_nms": forwards}:
+        raise AssertionError(f"eval run 2: launch counts {launches2} for {forwards} forwards")
+    check_stats(stats2, "eval run 2")
+    rescored = eval_entry.main(split + ["--result-file", str(pred)])
+    gap = max(abs(rescored[k] - v) for k, v in stats2.items())
+    if gap > 1e-12:
+        raise AssertionError(f"re-scored stats {rescored} differ from the eval's {stats2}")
+    n = len(dataset)
+    print(f"eval: {n} .npy images {EVAL_SIZES} in {forwards} forwards of B<=4, box matching route "
+          f"{evaluator.route}; run 1 exact mode (G=8 encoder and decoder), strict load of {ckpt.name}, "
+          f"PostProcess(nms 0.7, confidence 0.05): launches={launches1}, valid detections={kept}, "
+          f"stats={ {k: round(v, 6) for k, v in stats1.items()} }, wall_s={wall1:.3f} img_s={n / wall1:.3f} "
+          f"(of which accumulate and summarize {accumulate_s:.3f} s, timed again); "
+          f"K1 on the first exact-mode encoder layer G={G} B={Bk} "
+          f"Q={Q} max_abs_err={max_abs:.3e} (atol {atol} rtol {rtol}) kernel_ms={k1_ms:.4f} plain_ms={k1_plain:.4f} "
+          f"bound_ms={fb:.4f} ({fby}); run 2 hybrid flagship through salience_detr_torch.test.main, filters off: "
+          f"launches={launches2}, stats={ {k: round(v, 6) for k, v in stats2.items()} }, wall_s={wall2:.3f} "
+          f"img_s={n / wall2:.3f}, re-scored from {pred.name} max gap {gap:.3e}; "
+          f"phase_s={time.perf_counter() - t0:.2f}; card: {smi}")
+    return launches1
+
+
 def kernel_entry(name, source, replaces, launches, err, timing):
     ms, plain_ms, bound_ms, bound_by, *library = timing
     return {"name": name, "route": "cuda", "source": f"salience_detr_torch/csrc/{source}",
@@ -1171,9 +1453,9 @@ def kernel_entry(name, source, replaces, launches, err, timing):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline-csrc", nargs="*", default=[], metavar="DIR",
-                        help="directories holding another version of csrc/, whose MSDA, grid-NMS and "
-                             "assignment kernels are timed in turns with these on the captured inputs "
-                             "and the phases' other inputs")
+                        help="directories holding another version of csrc/, whose MSDA, grid-NMS, "
+                             "assignment and keep-mask kernels are timed in turns with these on the "
+                             "captured inputs and the phases' other inputs")
     args = parser.parse_args(argv)
     smi = phase_device()
     phase_build()
@@ -1184,6 +1466,7 @@ def main(argv=None):
     phase_slice()
     serve_launches = phase_serve(smi)
     bwd_err, bwd_t = phase_msda_backward()
+    phase_msda_groups(smi)
     phase_hungarian()
     phase_train_slice()
     train_launches = phase_train(smi)
@@ -1191,12 +1474,14 @@ def main(argv=None):
     phase_msda_captured(smi, args.baseline_csrc, captured)
     nms_t, hung_t = phase_nms_assignment_captured(smi, args.baseline_csrc, captured.pop("assignment"))
     del captured
+    keep_t = phase_nms_keep(smi, args.baseline_csrc)
+    eval_launches = phase_eval(smi)
     stage_launches, stage_results = phase_msda_stages(smi)
     print(f"serve launches {serve_launches}; train launches {train_launches}; "
-          f"msda_stages launches {stage_launches}")
-    # K1-K4: no single PyTorch call computes them (MSDA is a grid_sample per
-    # level and a weighted sum; PyTorch has no NMS or assignment op).  K2 and
-    # K4 are exact, and timed on the main path's own inputs (phase 12).
+          f"eval launches (NMS filter on) {eval_launches}; msda_stages launches {stage_launches}")
+    # K1-K4, K9: no single PyTorch call computes them (MSDA is a grid_sample
+    # per level and a weighted sum; PyTorch has no NMS or assignment op).  K2,
+    # K4 and K9 are exact, and timed on the main path's own inputs.
     kernels = [
         kernel_entry("msda_forward", "msda.cu", "salience_detr_tpu/ops/deform_attn.py:768",
                      train_launches["msda"], msda_err, msda_t),
@@ -1206,6 +1491,9 @@ def main(argv=None):
                      train_launches["msda_backward"], bwd_err, bwd_t),
         kernel_entry("assignment_forward", "hungarian.cu", "salience_detr_tpu/ops/hungarian.py:36",
                      train_launches["hungarian"], 0.0, hung_t),
+        # K9 launches on the eval path with the NMS filter on (phase eval's run 1)
+        kernel_entry("nms_keep_forward", "nms_keep.cu", "salience_detr_tpu/ops/nms.py:133",
+                     eval_launches["nms_keep"], 0.0, keep_t),
     ]
     for name, source, replaces in (
         ("gather_sum", "gather_sum.cu", "tools/bench_gather.py:64"),

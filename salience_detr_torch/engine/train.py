@@ -1,8 +1,9 @@
-"""Training loop (port of salience_detr_tpu/engine/train.py::train_one_epoch).
+"""Training and evaluation loops (port of salience_detr_tpu/engine/train.py).
 
-The step's metrics stay on the device and are fetched only every
+The train step's metrics stay on the device and are fetched only every
 ``print_freq`` steps (one synchronisation per interval); a non-finite loss
-at a fetch raises."""
+at a fetch raises.  The eval loop fetches each batch's detections in one
+host transfer and hands the valid ones to the COCO evaluator."""
 
 from __future__ import annotations
 
@@ -10,7 +11,10 @@ import logging
 import math
 from typing import Callable, Dict, Iterable, Tuple
 
+import numpy as np
 import torch
+
+from salience_detr_torch.utils.logging_utils import MetricLogger, setup_logger
 
 LOGGER = logging.getLogger("salience_detr_torch.train")
 
@@ -33,3 +37,38 @@ def train_one_epoch(train_step: Callable, loader: Iterable, generator: torch.Gen
             LOGGER.info("Epoch: [%d] [%d] loss %.4f grad_norm %.4f", epoch, i, host["loss"],
                         host["grad_norm"])
     return global_step + steps, metrics
+
+
+def detections_to_host(dets: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Post-process outputs (B, k) -> numpy, in one device-to-host copy of a
+    packed (B, k, 7) float32 tensor (labels and the valid mask are exact in
+    float32)."""
+    packed = torch.cat([
+        dets["boxes"].float(), dets["scores"].float()[..., None],
+        dets["labels"].float()[..., None], dets["valid"].float()[..., None],
+    ], -1).cpu().numpy()
+    return {"boxes": packed[..., :4], "scores": packed[..., 4],
+            "labels": packed[..., 5].astype(np.int64), "valid": packed[..., 6] > 0}
+
+
+def evaluate(eval_step: Callable, loader: Iterable, evaluator, logger=None,
+             print_freq: int = 50) -> Dict[str, float]:
+    """COCO evaluation loop: ``eval_step(batch)`` per device batch (which
+    carries its ``image_ids``), the valid detections to ``evaluator``, then
+    accumulate and summarize; returns the 12-metric dict."""
+    logger = logger or setup_logger()
+    metric_logger = MetricLogger(logger=logger)
+    for batch in metric_logger.log_every(loader, print_freq, "Test:"):
+        dets = detections_to_host(eval_step(batch))
+        preds = {}
+        for i, img_id in enumerate(batch["image_ids"]):
+            valid = dets["valid"][i]
+            preds[int(img_id)] = {k: dets[k][i][valid] for k in ("boxes", "scores", "labels")}
+        evaluator.update(preds)
+
+    evaluator.synchronize_between_processes()
+    evaluator.accumulate()
+    stats = evaluator.summarize()
+    logger.info(" ".join(f"{k}={v:.4f}" for k, v in stats.items()))
+    logger.info("\n" + evaluator.per_category_table())
+    return stats

@@ -8,7 +8,10 @@ that its short side is ``cfg.min_size`` and its long side at most
 bilinear uint8 arithmetic), pads it at the top left of a landscape (min x max,
 rounded up to 32) or portrait canvas, normalizes, and runs the detector and
 post-processing.  The canvas always holds the resized image.  Requests whose
-orientations differ are served by one forward per canvas.
+orientations differ are served by one forward per canvas.  Each result
+carries the post-process's ``valid`` mask (all true unless the model's
+``PostProcess`` has its confidence or NMS filter on); the CLI keeps the
+detections that are valid and score above ``--score-threshold``.
 
     python -m salience_detr_torch.inference --image-dir DIR [--device cuda]
         [--state-dict FILE] [--save-results OUT.json]
@@ -21,7 +24,6 @@ files holding uint8 HWC RGB arrays are read with numpy everywhere.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import runpy
 import sys
@@ -31,8 +33,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from salience_detr_torch.data.coco import load_image
 from salience_detr_torch.models.detectors.salience_detr import normalize_images
 from salience_detr_torch.models.factory import SalienceDETRConfig, build_salience_detr
+from salience_detr_torch.parallel.train_step import make_eval_step
 
 DEFAULT_CONFIG = (
     Path(__file__).resolve().parent.parent
@@ -84,10 +88,10 @@ def resize_linear_u8(img: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
     return ((out + 2) >> 2).clamp_(0, 255).to(torch.uint8)
 
 
-def letterbox(images: Sequence[np.ndarray], cfg: SalienceDETRConfig, device):
-    """Requests of one canvas -> (canvas (B, 3, H, W) uint8, image_sizes (B, 2),
-    orig_sizes (B, 2)) on ``device``: each request resized and padded with
-    zeros at the top left."""
+def letterbox(images: Sequence, cfg: SalienceDETRConfig, device):
+    """Requests of one canvas (uint8 HWC numpy arrays or tensors) -> (canvas
+    (B, 3, H, W) uint8, image_sizes (B, 2), orig_sizes (B, 2)) on ``device``:
+    each request resized and padded with zeros at the top left."""
     canvas = canvas_for(*images[0].shape[:2], cfg)
     batch = torch.zeros((len(images), 3, *canvas), dtype=torch.uint8, device=device)
     sizes, orig = [], []
@@ -96,7 +100,8 @@ def letterbox(images: Sequence[np.ndarray], cfg: SalienceDETRConfig, device):
         if canvas_for(h, w, cfg) != canvas:
             raise ValueError(f"request {i} ({h}x{w}) does not belong on canvas {canvas}")
         nh, nw = resized_size(h, w, cfg)
-        x = torch.from_numpy(np.ascontiguousarray(img)).to(device)
+        x = img if isinstance(img, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(img))
+        x = x.to(device)
         batch[i, :, :nh, :nw] = resize_linear_u8(x, nh, nw).permute(2, 0, 1)
         sizes.append((nh, nw))
         orig.append((h, w))
@@ -133,18 +138,11 @@ class Predictor:
         )
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
-        self.autocast = self.device.type == "cuda" and cfg.dtype != torch.float32
+        self.eval_step = make_eval_step(self.model, self.postprocess, cfg.dtype)
 
-    @torch.no_grad()
     def forward(self, images: torch.Tensor, image_sizes: torch.Tensor, orig_sizes: torch.Tensor):
         """Detector + post-processing on a preprocessed batch."""
-        ctx = (
-            torch.autocast("cuda", dtype=self.cfg.dtype) if self.autocast
-            else contextlib.nullcontext()
-        )
-        with ctx:
-            out = self.model(images, image_sizes)
-        return self.postprocess(out["pred_class"][-1], out["pred_coord"][-1], orig_sizes)
+        return self.eval_step({"images": images, "image_sizes": image_sizes, "orig_sizes": orig_sizes})
 
     def groups(self, requests: Sequence[np.ndarray]) -> List[List[int]]:
         """Request indices grouped by canvas, one forward per group."""
@@ -160,19 +158,6 @@ class Predictor:
             for j, i in enumerate(idx):
                 results[i] = {k: v[j] for k, v in dets.items()}
         return results
-
-
-def _read_image(path: Path) -> np.ndarray:
-    if path.suffix == ".npy":
-        return np.load(path)
-    try:
-        import cv2
-    except ImportError as e:
-        raise RuntimeError(f"decoding {path.name} needs cv2, which is not installed") from e
-    img = cv2.imread(str(path), cv2.IMREAD_COLOR)
-    if img is None:
-        raise ValueError(f"cannot decode {path}")
-    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
 
 
 def main(argv=None):
@@ -198,8 +183,8 @@ def main(argv=None):
     results = []
     for s in range(0, len(paths), CLI_BATCH):
         chunk = paths[s:s + CLI_BATCH]
-        for path, det in zip(chunk, predictor([_read_image(q) for q in chunk])):
-            keep = det["scores"] > args.score_threshold
+        for path, det in zip(chunk, predictor([load_image(str(q)) for q in chunk])):
+            keep = det["valid"] & (det["scores"] > args.score_threshold)
             results.append({
                 "image": str(path),
                 "boxes": det["boxes"][keep].tolist(),

@@ -1,21 +1,33 @@
-"""Detection post-processing (port of salience_detr_tpu/models/bricks/post_process.py,
-with the optional confidence and NMS filters off): flat top-k over
-(num_queries x num_classes) sigmoid scores, label = index % num_classes,
-cxcywh -> xyxy scaled to the original image size."""
+"""Detection post-processing (port of salience_detr_tpu/models/bricks/post_process.py):
+flat top-k over (num_queries x num_classes) sigmoid scores, label = index %
+num_classes, cxcywh -> xyxy scaled to the original image size, and the
+optional confidence and NMS filters as a ``valid`` mask (shapes stay fixed):
+the confidence filter applies when ``confidence_score > 0``, the
+class-agnostic greedy NMS on the scaled top-k boxes (one ``nms_keep_mask``
+call for the batch) when ``nms_iou_threshold > 0``."""
 
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from salience_detr_torch.ops.boxes import box_cxcywh_to_xyxy
 from salience_detr_torch.ops.misc import stable_topk
+from salience_detr_torch.ops.nms import nms_keep_mask
 
 
 class PostProcess:
-    def __init__(self, select_box_nums_for_evaluation: int = 300):
+    def __init__(
+        self,
+        select_box_nums_for_evaluation: int = 300,
+        nms_iou_threshold: float = -1.0,
+        confidence_score: float = -1.0,
+    ):
         self.select_box_nums_for_evaluation = select_box_nums_for_evaluation
+        self.nms_iou_threshold = nms_iou_threshold
+        self.confidence_score = confidence_score
 
     def __call__(
         self,
@@ -33,4 +45,12 @@ class PostProcess:
         img_h = target_sizes[:, 0].float()
         img_w = target_sizes[:, 1].float()
         scale = torch.stack([img_w, img_h, img_w, img_h], -1)[:, None, :]
-        return {"scores": scores, "labels": labels, "boxes": boxes * scale}
+        boxes = boxes * scale
+
+        valid = torch.ones_like(scores, dtype=torch.bool)
+        if self.confidence_score > 0:
+            # the JAX package compares against the threshold in float32
+            valid &= scores > float(np.float32(self.confidence_score))
+        if self.nms_iou_threshold > 0:
+            valid &= nms_keep_mask(boxes, self.nms_iou_threshold)
+        return {"scores": scores, "labels": labels, "boxes": boxes, "valid": valid}

@@ -10,6 +10,7 @@ configured backbone stages, and moves it to the given device in eval mode;
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
@@ -80,6 +81,14 @@ class SalienceDETRConfig:
 
     def decoder_groups(self) -> int:
         return self.decoder_sampling_groups or self.num_heads
+
+
+def exact_sampling(cfg: SalienceDETRConfig) -> SalienceDETRConfig:
+    """``cfg`` with one location group per head in the encoder and the
+    decoder: the per-head sampling-offset layout of upstream checkpoints,
+    which the evaluation of such a checkpoint forces (the JAX CLI's
+    torch-checkpoint override)."""
+    return dataclasses.replace(cfg, encoder_sampling_groups=None, decoder_sampling_groups=None)
 
 
 def _prior_bias(prior_prob: float = 0.01) -> float:

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host C++ helper.
 
 ``csrc/*.cu`` compile with ``nvcc``, one process per source in parallel, into
 one shared library with a plain C interface,
@@ -35,13 +35,14 @@ NVCC_FLAGS = (
 MAX_LEVELS = 16  # kLevelsMax in csrc/levels.cuh
 
 LAUNCHES = {
-    "msda": 0, "msda_backward": 0, "grid_nms": 0, "hungarian": 0,
+    "msda": 0, "msda_backward": 0, "grid_nms": 0, "hungarian": 0, "nms_keep": 0,
     # the stage kernels of the MSDA shootout (ops/msda_stages.py)
     "gather_sum": 0, "weighted_reduce": 0, "corner_collapse_blocked": 0,
     "corner_collapse_packed": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
+_cocoeval: Optional[ctypes.CDLL] = None
 
 
 class LevelTable(ctypes.Structure):
@@ -157,6 +158,8 @@ def load() -> ctypes.CDLL:
         lib.grid_nms_forward.restype = i32
         lib.assignment_forward.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
         lib.assignment_forward.restype = i32
+        lib.nms_keep_forward.argtypes = [ptr, ctypes.c_float, ptr, i32, i32, ptr]
+        lib.nms_keep_forward.restype = i32
         lib.gather_sum.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
         lib.gather_sum.restype = i32
         lib.weighted_reduce.argtypes = [ptr, ptr, i32, ptr, i64, i32, i32, i32, i32, ptr]
@@ -167,6 +170,34 @@ def load() -> ctypes.CDLL:
         lib.corner_collapse_packed.restype = i32
         _lib = lib
     return _lib
+
+
+def cocoeval_lib() -> ctypes.CDLL:
+    """The COCO evaluation inner loop (``csrc/cocoeval.cpp``, host C++), built
+    with g++ on first use into
+    ``build/salience_detr_torch/cocoeval-<source-hash>/libcocoeval.so``.
+    Raises ``OSError`` when g++ is missing or the library does not load, and
+    ``subprocess.CalledProcessError`` when g++ fails."""
+    global _cocoeval
+    if _cocoeval is None:
+        src = CSRC_DIR / "cocoeval.cpp"
+        out = BUILD_ROOT / f"cocoeval-{hashlib.sha256(src.read_bytes()).hexdigest()[:16]}" / "libcocoeval.so"
+        if not out.exists():
+            out.parent.mkdir(parents=True, exist_ok=True)
+            work = Path(tempfile.mkdtemp(dir=out.parent))
+            try:
+                subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-o", str(work / out.name), str(src)],
+                               check=True, capture_output=True, text=True)
+                os.replace(work / out.name, out)
+            finally:
+                shutil.rmtree(work, ignore_errors=True)
+        lib = ctypes.CDLL(str(out))
+        f64, u8, i64 = ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64
+        lib.evaluate_img.argtypes = [f64, i64, f64, i64, u8, u8, f64, i64, ctypes.c_double, ctypes.c_double,
+                                     u8, u8]
+        lib.evaluate_img.restype = None
+        _cocoeval = lib
+    return _cocoeval
 
 
 def check(err: int, what: str) -> None:

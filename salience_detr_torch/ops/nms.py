@@ -1,6 +1,7 @@
-"""Grid NMS over the two-stage proposal tokens (port of salience_detr_tpu/ops/nms.py::grid_nms_topk).
+"""Non-maximum suppression (port of salience_detr_tpu/ops/nms.py).
 
-The reference's NMS (IoU 0.3) on 2x2 boxes centred on feature-grid cells
+Grid NMS over the two-stage proposal tokens (``grid_nms_topk``): the
+reference's NMS (IoU 0.3) on 2x2 boxes centred on feature-grid cells
 suppresses exactly the 4-neighbours on the same level, so greedy NMS over the
 score-ordered top-K tokens reduces to: keep a candidate iff no higher-ranked
 kept candidate is its 4-neighbour.  The result holds the first ``num_out``
@@ -12,23 +13,37 @@ survivors in rank order, then the best-ranked suppressed candidates.
   ``csrc/grid_nms.cu`` (the same fixpoint in parallel rounds on the card, one
   block per image): a CPU tensor goes to the plain version, a CUDA tensor
   launches the kernel or raises.
+
+Greedy NMS over score-ordered boxes (``nms_keep_mask``), the post-process
+filter: a box is kept iff no better-ranked kept box has an IoU above the
+threshold with it.
+
+* :func:`nms_keep_mask_plain` is the JAX package's dense conflict-matrix
+  fixpoint, batched;
+* :func:`nms_keep_mask` is the wrapper of ``csrc/nms_keep.cu`` (a bitmask and
+  a serial walk, one block per image), dispatching as ``grid_nms_topk`` does.
 """
 
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from salience_detr_torch import native
+from salience_detr_torch.ops.boxes import box_iou_pairwise
 
 # dynamic shared memory the kernel may use (13K + 2S + 1 bytes), and the
 # candidates its 16-bit rank map can hold
 SMEM_BUDGET_BYTES = 226 * 1024
 MAX_CANDIDATES = 65535
-# relaxation steps of the plain fixpoint between convergence checks
+# relaxation steps of the plain fixpoints between convergence checks
 UNROLL = 8
+# boxes per image the keep-mask kernel takes: its walking warp holds one
+# 32-bit removed-mask word per lane
+NMS_KEEP_MAX_BOXES = 1024
 
 
 def _shift2d(arr: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:
@@ -129,3 +144,55 @@ def grid_nms_topk(
     native.check(err, "grid_nms_forward")
     native.LAUNCHES["grid_nms"] += 1
     return out
+
+
+def nms_keep_mask_plain(boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """boxes (B, N, 4) xyxy in descending score order -> (B, N) bool keep
+    mask, the exact greedy result.
+
+    The dense conflict matrix holds iou(i, j) > threshold (float32) for every
+    better-ranked j < i; each relaxation step recomputes keep[i] = no
+    conflicting j is kept, ``UNROLL`` steps between convergence checks, each
+    of which synchronises with the host.
+    """
+    B, N, _ = boxes.shape
+    iou, _ = box_iou_pairwise(boxes, boxes)
+    rank = torch.arange(N, device=boxes.device)
+    conflict = (iou > float(np.float32(iou_threshold))) & (rank[None, :] < rank[:, None])
+    keep = torch.ones((B, N), dtype=torch.bool, device=boxes.device)
+    for _ in range(0, N + UNROLL, UNROLL):
+        prev = keep
+        for _ in range(UNROLL):
+            keep = ~(conflict & keep[:, None, :]).any(-1)
+        if torch.equal(keep, prev):
+            break
+    return keep
+
+
+def nms_keep_mask(boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """Wrapper of the keep-mask kernel (csrc/nms_keep.cu); same contract as
+    :func:`nms_keep_mask_plain`.  On CUDA, ``boxes`` must be a contiguous
+    (B, N, 4) float32 tensor with N <= ``NMS_KEEP_MAX_BOXES``."""
+    if boxes.device.type == "cpu":
+        return nms_keep_mask_plain(boxes, iou_threshold)
+    if boxes.device.type != "cuda":
+        raise RuntimeError(f"nms_keep_mask: no kernel for device {boxes.device}")
+    if boxes.dtype != torch.float32 or boxes.dim() != 3 or boxes.shape[-1] != 4 or not boxes.is_contiguous():
+        raise TypeError(
+            "nms_keep_mask: boxes must be a contiguous (B, N, 4) float32 tensor, got "
+            f"{boxes.dtype} {tuple(boxes.shape)}"
+        )
+    B, N, _ = boxes.shape
+    if N > NMS_KEEP_MAX_BOXES:
+        raise ValueError(f"nms_keep_mask: the kernel takes at most {NMS_KEEP_MAX_BOXES} boxes per image, got {N}")
+    keep = torch.empty((B, N), dtype=torch.bool, device=boxes.device)
+    if B == 0 or N == 0:
+        return keep
+    lib = native.load()
+    with torch.cuda.device(boxes.device):
+        err = lib.nms_keep_forward(
+            boxes.data_ptr(), float(np.float32(iou_threshold)), keep.data_ptr(), B, N, native.stream_of(boxes)
+        )
+    native.check(err, "nms_keep_forward")
+    native.LAUNCHES["nms_keep"] += 1
+    return keep

@@ -1,4 +1,4 @@
-"""The train step (port of salience_detr_tpu/parallel/train_step.py,
+"""The train and eval steps (port of salience_detr_tpu/parallel/train_step.py,
 ``accumulate_steps=1``, one device).
 
 One step: the train forward under autocast (bf16 on CUDA when the config
@@ -78,5 +78,26 @@ def make_train_step(model, criterion, salience_criterion, optimizer: torch.optim
         metrics["loss"] = total.detach()
         metrics["grad_norm"] = grad_norm
         return metrics
+
+    return step
+
+
+def make_eval_step(model, postprocess, dtype: torch.dtype = torch.float32) -> Callable:
+    """Eval forward and post-process -> per-image top-k detections (the JAX
+    package's ``make_eval_step``).  ``batch`` holds images (B, 3, H, W),
+    normalized and padded, image_sizes and orig_sizes (B, 2); on CUDA the
+    forward runs under autocast to ``dtype`` unless it is float32."""
+
+    @torch.no_grad()
+    def step(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        images = batch["images"]
+        amp = (
+            torch.autocast("cuda", dtype=dtype)
+            if images.device.type == "cuda" and dtype != torch.float32
+            else contextlib.nullcontext()
+        )
+        with amp:
+            out = model(images, batch["image_sizes"])
+        return postprocess(out["pred_class"][-1], out["pred_coord"][-1], batch["orig_sizes"])
 
     return step

@@ -97,6 +97,7 @@ results = predictor(requests)
 for (h, w), r in zip(sizes, results):
     assert r["scores"].shape == (20,) and r["labels"].shape == (20,), r
     assert r["boxes"].shape == (20, 4) and bool(r["boxes"].isfinite().all())
+    assert r["valid"].shape == (20,) and bool(r["valid"].all())  # the filters are off
     assert float(r["boxes"][:, 2].max()) <= w * 1.5 and float(r["boxes"][:, 3].max()) <= h * 1.5
 assert len(predictor.groups(requests)) == 2  # one landscape, one portrait canvas
 assert "jax" not in sys.modules and "salience_detr_tpu" not in sys.modules, sorted(sys.modules)

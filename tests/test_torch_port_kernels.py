@@ -6,6 +6,7 @@ skip without one; run them on a GPU machine with
 on any machine, the host-side pieces the kernels rely on.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -17,7 +18,13 @@ from salience_detr_torch.ops.deform_attn import (
 )
 from salience_detr_torch.ops import msda_stages as st
 from salience_detr_torch.ops.hungarian import batched_assignment, batched_assignment_plain
-from salience_detr_torch.ops.nms import grid_nms_topk, grid_nms_topk_plain
+from salience_detr_torch.ops.nms import (
+    NMS_KEEP_MAX_BOXES,
+    grid_nms_topk,
+    grid_nms_topk_plain,
+    nms_keep_mask,
+    nms_keep_mask_plain,
+)
 
 LEVELS = [(10, 14), (5, 7), (3, 4), (1, 2)]
 S = sum(h * w for h, w in LEVELS)
@@ -37,11 +44,11 @@ def test_library_path_tracks_the_sources():
     assert path.name == "libkernels.so" and path.parent.name == native.source_hash()
     assert path.parent.parent == native.BUILD_ROOT
     assert {p.name for p in native.CSRC_DIR.glob("*.cu")} == {
-        "msda.cu", "msda_backward.cu", "grid_nms.cu", "hungarian.cu",
+        "msda.cu", "msda_backward.cu", "grid_nms.cu", "hungarian.cu", "nms_keep.cu",
         "gather_sum.cu", "weighted_reduce.cu", "corner_collapse.cu",
     }
     assert set(native.LAUNCHES) == {
-        "msda", "msda_backward", "grid_nms", "hungarian",
+        "msda", "msda_backward", "grid_nms", "hungarian", "nms_keep",
         "gather_sum", "weighted_reduce", "corner_collapse_blocked", "corner_collapse_packed",
     }
 
@@ -107,6 +114,77 @@ def test_grid_nms_kernel_matches_plain(cuda):
         grid_nms_topk(topk.long(), LEVELS, 60)
     with pytest.raises(ValueError):
         grid_nms_topk(topk, LEVELS, 121)
+
+
+def random_boxes(rng, B, N, extent=100.0, size=(5.0, 40.0)):
+    """(B, N, 4) float32 xyxy boxes with corners in [0, extent + size]."""
+    xy = rng.uniform(0, extent, (B, N, 2))
+    wh = rng.uniform(*size, (B, N, 2))
+    return np.concatenate([xy, xy + wh], -1).astype(np.float32)
+
+
+def chain_boxes(N=300):
+    """Boxes 10 wide at steps of 2.5: a box overlaps its neighbours at IoU 0.6
+    and the next ones at 1/3, so at threshold 0.5 each decision waits for the
+    previous one (the JAX fixpoint's depth is N)."""
+    x = np.arange(N, dtype=np.float32) * 2.5
+    return np.stack([x, np.zeros(N, np.float32), x + 10, np.full(N, 10, np.float32)], -1)[None]
+
+
+def tie_boxes(rng, N=200):
+    """Boxes with integer corners in [0, 8]: their IoUs are small-integer
+    ratios computed exactly, many of them exactly 1/2."""
+    lo = rng.integers(0, 7, (1, N, 2))
+    hi = lo + rng.integers(1, 3, (1, N, 2))
+    return np.concatenate([lo, hi], -1).astype(np.float32)
+
+
+def nms_keep_cases():
+    """name -> ((B, N, 4) float32 boxes in rank order, IoU threshold): random
+    boxes at three thresholds, the chain, all boxes identical, IoUs exactly
+    at the threshold, one box."""
+    rng = np.random.default_rng(0)
+    out = {f"random_{thr}": (random_boxes(rng, 2, 300), thr) for thr in (0.3, 0.5, 0.7)}
+    out["chain"] = (chain_boxes(), 0.5)
+    out["identical"] = (np.tile(np.float32([[[3.0, 4.0, 50.0, 60.0]]]), (2, 300, 1)), 0.7)
+    out["ties"] = (tie_boxes(rng), 0.5)
+    out["one_box"] = (random_boxes(rng, 2, 1), 0.5)
+    return out
+
+
+NMS_KEEP_CASES = nms_keep_cases()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(NMS_KEEP_CASES) + ["max_boxes", "max_boxes_clustered"])
+def test_nms_keep_kernel_bit_exact(cuda, name):
+    """Bit-exact against the plain fixpoint (run on the CPU), also at the
+    kernel's limit of 1024 boxes, spread out and crowded."""
+    if name.startswith("max_boxes"):
+        rng = np.random.default_rng(1)
+        extent = 400.0 if name == "max_boxes" else 60.0
+        boxes, thr = random_boxes(rng, 3, NMS_KEEP_MAX_BOXES, extent), 0.5
+    else:
+        boxes, thr = NMS_KEEP_CASES[name]
+    before = native.LAUNCHES["nms_keep"]
+    got = nms_keep_mask(torch.from_numpy(boxes).to(cuda), thr)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["nms_keep"] == before + 1
+    assert got.dtype == torch.bool and got.shape == boxes.shape[:2]
+    want = nms_keep_mask_plain(torch.from_numpy(boxes), thr)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_nms_keep_kernel_rejects_what_it_cannot_take(cuda):
+    boxes = torch.from_numpy(random_boxes(np.random.default_rng(2), 1, NMS_KEEP_MAX_BOXES + 1)).to(cuda)
+    with pytest.raises(ValueError, match="at most 1024"):
+        nms_keep_mask(boxes, 0.5)
+    with pytest.raises(TypeError):
+        nms_keep_mask(boxes[:, :8].double(), 0.5)
+    with pytest.raises(TypeError):
+        nms_keep_mask(boxes[:, :16:2], 0.5)
+    assert nms_keep_mask(boxes[:, :0].contiguous(), 0.5).shape == (1, 0)
 
 
 # a pyramid with levels large enough for long suppression chains

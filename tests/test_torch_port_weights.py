@@ -122,11 +122,24 @@ def test_export_reports_missing_targets_as_the_jax_converter():
 
 
 def test_bridge_loads_no_file_of_the_jax_package(tmp_path):
-    """A fresh process imports every module of the port, exports JAX
+    """A fresh process imports every module of the port (the data, utils and
+    engine modules and the evaluation entry point among them), exports JAX
     variables (saved by this process as numpy) through the bridge and loads
-    them strictly into the tiny model; it has loaded no module from
+    them strictly into the tiny model, builds the evaluator's native
+    library, and evaluates a COCO-format split through the entry point and
+    re-scores its predictions; it has loaded no module from
     salience_detr_tpu/ and not JAX, and opened no file there."""
+    from tests.test_torch_port_eval import SIZES, write_split
+
     _, variables = tiny_variables()
+    img_dir, ann = write_split(tmp_path, SIZES)
+    cfg_file = tmp_path / "tiny_config.py"
+    cfg_file.write_text(
+        "from salience_detr_torch.models.factory import SalienceDETRConfig\n"
+        f"model_config = SalienceDETRConfig(**{TINY_TORCH!r})\n"
+    )
+    split = ["--coco-img", str(img_dir), "--coco-ann", str(ann)]
+    pred = str(tmp_path / "pred.json")
     flat = jax_wc.flatten_variables(variables)
     np.savez(tmp_path / "vars.npz", **{k.replace("/", "|"): v for k, v in flat.items()})
     script = f"""
@@ -157,6 +170,12 @@ with np.load({str(tmp_path / "vars.npz")!r}) as npz:
 cfg = SalienceDETRConfig(**{TINY_TORCH!r})
 model, _ = build_salience_detr(cfg, torch.device("cpu"))
 model.load_state_dict(state_dict_from_jax(tree, cfg), strict=True)
+from salience_detr_torch import native
+from salience_detr_torch import test as port_test
+native.cocoeval_lib()
+stats = port_test.main({split!r} + ["--model-config", {str(cfg_file)!r}, "--device", "cpu",
+                       "--batch-size", "2", "--save-results", {pred!r}])
+assert port_test.main({split!r} + ["--result-file", {pred!r}]) == stats and len(stats) == 12
 loaded = [name for name, m in list(sys.modules.items())
           if str(getattr(m, "__file__", None)).startswith(jax_root)]
 assert not loaded and not touched, (loaded, touched[:5])
@@ -166,6 +185,6 @@ print("ok", len(tree))
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    assert proc.stdout.strip().startswith("ok")
+    assert proc.returncode == 0, proc.stderr[-3000:] + proc.stdout[-3000:]
+    assert proc.stdout.strip().splitlines()[-1].startswith("ok")
 
