@@ -91,11 +91,40 @@ non-zero exit and no result line:
    bf16 weights, K7 and K8 with f32 and bf16 outputs, K8 with bf16 weights),
    and each of the seven pipelines against K1 within the shootout's check
    bound (rtol 0.05, atol 0.02).  The serve and train phases' counters show
-   no stage-kernel launch.
+   no stage-kernel launch;
+17. deform_conv (after phase 15): the DCNv2 sampling kernels (B6) at each
+   distinct DCN layer shape of the R50-DCN config (B=4, 800x1344 canvas;
+   stages 2-4, stride 2 and 1) on offsets spanning a few pixels (some taps
+   outside the image) and masks in (0, 1): the forward against its plain
+   version in float32 (TF32 off) and bfloat16, the backward against the plain
+   backward and autograd of the plain forward; times, bounds and
+   F.grid_sample's times (the library yardstick), and the totals over the 13
+   layers.  With ``--baseline-csrc``, each directory's DCN kernels timed in
+   turns with these (``dcn_ab:``);
+18. dcn_slice: phases 5 and 9 on the small model with DCN stages 2-4, its
+   offset and mask convs at seeded small normals (``offsets_off_grid``) on
+   both devices;
+19. dcn_serve: R50-DCN (configs/salience_detr_torch/
+   salience_detr_resnet50_dcn_800_1333.py) served as in phase 6, its offset
+   and mask convs at seeded small normals: per forward 13 DCN forward, 12
+   MSDA and 1 grid-NMS launch; identical reruns; timed forwards;
+20. dcn_train: R50-DCN trained as in phase 10: per step also 13 DCN forward
+   and 13 DCN backward launches; every DCN parameter moves;
+21. msda_q8: the int8 head-shared MSDA kernels (B8, quantise and sample) at
+   the encoder's flagship shape (B=4, Q=11403, G=1, bf16) on uniform inputs
+   and on a served forward's captured encoder-layer-0 inputs: the int8 table
+   and scale exactly equal to the plain quantisation's, the sampler against
+   its plain version, the result against K1 within the quantisation bound;
+   times and bounds.  With ``--baseline-csrc``, ``q8_ab:`` lines;
+22. serve_q8: the flagship served with MSDA_GATHER_QUANT=int8 (the JAX
+   package's switch): per forward 6 quantise, 6 int8 sample, 6 MSDA (the
+   decoder) and 1 grid-NMS launch; identical reruns; the timed batch with
+   the switch on and off in turns, and the gap between their detections.
 
 The line before the last is {"kernels": [...]}: per kernel its launches in
 the counted train steps (3; K4 launches once a step; K9 in the eval phase's
-first run), its largest error, its time, its plain version's
+first run; the DCN kernels in phase 20's steps, the int8 kernels in phase
+22's 6 forwards), its largest error, its time, its plain version's
 time, its bound (``bound_ms``: bytes over 3.35 TB/s or f32 operations over
 67 TFLOP/s, whichever is larger, ``bound_by`` which) and the time of one
 PyTorch call of the same function (``library_ms``, null where there is
@@ -108,6 +137,8 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
+import os
 import statistics
 import sys
 import time
@@ -126,15 +157,23 @@ from salience_detr_torch.models.bricks import attention, salience_transformer
 from salience_detr_torch.models.bricks import criterion as criterion_module
 from salience_detr_torch.models.bricks.attention import MultiScaleDeformableAttention
 from salience_detr_torch.models.bricks.criterion import Targets, compute_matching_cost
+from salience_detr_torch.models.bricks.deform_conv import DeformConv2dPack
 from salience_detr_torch.models.bricks.denoising import cdn_draws
 from salience_detr_torch.models.bricks.post_process import PostProcess
 from salience_detr_torch.models.factory import SalienceDETRConfig, build_salience_detr, exact_sampling
 from salience_detr_torch.ops import msda_stages as stages
+from salience_detr_torch.ops import deform_conv as dcn_ops
 from salience_detr_torch.ops.deform_attn import (
     _backward_cuda,
     ms_deform_attn,
     ms_deform_attn_backward_plain,
     ms_deform_attn_plain,
+    ms_deform_attn_q8,
+    ms_deform_attn_q8_plain,
+    q8_quantize,
+    q8_quantize_plain,
+    q8_sample,
+    q8_sample_plain,
 )
 from salience_detr_torch.ops.boxes import box_iou_pairwise
 from salience_detr_torch.ops.hungarian import batched_assignment, batched_assignment_plain
@@ -350,11 +389,16 @@ def phase_grid_nms():
             raise AssertionError(f"grid_nms kernel differs from plain in {mismatches} entries on {name}")
 
 
-def phase_slice():
-    """Small random-weight model, float32: card (kernels) vs CPU (plain)."""
-    cfg = SalienceDETRConfig(**SMALL)
+def phase_slice(name="slice", stage_with_dcn=(False,) * 4):
+    """Small random-weight model, float32: card (kernels) vs CPU (plain).
+    With DCN stages, their offset and mask convs get the same seeded small
+    normal weights on both devices, so the taps sample off the pixel grid."""
+    cfg = SalienceDETRConfig(**SMALL, stage_with_dcn=stage_with_dcn)
     cpu = Predictor(cfg, None, "cpu", seed=3)
     gpu = Predictor(cfg, None, "cuda", seed=3)
+    if any(stage_with_dcn):
+        offsets_off_grid(cpu.model)
+        offsets_off_grid(gpu.model)
     rng = np.random.default_rng(3)
     requests = [rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8) for h, w in ((70, 101), (96, 128))]
     images, sizes, _ = preprocess(requests, cfg, "cpu")
@@ -367,10 +411,25 @@ def phase_slice():
     ok = same_proposals and all(
         torch.allclose(got[k].cpu(), want[k], rtol=1e-3, atol=1e-3) for k in errs
     )
-    print(f"slice: tiny float32 card-vs-cpu same_proposals={same_proposals} "
+    print(f"{name}: tiny float32 card-vs-cpu stage_with_dcn={stage_with_dcn} same_proposals={same_proposals} "
           f"max_abs_err={errs} rtol=1e-3 atol=1e-3")
     if not ok:
-        raise AssertionError("small-model forward on the card disagrees with the CPU forward")
+        raise AssertionError(f"{name}: small-model forward on the card disagrees with the CPU forward")
+
+
+def offsets_off_grid(model, seed=20, std=0.5):
+    """Seeded normal weights, ``std`` / sqrt(fan in), for the offset and mask
+    convs of every DCN layer of ``model``, through a strict state-dict load.
+    The JAX init zeroes them, which puts every tap on its pixel, where a
+    wrong interpolation, border or corner derivative shows no error."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = model.state_dict()
+    for name, m in model.named_modules():
+        if isinstance(m, DeformConv2dPack):
+            for part in ("conv_offset", "conv_mask"):
+                key = f"{name}.{part}.weight"
+                sd[key] = torch.randn(sd[key].shape, generator=gen) * (std / math.sqrt(sd[key][0].numel()))
+    model.load_state_dict(sd, strict=True)
 
 
 def make_requests(sizes, seed):
@@ -378,9 +437,15 @@ def make_requests(sizes, seed):
     return [rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8) for h, w in sizes]
 
 
-def phase_serve(smi):
-    cfg = load_config(DEFAULT_CONFIG)  # the flagship
+def phase_serve(smi, name="serve", cfg=None, label="flagship R50", prepare=None, per_forward=None):
+    """``cfg`` (the flagship by default) through ``Predictor``; ``prepare``
+    edits the model before the run (a strict state-dict load); per forward
+    12 MSDA and 1 grid-NMS launch unless ``per_forward`` says otherwise.
+    Returns the launches, the predictor and the timed batch's inputs."""
+    cfg = cfg or load_config(DEFAULT_CONFIG)
     predictor = Predictor(cfg, None, "cuda", seed=0)
+    if prepare is not None:
+        prepare(predictor.model)
     batches = [make_requests(sizes, seed) for seed, sizes in enumerate(SERVE_BATCHES)]
     t0 = time.perf_counter()
     predictor(batches[0])  # warm-up
@@ -394,9 +459,11 @@ def phase_serve(smi):
     torch.cuda.synchronize()
     launches = dict(native.LAUNCHES)
     layers = cfg.num_encoder_layers + cfg.num_decoder_layers
-    if launches != {"msda": layers * forwards, "grid_nms": forwards, "msda_backward": 0, "hungarian": 0,
-                    "nms_keep": 0, **NO_STAGE_LAUNCHES}:
-        raise AssertionError(f"launch counts {launches} for {forwards} forwards")
+    expect = {k: 0 for k in native.LAUNCHES}
+    expect.update(msda=layers * forwards, grid_nms=forwards)
+    expect.update({k: v * forwards for k, v in (per_forward or {}).items()})
+    if launches != expect:
+        raise AssertionError(f"{name}: launch counts {launches} for {forwards} forwards")
     k = cfg.select_box_nums_for_evaluation
     for sizes, batch in zip(SERVE_BATCHES, results):
         for (h, w), r in zip(sizes, batch):
@@ -424,11 +491,11 @@ def phase_serve(smi):
         times.append(start.elapsed_time(end))
     med = statistics.median(times)
     canvas = tuple(inputs[0].shape[-2:])
-    print(f"serve: flagship R50 bf16, {len(batches)} batches of 4 requests in {forwards} forwards; "
+    print(f"{name}: {label} bf16, {len(batches)} batches of 4 requests in {forwards} forwards; "
           f"launches={launches}; identical_rerun={identical}; warmup_s={warmup_s:.2f}; "
           f"B=4 canvas={canvas[0]}x{canvas[1]} forward_ms={[round(x, 3) for x in times]} "
           f"median_ms={med:.3f} img_s={4000.0 / med:.3f}; card: {smi}")
-    return launches
+    return launches, predictor, inputs
 
 
 def compare_bwd(got, want):
@@ -578,11 +645,11 @@ def phase_hungarian():
             raise AssertionError(f"assignment kernel differs: {mismatches} entries, cost gap {max(gaps)}")
 
 
-def small_train_step(device, counts=(3, 1)):
+def small_train_step(device, counts=(3, 1), stage_with_dcn=(False,) * 4):
     """One train step of the small model on ``device`` from seed 6; returns
     (metrics, assignments, clipped gradients, parameters, buffers, calls of
     the criterion's batched matching)."""
-    cfg = SalienceDETRConfig(**SMALL, denoising_nums=4)
+    cfg = SalienceDETRConfig(**SMALL, denoising_nums=4, stage_with_dcn=stage_with_dcn)
     tc = dict(load_train_config(), max_gt=6, train_canvas=(96, 128))
     trainer = Trainer(cfg, device, seed=6, steps_per_epoch=1, train_cfg=tc)
     # At init the sampling-offset weights are zero, so most sampling points
@@ -596,6 +663,8 @@ def small_train_step(device, counts=(3, 1)):
             if isinstance(m, MultiScaleDeformableAttention):
                 w = m.sampling_offsets.weight
                 w.copy_(torch.randn(w.shape, generator=gen) * 0.02)
+    # likewise the DCN taps (zero offset convs put every tap on its pixel)
+    offsets_off_grid(trainer.model)
     batch = next(trainer.batches(1, seed=6, counts=counts))
     batch["image_sizes"][1] = torch.tensor([70, 101])  # one padded image
     draws = cdn_draws(len(counts), 8, cfg.num_classes, 0.5, torch.Generator().manual_seed(6), "cpu")
@@ -620,11 +689,11 @@ def small_train_step(device, counts=(3, 1)):
     )
 
 
-def phase_train_slice():
+def phase_train_slice(name="train_slice", stage_with_dcn=(False,) * 4):
     """Small random-weight model, float32: a train step on the card (kernels)
     vs the same step on the CPU (plain versions)."""
-    gpu = small_train_step("cuda")
-    cpu = small_train_step("cpu")
+    gpu = small_train_step("cuda", stage_with_dcn=stage_with_dcn)
+    cpu = small_train_step("cpu", stage_with_dcn=stage_with_dcn)
     same_matches = len(gpu[1]) == len(cpu[1]) and all(torch.equal(a, b) for a, b in zip(gpu[1], cpu[1]))
     loss_err = max(abs(gpu[0][k] - v) / max(abs(v), 1e-12) for k, v in cpu[0].items())
     # gradients before the clip (the step clips in place to norm 0.1): per
@@ -639,7 +708,7 @@ def phase_train_slice():
     )
     param_err = max(float((gpu[3][n] - p).abs().max()) for n, p in cpu[3].items())
     buffer_err = max(float((gpu[4][n].float() - b.float()).abs().max()) for n, b in cpu[4].items())
-    print(f"train_slice: small float32 train step card-vs-cpu assignments={len(gpu[1])} "
+    print(f"{name}: small float32 train step card-vs-cpu stage_with_dcn={stage_with_dcn} assignments={len(gpu[1])} "
           f"in {gpu[5]} batched matching call(s) "
           f"same_assignments={same_matches} max_loss_rel_err={loss_err:.3e} (rtol 1e-4) "
           f"grad_err/bound={grad_ratio:.3e} at {worst_grad} (bound 1e-3*max|g|+1e-6) "
@@ -647,15 +716,22 @@ def phase_train_slice():
           f"same_grad_set={set(gpu[2]) == set(cpu[2])}")
     if not (same_matches and len(gpu[1]) == 3 and gpu[5] == cpu[5] == 1 and loss_err <= 1e-4 and grad_ratio <= 1.0
             and param_err <= 1e-6 and buffer_err <= 1e-5 and set(gpu[2]) == set(cpu[2])):
-        raise AssertionError("the small train step on the card disagrees with the CPU step")
+        raise AssertionError(f"{name}: the small train step on the card disagrees with the CPU step")
 
 
-def phase_train(smi):
-    cfg = load_config(DEFAULT_CONFIG)  # the flagship
+def phase_train(smi, name="train", cfg=None, label="flagship R50", prepare=None, per_step_extra=None,
+                must_move=()):
+    """``cfg`` (the flagship by default) through ``Trainer``; ``prepare``
+    edits the model before the run; every trainable parameter whose name
+    contains one of ``must_move`` has to move."""
+    cfg = cfg or load_config(DEFAULT_CONFIG)
     # the criterion matches all 7 sets (6 decoder layers, the encoder) in one launch
-    per_step = {"msda": 12, "msda_backward": 12, "grid_nms": 1, "hungarian": 1, "nms_keep": 0, **NO_STAGE_LAUNCHES}
+    per_step = {k: 0 for k in native.LAUNCHES}
+    per_step.update(msda=12, msda_backward=12, grid_nms=1, hungarian=1, **(per_step_extra or {}))
     timed = 3
     trainer = Trainer(cfg, "cuda", seed=0, steps_per_epoch=1 + timed)
+    if prepare is not None:
+        prepare(trainer.model)
     batches = list(trainer.batches(1 + timed, seed=0, counts=GT_COUNTS))
     before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
     t0 = time.perf_counter()
@@ -677,7 +753,7 @@ def phase_train(smi):
     launches = dict(native.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if launches != {k: v * timed for k, v in per_step.items()}:
-        raise AssertionError(f"launch counts {launches} for {timed} train steps")
+        raise AssertionError(f"{name}: launch counts {launches} for {timed} train steps")
     host = {k: float(v) for k, v in metrics.items()}
     if not all(np.isfinite(v) for v in host.values()):
         raise AssertionError(f"non-finite train metrics: {host}")
@@ -696,16 +772,20 @@ def phase_train(smi):
             if same:
                 raise AssertionError(f"trainable parameter {n} with a gradient did not change")
         moved += not same
+    named = [(n, p) for n, p in trainer.model.named_parameters() if any(m in n for m in must_move)]
+    stuck = [n for n, p in named if p.requires_grad and torch.equal(p.detach(), before[n])]
+    if stuck:
+        raise AssertionError(f"{name}: parameters {stuck[:4]} did not move")
     trainable = sum(p.requires_grad for p in trainer.model.parameters())
     top_grad = max((float(p.grad.norm()), n) for n, p in trainer.model.named_parameters()
                    if p.grad is not None)[1]
     med = statistics.median(times)
-    print(f"train: flagship R50 bf16 B=4 canvas={tuple(batches[0]['images'].shape[-2:])} "
+    print(f"{name}: {label} bf16 B=4 canvas={tuple(batches[0]['images'].shape[-2:])} "
           f"gts={GT_COUNTS} max_gt={trainer.max_gt}; warmup_s={warmup_s:.2f}; "
           f"launches over {timed} steps={launches}; loss={host['loss']:.4f} "
           f"grad_norm={host['grad_norm']:.4f} (largest in {top_grad}) all {len(host)} metrics finite; "
           f"trainable moved {moved}/{trainable} (all {nonzero} with a clipped gradient above 1e-6), "
-          f"frozen unchanged {still}; step_ms={[round(x, 3) for x in times]} median_ms={med:.3f} "
+          f"frozen unchanged {still}; {len(named)} parameters named {list(must_move)} all moved; step_ms={[round(x, 3) for x in times]} median_ms={med:.3f} "
           f"img_s={4000.0 / med:.3f} peak_mem_gib={peak_gib:.3f}; card: {smi}")
     return launches
 
@@ -763,10 +843,14 @@ def baseline_library(csrc_dir):
     (``hungarian_forward`` is the earlier assignment kernel's entry point,
     whose cost rows are exactly N floats long)."""
     lib = ctypes.CDLL(str(native.build(Path(csrc_dir).resolve())))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     if hasattr(lib, "msda_forward"):
         native.bind_msda(lib)
     signatures = {
+        "deform_conv_forward": [ptr, i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr],
+        "deform_conv_backward": [ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr],
+        "msda_q8_quantize": [ptr, i32, ptr, ptr, ptr, i64, i32, ptr],
+        "msda_q8_sample": [ptr, ptr, native.LevelTable, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr],
         "grid_nms_forward": [ptr, native.LevelTable, ptr, i32, i32, i32, ptr],
         "assignment_forward": [ptr, ptr, ptr, i32, i32, i32, i32, ptr],
         "hungarian_forward": [ptr, ptr, ptr, i32, i32, i32, ptr],
@@ -1443,6 +1527,410 @@ def phase_eval(smi):
     return launches1
 
 
+# the DCN layers of the R50-DCN config at B=4 on the 800x1344 canvas: (Cin,
+# input height, width, stride, layers of this shape); conv2 of every block of
+# stages 2-4, the first of each stage at stride 2
+DCN_LAYERS = [(128, 200, 336, 2, 1), (128, 100, 168, 1, 3), (256, 100, 168, 2, 1), (256, 50, 84, 1, 5),
+              (512, 50, 84, 2, 1), (512, 25, 42, 1, 2)]
+DCN_HOT = (128, 100, 168, 1)  # the kernels line's shape: the largest columns (155 MB in bf16)
+DCN_STAGES = (False, True, True, True)
+DCN_CONFIG = Path(__file__).resolve().parent / "configs" / "salience_detr_torch" / "salience_detr_resnet50_dcn_800_1333.py"
+DCN_PARTS = (".conv2.conv_offset.", ".conv2.conv_mask.", ".conv2.deform_conv2d.")
+
+
+def steady_ms(fn, iters, reps=3):
+    """The least of ``reps`` means of ``iters`` calls each: a stall of the
+    host or the allocator inside one run does not reach the result."""
+    return min(cuda_ms(fn, iters) for _ in range(reps))
+
+
+def dcn_valid_corners(offsets, H, W, stride):
+    """The in-image corners of all taps of these offsets."""
+    py, px = dcn_ops._tap_positions(offsets, stride)
+    return sum(int(valid.sum()) for valid, *_ in dcn_ops._corners(py, px, H, W))
+
+
+def dcn_bounds(x, offsets, mask, stride):
+    """Bounds of the DCN forward and backward kernels on these inputs.  The
+    forward reads x, offsets and mask (f32, as the kernel takes them) and
+    writes the columns in x's dtype; 2 operations per channel of each
+    in-image corner and 1 for the mask.  The backward also reads d_cols and
+    writes d_x (f32), d_offsets and d_mask (f32); per channel of each
+    in-image corner 2 dot products and the d_x add (6 operations), and the
+    masked gradient (1)."""
+    B, H, W, C = x.shape
+    taps = offsets[..., 0].numel() * 9
+    valid = dcn_valid_corners(offsets, H, W, stride)
+    small = 4 * (offsets.numel() + mask.numel())
+    cols = taps * C * x.element_size()
+    forward = bound(nbytes(x) + small + cols, (2 * valid + taps) * C)
+    backward = bound(nbytes(x) + cols + 2 * small + B * H * W * C * 4, (6 * valid + taps) * C)
+    return forward, backward, valid / (4 * taps)
+
+
+def grid_sample_calls(x, offsets, stride, dtype):
+    """One ``F.grid_sample`` over (B, Ho, Wo * 9) points, the same bilinear
+    zero-padded sampling without the mask (align_corners=True puts -1 and 1
+    on the centres of the first and last pixel), and its autograd backward:
+    the DCN kernels' library yardsticks.  grid_sample takes its grid in the
+    input's dtype; in bf16 the normalised positions lose up to 0.65 px at
+    W = 336, so its f32 time is the yardstick and its bf16 time a fact."""
+    B, H, W, C = x.shape
+    Ho, Wo = offsets.shape[1:3]
+    py, px = dcn_ops._tap_positions(offsets, stride)
+    grid = torch.stack([px * (2.0 / (W - 1)) - 1, py * (2.0 / (H - 1)) - 1], -1).reshape(B, Ho, Wo * 9, 2)
+    xn = x.to(dtype).permute(0, 3, 1, 2).detach().requires_grad_()
+    grid = grid.to(dtype).requires_grad_()
+    out = torch.nn.functional.grid_sample(xn, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+    d_out = torch.randn_like(out)
+
+    def forward():
+        with torch.no_grad():
+            return torch.nn.functional.grid_sample(xn, grid, mode="bilinear", padding_mode="zeros",
+                                                   align_corners=True)
+
+    return forward, lambda: torch.autograd.grad(out, (xn, grid), d_out, retain_graph=True)
+
+
+def dcn_launchers(x, offsets, mask, stride, d_cols):
+    """Launch-only calls of a library's DCN forward and backward kernels on
+    these inputs (offsets and mask cast to f32 once, outputs allocated once);
+    returns them and the forward's output."""
+    B, H, W, C = x.shape
+    Ho, Wo = offsets.shape[1:3]
+    off, msk = offsets.float().contiguous(), mask.float().contiguous()
+    cols = torch.empty(B, Ho, Wo, 9, C, dtype=x.dtype, device=x.device)
+    d_x = torch.zeros(B, H, W, C, device=x.device)
+    d_off, d_msk = torch.empty_like(off), torch.empty_like(msk)
+    bf16, stream = int(x.dtype == torch.bfloat16), native.stream_of(x)
+
+    def forward(lib):
+        native.check(lib.deform_conv_forward(x.data_ptr(), bf16, off.data_ptr(), msk.data_ptr(), cols.data_ptr(),
+                                             B, H, W, C, stride, stream), "deform_conv_forward")
+
+    def backward(lib):  # d_x keeps accumulating: the same atomics each call
+        native.check(lib.deform_conv_backward(x.data_ptr(), bf16, off.data_ptr(), msk.data_ptr(), d_cols.data_ptr(),
+                                              d_x.data_ptr(), d_off.data_ptr(), d_msk.data_ptr(), B, H, W, C,
+                                              stride, stream), "deform_conv_backward")
+
+    return forward, backward, cols
+
+
+def phase_deform_conv(smi, baselines=()):
+    """B6 at each distinct DCN layer shape of R50-DCN (B=4, 800x1344 canvas):
+    x normal, offsets normal with std 2 px (taps off the pixel grid, some
+    outside the image), masks uniform in (0, 1).  The forward kernel against
+    its plain version in f32 (TF32 off) and bf16; the backward kernel against
+    the plain backward and autograd of the plain forward; times of both (bf16,
+    with the wrapper; the kernels' and F.grid_sample's by ``steady_ms``),
+    their plain versions and F.grid_sample, bounds, and
+    the totals over the 13 layers of one forward.  Returns the largest
+    errors and (ms, plain ms, bound ms, bound by, library ms) of each kernel
+    at DCN_HOT.  With ``--baseline-csrc``, each directory's DCN kernels are
+    timed launch only in turns with these at every shape (``dcn_ab:``)."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    new = native.load()
+    bases = [(d, baseline_library(d)) for d in baselines]
+    bases = [(d, lib) for d, lib in bases if hasattr(lib, "deform_conv_forward")]
+    fwd_err = bwd_err = 0.0
+    totals = np.zeros(8)
+    hot = None
+    for C, H, W, stride, count in DCN_LAYERS:
+        B, Ho, Wo = 4, dcn_ops.output_size(H, stride), dcn_ops.output_size(W, stride)
+        x32 = torch.randn(B, H, W, C, generator=gen, device=dev)
+        offsets = torch.randn(B, Ho, Wo, 18, generator=gen, device=dev) * 2
+        mask = torch.rand(B, Ho, Wo, 9, generator=gen, device=dev)
+        parts = []
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            got, want = dcn_ops.deform_conv_sample(x, offsets, mask, stride), dcn_ops.deform_conv_sample_plain(
+                x, offsets, mask, stride)
+            torch.cuda.synchronize()
+            max_abs, _, bad, atol, rtol = compare(got, want, dtype)
+            exact = int((got != want).sum())
+            if bad:
+                raise AssertionError(f"deform_conv forward disagrees with plain at C={C} stride={stride} {dtype}: "
+                                     f"{bad} elements")
+            fwd_err = max(fwd_err, max_abs)
+            del got, want
+            d_cols = torch.randn(B, Ho, Wo, 9, C, generator=gen, device=dev).to(dtype)
+            inputs = [t.clone().requires_grad_() for t in (x, offsets, mask)]
+            before = native.LAUNCHES["deform_conv_backward"]
+            dcn_ops.deform_conv_sample(*inputs, stride).backward(d_cols)
+            torch.cuda.synchronize()
+            if native.LAUNCHES["deform_conv_backward"] != before + 1:
+                raise AssertionError("the DCN backward kernel did not run")
+            plain = dcn_ops.deform_conv_sample_backward_plain(x, offsets, mask, stride, d_cols)
+            auto = [t.clone().requires_grad_() for t in (x, offsets, mask)]
+            dcn_ops.deform_conv_sample_plain(*auto, stride).backward(d_cols)
+            torch.cuda.synchronize()
+            for ref_name, refs in (("plain", plain), ("autograd", [a.grad for a in auto])):
+                for gname, g, r in zip(("d_x", "d_offsets", "d_mask"), (i.grad for i in inputs), refs):
+                    err, scale, bad, atol_rel, brtol = compare_bwd(g, r)
+                    if bad:
+                        raise AssertionError(f"deform_conv backward {gname} disagrees with {ref_name} at C={C} "
+                                             f"stride={stride} {dtype}: {bad} elements")
+                    bwd_err = max(bwd_err, err)
+            parts.append(f"{str(dtype)[6:]} forward max_abs_err={max_abs:.3e} (atol {atol} rtol {rtol}) "
+                         f"not_bit_equal={exact}; backward vs plain and autograd within "
+                         f"{BWD_TOL[torch.float32 if dtype == torch.float32 else torch.bfloat16]}")
+            del inputs, plain, auto
+        x = x32.to(torch.bfloat16)
+        d_cols = torch.randn(B, Ho, Wo, 9, C, generator=gen, device=dev).to(torch.bfloat16)
+        (fb, fby), (bb, bby), in_image = dcn_bounds(x, offsets, mask, stride)
+        fwd_ms = steady_ms(lambda: dcn_ops.deform_conv_sample(x, offsets, mask, stride), 10)
+        fwd_plain = cuda_ms(lambda: dcn_ops.deform_conv_sample_plain(x, offsets, mask, stride), 3)
+        bwd_ms = steady_ms(lambda: dcn_ops._backward_cuda(x, offsets, mask, stride, d_cols), 10)
+        bwd_plain = cuda_ms(lambda: dcn_ops.deform_conv_sample_backward_plain(x, offsets, mask, stride, d_cols), 3)
+        lib_f32, lib_bwd_f32 = grid_sample_calls(x32, offsets, stride, torch.float32)
+        check = lib_f32().reshape(B, C, Ho, Wo, 9).permute(0, 2, 3, 4, 1)
+        lib_err = float((check - dcn_ops.deform_conv_sample_plain(x32, offsets, torch.ones_like(mask), stride)).abs().max())
+        lib_ms, lib_bwd_ms = steady_ms(lib_f32, 10), steady_ms(lib_bwd_f32, 5)
+        del lib_f32, lib_bwd_f32, check
+        lib_bf16, lib_bwd_bf16 = grid_sample_calls(x32, offsets, stride, torch.bfloat16)
+        lib_bf16_ms, lib_bwd_bf16_ms = cuda_ms(lib_bf16, 10), cuda_ms(lib_bwd_bf16, 5)
+        del lib_bf16, lib_bwd_bf16
+        row = np.array([fwd_ms, fwd_plain, fb, lib_ms, bwd_ms, bwd_plain, bb, lib_bwd_ms])
+        totals += count * row
+        if (C, H, W, stride) == DCN_HOT:
+            hot = ((fwd_ms, fwd_plain, fb, fby, lib_ms), (bwd_ms, bwd_plain, bb, bby, lib_bwd_ms))
+        print(f"deform_conv: C={C} x {B}x{H}x{W} stride={stride} -> {Ho}x{Wo}, {count} layer(s) of R50-DCN; "
+              f"in-image corners {in_image:.4f}; {'; '.join(parts)}; bf16 forward kernel_ms={fwd_ms:.4f} "
+              f"plain_ms={fwd_plain:.4f} bound_ms={fb:.4f} ({fby}) library_ms={lib_ms:.4f} (grid_sample f32, "
+              f"max_abs_err vs plain without mask {lib_err:.3e}; bf16 grid {lib_bf16_ms:.4f}); backward "
+              f"kernel_ms={bwd_ms:.4f} plain_ms={bwd_plain:.4f} bound_ms={bb:.4f} ({bby}) library_ms={lib_bwd_ms:.4f} "
+              f"(grid_sample autograd f32; bf16 {lib_bwd_bf16_ms:.4f}); card: {smi}")
+        for base_dir, base in bases:
+            forward, backward, cols = dcn_launchers(x, offsets, mask, stride, d_cols)
+            print(f"dcn_ab: C={C} {H}x{W} stride={stride} bf16 baseline={base_dir}: forward ms base/new/new/base "
+                  f"{[round(v, 4) for v in in_turns(forward, base, new, 20)]} same_output="
+                  f"{same_output(forward, cols, base, new)} bound {fb:.4f}; backward ms base/new/new/base "
+                  f"{[round(v, 4) for v in in_turns(backward, base, new, 10)]} bound {bb:.4f}; card: {smi}")
+        del x32, x, offsets, mask, d_cols
+    print(f"deform_conv: the 13 layers of one R50-DCN forward/step, bf16: forward kernel_ms={totals[0]:.4f} "
+          f"plain_ms={totals[1]:.4f} bound_ms={totals[2]:.4f} library_ms={totals[3]:.4f}; backward "
+          f"kernel_ms={totals[4]:.4f} plain_ms={totals[5]:.4f} bound_ms={totals[6]:.4f} library_ms={totals[7]:.4f}; "
+          f"phase_s={time.perf_counter() - t0:.2f}; card: {smi}")
+    return fwd_err, bwd_err, hot
+
+
+def phase_dcn_slice():
+    """The small model with DCN stages 2-4, card (kernels) against CPU (plain
+    versions): the forward, then one train step, as phases 5 and 9."""
+    before = native.LAUNCHES["deform_conv"], native.LAUNCHES["deform_conv_backward"]
+    phase_slice("dcn_slice", DCN_STAGES)
+    phase_train_slice("dcn_slice", DCN_STAGES)
+    if (native.LAUNCHES["deform_conv"], native.LAUNCHES["deform_conv_backward"]) <= before:
+        raise AssertionError("dcn_slice: the DCN kernels did not run on the card")
+
+
+def phase_dcn_serve(smi):
+    """R50-DCN through ``Predictor`` with its offset and mask convs at seeded
+    small normals: per forward 13 DCN forward launches beside the 12 MSDA and
+    1 grid-NMS; then how far one layer's taps moved off the pixel grid."""
+    cfg = load_config(DCN_CONFIG)
+    launches, predictor, inputs = phase_serve(smi, "dcn_serve", cfg, "R50-DCN (DCNv2 in stages 2-4)",
+                                              offsets_off_grid, {"deform_conv": 13})
+    model = predictor.model
+    if sum(isinstance(m, DeformConv2dPack) for m in model.modules()) != 13:
+        raise AssertionError("the R50-DCN config does not hold 13 DCN layers")
+    seen = {}
+    hook = model.backbone.layer2[1].conv2.conv_offset.register_forward_hook(
+        lambda m, i, o: seen.update(off=o.detach().float()))
+    predictor.forward(*inputs)
+    hook.remove()
+    off = seen["off"]
+    print(f"dcn_serve: layer2.1.conv2 offsets on the timed batch: mean |offset| {float(off.abs().mean()):.4f} px, "
+          f"max {float(off.abs().max()):.4f} px, off the pixel grid (> 1e-3 px) "
+          f"{float(((off - off.round()).abs() > 1e-3).float().mean()):.4f}")
+    return launches
+
+
+def phase_dcn_train(smi):
+    """R50-DCN through ``Trainer``: per step 13 DCN forward and 13 DCN
+    backward launches beside the flagship's (no DCN layer's input is frozen:
+    the first one follows layer2.0.conv1, which trains), and every DCN
+    parameter moves."""
+    return phase_train(smi, "dcn_train", load_config(DCN_CONFIG), "R50-DCN (DCNv2 in stages 2-4)",
+                       offsets_off_grid, {"deform_conv": 13, "deform_conv_backward": 13}, DCN_PARTS)
+
+
+def capture_serve_encoder():
+    """value, locations and weights of the first encoder layer (G=1) of a
+    flagship serve forward (B=4, the TIMED_BATCH canvas, random weights from
+    seed 0), recorded by a wrapper around the MSDA modules' call."""
+    cfg = load_config(DEFAULT_CONFIG)
+    predictor = Predictor(cfg, None, "cuda", seed=0)
+    inputs = preprocess(make_requests(TIMED_BATCH, 7), cfg, "cuda")
+    captured, real = {}, attention.ms_deform_attn
+
+    def recording(value, spatial_shapes, locations, weights):
+        if not captured:
+            captured.update(value=value, locations=locations, weights=weights,
+                            levels=[tuple(x) for x in spatial_shapes])
+        return real(value, spatial_shapes, locations, weights)
+
+    attention.ms_deform_attn = recording
+    try:
+        predictor.forward(*inputs)
+    finally:
+        attention.ms_deform_attn = real
+    torch.cuda.synchronize()
+    if captured["levels"] != LEVELS or captured["locations"].shape[2] != 1:
+        raise AssertionError(f"captured encoder layer: levels {captured['levels']}, "
+                             f"locations {tuple(captured['locations'].shape)}")
+    return captured
+
+
+def q8_launchers(value, locs5, weights):
+    """Launch-only calls of a library's int8 quantise and sample kernels on
+    these inputs (the sampler reads the shipped quantisation's table)."""
+    B, S, C = value.shape
+    Q, L, P = locs5.shape[1:4]
+    H = weights.shape[2]
+    absmax = torch.zeros(C, dtype=torch.int32, device=value.device)
+    table, scale = torch.empty(B, S, C, dtype=torch.int8, device=value.device), torch.empty(C, device=value.device)
+    ref_table, ref_scale = q8_quantize(value)
+    loc32, attn32 = locs5.float().contiguous(), weights.float().contiguous()
+    out = torch.empty(B, Q, C, dtype=value.dtype, device=value.device)
+    bf16, stream, levels = int(value.dtype == torch.bfloat16), native.stream_of(value), native.level_table(LEVELS)
+
+    def quantize(lib):
+        absmax.zero_()
+        native.check(lib.msda_q8_quantize(value.data_ptr(), bf16, absmax.data_ptr(), table.data_ptr(),
+                                          scale.data_ptr(), B * S, C, stream), "msda_q8_quantize")
+
+    def sample(lib):
+        native.check(lib.msda_q8_sample(ref_table.data_ptr(), ref_scale.data_ptr(), levels, loc32.data_ptr(),
+                                        attn32.data_ptr(), out.data_ptr(), bf16, B, S, Q, C, H, P, stream),
+                     "msda_q8_sample")
+
+    return quantize, sample, table, out
+
+
+def phase_msda_q8(smi, baselines=()):
+    """B8 at the encoder's flagship shape (B=4, Q=11403, G=1, bf16) on uniform
+    inputs and on a served forward's captured encoder-layer-0 inputs: the
+    int8 table and scale exactly equal to the plain quantisation's, the
+    sampler against its plain version on that table, the whole against K1
+    on the same inputs within the quantisation and rounding bound (per
+    channel scale * (1/2 + 127 * 2**-8) * the head's attention sum: half a
+    step, and the bf16 roundings of the corner weights and corner sums),
+    plus K1's bf16 bound; times and bounds.  Returns the sampler's largest
+    error and the captured inputs' (ms, plain ms, bound, bound by) of both
+    kernels.
+    With ``--baseline-csrc``, each directory's int8 kernels are timed launch
+    only in turns with these (``q8_ab:``)."""
+    t0 = time.perf_counter()
+    new = native.load()
+    bases = [(d, baseline_library(d)) for d in baselines]
+    bases = [(d, lib) for d, lib in bases if hasattr(lib, "msda_q8_sample")]
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    value32, locs, weights = uniform_msda_inputs(gen, 1, 11403)
+    sets = {"uniform": (value32.to(torch.bfloat16), locs, weights.to(torch.bfloat16))}
+    del value32
+    c = capture_serve_encoder()
+    sets["captured serve"] = (c["value"], c["locations"], c["weights"])
+    del c
+    s_err = 0.0
+    timing = None
+    for name, (value, locs6, weights) in sets.items():
+        locs5 = locs6[:, :, 0].contiguous()
+        B, S, C = value.shape
+        Q, H = locs6.shape[1], weights.shape[2]
+        table, scale = q8_quantize(value)
+        want_table, want_scale = q8_quantize_plain(value)
+        torch.cuda.synchronize()
+        table_diff = int((table != want_table).sum()) + int((scale != want_scale).sum())
+        if table_diff:
+            raise AssertionError(f"msda_q8 table differs from the plain quantisation in {table_diff} entries ({name})")
+        got = q8_sample(table, scale, LEVELS, locs5, weights, value.dtype)
+        want = q8_sample_plain(table, scale, LEVELS, locs5, weights, value.dtype)
+        torch.cuda.synchronize()
+        max_abs, _, bad, atol, rtol = compare(got, want, value.dtype)
+        not_equal = int((got != want).sum())
+        if bad:
+            raise AssertionError(f"msda_q8 sampler disagrees with plain on {name}: {bad} elements")
+        s_err = max(s_err, max_abs)
+        k1 = ms_deform_attn(value, LEVELS, locs6, weights).float()
+        attn_sum = weights.float().sum((-2, -1)).repeat_interleave(C // H, dim=-1)  # (B, Q, C)
+        k1_atol, k1_rtol = TOL[torch.bfloat16]
+        limit = scale * (0.5 + 127 * 2 ** -8) * attn_sum + k1_atol + k1_rtol * k1.abs()
+        ratio = float(((got.float() - k1).abs() / limit).max())
+        if ratio > 1:
+            raise AssertionError(f"msda_q8 errs from K1 beyond the quantisation bound on {name}: {ratio:.3f}")
+        in_level, nonzero, _ = corner_counts(locs6, LEVELS)
+        L, P = locs5.shape[2:4]
+        small = 4 * (locs5.numel() + weights.numel())
+        q_bound = bound(nbytes(value, table, scale), 3 * value.numel())
+        s_bound = bound(nbytes(table, scale, got) + small, 2 * nonzero * C + 2 * B * Q * L * P * C)
+        q_ms = cuda_ms(lambda: q8_quantize(value), 20)
+        q_plain = cuda_ms(lambda: q8_quantize_plain(value), 5)
+        s_ms = cuda_ms(lambda: q8_sample(table, scale, LEVELS, locs5, weights, value.dtype), 20)
+        s_plain = cuda_ms(lambda: q8_sample_plain(table, scale, LEVELS, locs5, weights, value.dtype), 3)
+        both_ms = cuda_ms(lambda: ms_deform_attn_q8(value, LEVELS, locs5, weights), 20)
+        both_plain = cuda_ms(lambda: ms_deform_attn_q8_plain(value, LEVELS, locs5, weights), 3)
+        k1_ms = cuda_ms(lambda: ms_deform_attn(value, LEVELS, locs6, weights), 20)
+        print(f"msda_q8: {name} encoder layer G=1 B={B} Q={Q} S={S} C={C} bf16; table and scale equal to plain "
+              f"(differences {table_diff}); sampler max_abs_err={max_abs:.3e} (atol {atol} rtol {rtol}) "
+              f"not_bit_equal={not_equal}; vs K1 max err/bound={ratio:.4f} (max |q8 - K1| "
+              f"{float((got.float() - k1).abs().max()):.3e}, largest scale {float(scale.max()):.3e}); "
+              f"quantise kernel_ms={q_ms:.4f} plain_ms={q_plain:.4f} bound_ms={q_bound[0]:.4f} ({q_bound[1]}); "
+              f"sample kernel_ms={s_ms:.4f} plain_ms={s_plain:.4f} bound_ms={s_bound[0]:.4f} ({s_bound[1]}); "
+              f"both ms={both_ms:.4f} plain_ms={both_plain:.4f}; K1 on the same inputs ms={k1_ms:.4f}; card: {smi}")
+        if name == "captured serve":
+            timing = ((q_ms, q_plain, *q_bound), (s_ms, s_plain, *s_bound))
+        for base_dir, base in bases:
+            quantize, sample, q_out, s_out = q8_launchers(value, locs5, weights)
+            print(f"q8_ab: {name} baseline={base_dir}: quantise ms base/new/new/base "
+                  f"{[round(v, 4) for v in in_turns(quantize, base, new, 20)]} same_output="
+                  f"{same_output(quantize, q_out, base, new)}; sample ms base/new/new/base "
+                  f"{[round(v, 4) for v in in_turns(sample, base, new, 20)]} same_output="
+                  f"{same_output(sample, s_out, base, new)}; card: {smi}")
+        del table, scale, want_table, want_scale, got, want, k1
+    print(f"msda_q8: phase_s={time.perf_counter() - t0:.2f}")
+    return s_err, timing
+
+
+def phase_serve_q8(smi):
+    """The flagship served with the JAX package's switch MSDA_GATHER_QUANT=int8:
+    per forward 6 int8 quantise and 6 int8 sample launches (the encoder), 6
+    MSDA (the decoder) and 1 grid NMS; then the timed batch's forward with
+    the switch on and off in turns (int8, bf16, bf16, int8; three rounds),
+    and how far the two forwards' detections differ."""
+    old = os.environ.get("MSDA_GATHER_QUANT")
+    os.environ["MSDA_GATHER_QUANT"] = "int8"
+    try:
+        launches, predictor, inputs = phase_serve(
+            smi, "serve_q8", None, "flagship R50, MSDA_GATHER_QUANT=int8",
+            per_forward={"msda": 6, "msda_q8_quantize": 6, "msda_q8_sample": 6})
+        times, outs = {"int8": [], "none": []}, {}
+        for _ in range(3):
+            for mode in ("int8", "none", "none", "int8"):
+                os.environ["MSDA_GATHER_QUANT"] = mode
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                outs[mode] = predictor.forward(*inputs)
+                end.record()
+                torch.cuda.synchronize()
+                times[mode].append(start.elapsed_time(end))
+    finally:
+        if old is None:
+            os.environ.pop("MSDA_GATHER_QUANT", None)
+        else:
+            os.environ["MSDA_GATHER_QUANT"] = old
+    score_gap = float((outs["int8"]["scores"].float() - outs["none"]["scores"].float()).abs().max())
+    same_labels = float((outs["int8"]["labels"] == outs["none"]["labels"]).float().mean())
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"serve_q8: timed batch B=4 in turns int8/bf16/bf16/int8 x3: int8 forward_ms="
+          f"{[round(x, 3) for x in times['int8']]} median_ms={med['int8']:.3f}; bf16 forward_ms="
+          f"{[round(x, 3) for x in times['none']]} median_ms={med['none']:.3f}; int8 vs bf16 top-300: largest "
+          f"score gap {score_gap:.4e}, same label share {same_labels:.4f}; card: {smi}")
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, err, timing):
     ms, plain_ms, bound_ms, bound_by, *library = timing
     return {"name": name, "route": "cuda", "source": f"salience_detr_torch/csrc/{source}",
@@ -1454,8 +1942,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline-csrc", nargs="*", default=[], metavar="DIR",
                         help="directories holding another version of csrc/, whose MSDA, grid-NMS, "
-                             "assignment and keep-mask kernels are timed in turns with these on the "
-                             "captured inputs and the phases' other inputs")
+                             "assignment, keep-mask, DCN and int8 MSDA kernels are timed in turns with "
+                             "these on the captured inputs and the phases' other inputs")
     args = parser.parse_args(argv)
     smi = phase_device()
     phase_build()
@@ -1464,7 +1952,7 @@ def main(argv=None):
     msda_err, msda_t = phase_msda()
     phase_grid_nms()
     phase_slice()
-    serve_launches = phase_serve(smi)
+    serve_launches, _, _ = phase_serve(smi)
     bwd_err, bwd_t = phase_msda_backward()
     phase_msda_groups(smi)
     phase_hungarian()
@@ -1476,9 +1964,17 @@ def main(argv=None):
     del captured
     keep_t = phase_nms_keep(smi, args.baseline_csrc)
     eval_launches = phase_eval(smi)
+    dcn_fwd_err, dcn_bwd_err, dcn_t = phase_deform_conv(smi, args.baseline_csrc)
+    phase_dcn_slice()
+    dcn_serve_launches = phase_dcn_serve(smi)
+    dcn_train_launches = phase_dcn_train(smi)
+    q8_sample_err, q8_t = phase_msda_q8(smi, args.baseline_csrc)
+    q8_launches = phase_serve_q8(smi)
     stage_launches, stage_results = phase_msda_stages(smi)
     print(f"serve launches {serve_launches}; train launches {train_launches}; "
-          f"eval launches (NMS filter on) {eval_launches}; msda_stages launches {stage_launches}")
+          f"eval launches (NMS filter on) {eval_launches}; dcn_serve launches {dcn_serve_launches}; "
+          f"dcn_train launches {dcn_train_launches}; serve_q8 launches {q8_launches}; "
+          f"msda_stages launches {stage_launches}")
     # K1-K4, K9: no single PyTorch call computes them (MSDA is a grid_sample
     # per level and a weighted sum; PyTorch has no NMS or assignment op).  K2,
     # K4 and K9 are exact, and timed on the main path's own inputs.
@@ -1494,6 +1990,19 @@ def main(argv=None):
         # K9 launches on the eval path with the NMS filter on (phase eval's run 1)
         kernel_entry("nms_keep_forward", "nms_keep.cu", "salience_detr_tpu/ops/nms.py:133",
                      eval_launches["nms_keep"], 0.0, keep_t),
+        # B6 on the R50-DCN train path (phase dcn_train), timed at DCN_HOT;
+        # library: F.grid_sample in f32 and its autograd backward
+        kernel_entry("deform_conv_forward", "deform_conv.cu", "salience_detr_tpu/models/bricks/deform_conv.py:20",
+                     dcn_train_launches["deform_conv"], dcn_fwd_err, dcn_t[0]),
+        kernel_entry("deform_conv_backward", "deform_conv.cu", "salience_detr_tpu/models/bricks/deform_conv.py:20",
+                     dcn_train_launches["deform_conv_backward"], dcn_bwd_err, dcn_t[1]),
+        # B8 on the int8 serve path (phase serve_q8), timed on a served
+        # forward's encoder layer 0; no PyTorch call computes it.  The
+        # quantisation is held bit-exact (phase msda_q8 raises otherwise)
+        kernel_entry("msda_q8_quantize", "msda_q8.cu", "salience_detr_tpu/ops/deform_attn.py:910",
+                     q8_launches["msda_q8_quantize"], 0.0, q8_t[0]),
+        kernel_entry("msda_q8_sample", "msda_q8.cu", "salience_detr_tpu/ops/deform_attn.py:910",
+                     q8_launches["msda_q8_sample"], q8_sample_err, q8_t[1]),
     ]
     for name, source, replaces in (
         ("gather_sum", "gather_sum.cu", "tools/bench_gather.py:64"),

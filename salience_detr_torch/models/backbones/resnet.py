@@ -1,9 +1,13 @@
 """ResNet backbone family with FrozenBatchNorm (port of
-salience_detr_tpu/models/backbones/resnet.py, DCN stages off).
+salience_detr_tpu/models/backbones/resnet.py).
 
 ``forward(images (B, 3, H, W))`` returns {stage_idx: (B, C_i, H/s, W/s)} for
 stage_idx in ``return_indices`` (stage i has stride 4 * 2**i).  Module names
 are torchvision's, so ``state_dict()`` keys are upstream's ``backbone.*``.
+``stage_with_dcn`` swaps conv2 of every block of the marked stages for a
+modulated deformable conv (``DeformConv2dPack``, no bias): at the stride of
+the 3x3 conv in a Bottleneck, always stride 1 in a BasicBlock (whose stride
+is on conv1), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from salience_detr_torch.models.bricks.deform_conv import DeformConv2dPack
 from salience_detr_torch.models.layers import FrozenBatchNorm2d
 
 # name: block type and blocks per stage (the JAX table's plain ResNets; the
@@ -31,6 +36,10 @@ def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2, bias=False)
 
 
+def _conv3x3(cin: int, cout: int, stride: int, with_dcn: bool) -> nn.Module:
+    return DeformConv2dPack(cin, cout, stride) if with_dcn else _conv(cin, cout, 3, stride)
+
+
 def _downsample(cin: int, cout: int, stride: int) -> nn.Sequential:
     return nn.Sequential(_conv(cin, cout, 1, stride), FrozenBatchNorm2d(cout))
 
@@ -38,11 +47,12 @@ def _downsample(cin: int, cout: int, stride: int) -> nn.Sequential:
 class BasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False):
+    def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False,
+                 with_dcn: bool = False):
         super().__init__()
         self.conv1 = _conv(inplanes, planes, 3, stride)
         self.bn1 = FrozenBatchNorm2d(planes)
-        self.conv2 = _conv(planes, planes, 3)
+        self.conv2 = _conv3x3(planes, planes, 1, with_dcn)
         self.bn2 = FrozenBatchNorm2d(planes)
         self.downsample = _downsample(inplanes, planes, stride) if downsample else None
 
@@ -56,13 +66,14 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False):
+    def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False,
+                 with_dcn: bool = False):
         super().__init__()
         out_ch = planes * self.expansion
         self.conv1 = _conv(inplanes, planes, 1)
         self.bn1 = FrozenBatchNorm2d(planes)
         # torchvision puts the stride on the 3x3 conv
-        self.conv2 = _conv(planes, planes, 3, stride)
+        self.conv2 = _conv3x3(planes, planes, stride, with_dcn)
         self.bn2 = FrozenBatchNorm2d(planes)
         self.conv3 = _conv(planes, out_ch, 1)
         self.bn3 = FrozenBatchNorm2d(out_ch)
@@ -77,7 +88,8 @@ class Bottleneck(nn.Module):
 
 
 class ResNetBackbone(nn.Module):
-    def __init__(self, arch: str = "resnet50", return_indices: Tuple[int, ...] = (1, 2, 3)):
+    def __init__(self, arch: str = "resnet50", return_indices: Tuple[int, ...] = (1, 2, 3),
+                 stage_with_dcn: Tuple[bool, ...] = (False, False, False, False)):
         super().__init__()
         cfg = ARCH_SETTINGS[arch]
         block = Bottleneck if cfg["block"] == "bottleneck" else BasicBlock
@@ -92,7 +104,7 @@ class ResNetBackbone(nn.Module):
             for blk in range(cfg["layers"][stage]):
                 stride = 2 if (stage > 0 and blk == 0) else 1
                 downsample = blk == 0 and (stage > 0 or block is Bottleneck)
-                blocks.append(block(inplanes, planes, stride, downsample))
+                blocks.append(block(inplanes, planes, stride, downsample, stage_with_dcn[stage]))
                 inplanes = planes * block.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
 

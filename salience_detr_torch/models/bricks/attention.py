@@ -5,6 +5,7 @@ multi-head attention."""
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -12,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from salience_detr_torch.ops.deform_attn import compute_sampling_locations, ms_deform_attn
+from salience_detr_torch.ops.deform_attn import compute_sampling_locations, ms_deform_attn, ms_deform_attn_q8
 
 
 def offset_bias_grid(num_groups: int, num_levels: int, num_points: int) -> np.ndarray:
@@ -36,7 +37,9 @@ class MultiScaleDeformableAttention(nn.Module):
     """Deformable attention with ``sampling_groups`` = G location groups, each
     shared by H/G heads: G = 1 is head-shared sampling, G = H the reference's
     exact per-head sampling.  The sampling runs in the MSDA kernel
-    (ops/deform_attn.ms_deform_attn) for every G."""
+    (ops/deform_attn.ms_deform_attn) for every G, or, at G = 1 in eval mode
+    with ``MSDA_GATHER_QUANT=int8``, in the int8 core
+    (ops/deform_attn.ms_deform_attn_q8), as in the JAX package."""
 
     def __init__(self, embed_dim: int = 256, num_levels: int = 4, num_heads: int = 8,
                  num_points: int = 4, sampling_groups: int = 8):
@@ -69,7 +72,12 @@ class MultiScaleDeformableAttention(nn.Module):
         locations = compute_sampling_locations(
             reference_points.float(), offsets.float(), spatial_shapes, P
         )
-        out = ms_deform_attn(value.contiguous(), spatial_shapes, locations, weights)
+        # the JAX package's switch, read at call time as the JAX module reads
+        # it at trace time; training and G > 1 are never quantised
+        if G == 1 and not self.training and os.environ.get("MSDA_GATHER_QUANT", "none") == "int8":
+            out = ms_deform_attn_q8(value, spatial_shapes, locations[:, :, 0], weights)
+        else:
+            out = ms_deform_attn(value.contiguous(), spatial_shapes, locations, weights)
         return self.output_proj(out)
 
 

@@ -25,6 +25,7 @@ from salience_detr_torch.models.bricks.attention import (
     offset_bias_grid,
 )
 from salience_detr_torch.models.bricks.criterion import SalienceCriterion, SetCriterion
+from salience_detr_torch.models.bricks.deform_conv import DeformConv2dPack
 from salience_detr_torch.models.bricks.post_process import PostProcess
 from salience_detr_torch.models.bricks.salience_transformer import SalienceTransformer
 from salience_detr_torch.models.detectors.salience_detr import SalienceDETR
@@ -57,6 +58,9 @@ class SalienceDETRConfig:
     backbone: str = "resnet50"
     backbone_return_indices: Tuple[int, ...] = (1, 2, 3)
     backbone_freeze_indices: Tuple[int, ...] = (0,)
+    # ResNet only: per stage, modulated deformable convs (DCNv2) in conv2 of
+    # every block
+    stage_with_dcn: Tuple[bool, ...] = (False, False, False, False)
     # contrastive denoising: 2 * denoising_nums CDN slots in training
     denoising_nums: int = 100
     # matcher and losses
@@ -99,8 +103,21 @@ def _prior_bias(prior_prob: float = 0.01) -> float:
 def init_weights(model: SalienceDETR, generator: torch.Generator) -> None:
     """The JAX package's initializers, drawn from ``generator``."""
     g = generator
+    dcn_convs = {id(c) for m in model.modules() if isinstance(m, DeformConv2dPack)
+                 for c in (m.conv_offset, m.conv_mask)}
     for name, m in model.named_modules():
-        if isinstance(m, nn.Conv2d):
+        if id(m) in dcn_convs:
+            continue  # a DeformConv2dPack's own convs: with the pack below
+        if isinstance(m, DeformConv2dPack):
+            # flax: zero offset and mask convs (every tap on its pixel, mask
+            # 0.5), kernel variance_scaling(1/3, fan_in, uniform) on (9, Cin,
+            # F), which is uniform in +-1/sqrt(9 * Cin)
+            for conv in (m.conv_offset, m.conv_mask):
+                nn.init.zeros_(conv.weight)
+                nn.init.zeros_(conv.bias)
+            bound = 1.0 / math.sqrt(m.deform_conv2d.weight[0].numel())
+            nn.init.uniform_(m.deform_conv2d.weight, -bound, bound, generator=g)
+        elif isinstance(m, nn.Conv2d):
             if name.startswith("backbone."):
                 nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu", generator=g)
             else:
@@ -148,7 +165,7 @@ def build_salience_detr(
     initialized from ``generator`` (seed 0 when None)."""
     if cfg.backbone not in ARCH_SETTINGS:
         raise ValueError(f"the port has no backbone {cfg.backbone!r} yet")
-    backbone = ResNetBackbone(cfg.backbone, cfg.backbone_return_indices)
+    backbone = ResNetBackbone(cfg.backbone, cfg.backbone_return_indices, cfg.stage_with_dcn)
     neck = ChannelMapper(backbone.num_channels, cfg.embed_dim, cfg.num_feature_levels)
     transformer = SalienceTransformer(
         num_classes=cfg.num_classes,

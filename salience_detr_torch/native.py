@@ -36,6 +36,8 @@ MAX_LEVELS = 16  # kLevelsMax in csrc/levels.cuh
 
 LAUNCHES = {
     "msda": 0, "msda_backward": 0, "grid_nms": 0, "hungarian": 0, "nms_keep": 0,
+    # DCNv2 sampling (ops/deform_conv.py) and the int8 head-shared MSDA
+    "deform_conv": 0, "deform_conv_backward": 0, "msda_q8_quantize": 0, "msda_q8_sample": 0,
     # the stage kernels of the MSDA shootout (ops/msda_stages.py)
     "gather_sum": 0, "weighted_reduce": 0, "corner_collapse_blocked": 0,
     "corner_collapse_packed": 0,
@@ -160,6 +162,16 @@ def load() -> ctypes.CDLL:
         lib.assignment_forward.restype = i32
         lib.nms_keep_forward.argtypes = [ptr, ctypes.c_float, ptr, i32, i32, ptr]
         lib.nms_keep_forward.restype = i32
+        lib.deform_conv_forward.argtypes = [ptr, i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+        lib.deform_conv_forward.restype = i32
+        lib.deform_conv_backward.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr,
+                                             i32, i32, i32, i32, i32, ptr]
+        lib.deform_conv_backward.restype = i32
+        lib.msda_q8_quantize.argtypes = [ptr, i32, ptr, ptr, ptr, i64, i32, ptr]
+        lib.msda_q8_quantize.restype = i32
+        lib.msda_q8_sample.argtypes = [ptr, ptr, LevelTable, ptr, ptr, ptr, i32,
+                                       i32, i32, i32, i32, i32, i32, ptr]
+        lib.msda_q8_sample.restype = i32
         lib.gather_sum.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
         lib.gather_sum.restype = i32
         lib.weighted_reduce.argtypes = [ptr, ptr, i32, ptr, i64, i32, i32, i32, i32, ptr]

@@ -290,3 +290,188 @@ def ms_deform_attn(
     """
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     return _MSDeformAttn.apply(value, locations, weights, shapes)
+
+
+# ---------------------------------------------------------------- int8 head-shared core (inference only)
+#
+# The port of ``ms_deform_attn_core_shared_q8`` (the JAX package's
+# MSDA_GATHER_QUANT=int8 path of the G = 1 encoder in eval): the value is
+# quantised to symmetric per-channel int8 once per call, the corners are
+# sampled from the int8 rows, and the per-channel scale is applied once to the
+# collapsed output.  The JAX core's quad-packed table and query chunking are
+# TPU layouts: direct corner gathers of the int8 rows give the same corners
+# and weights.  Its default reduction (``_Q8_REDUCE="einsum"``) feeds both
+# einsums operands in the compute dtype, so the corner weights, the corner
+# sums and the attention weights are rounded to the value dtype; the plain
+# version here does the same, one IEEE operation at a time in the order of
+# the kernels in ``csrc/msda_q8.cu``.
+
+
+def q8_quantize_plain(value: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """value (B, S, C) with padding zeroed -> (int8 table (B, S, C), scale
+    (C,) float32): scale = max(per-channel absmax over B and S / 127, 1e-20),
+    table = clip(round_half_even(value / scale), -127, 127).  The scale spans
+    the whole batch, so an image's result depends on its batch-mates, as in
+    the JAX package."""
+    vf = value.float()
+    absmax = vf.abs().amax(dim=(0, 1))
+    # a divisor tensor on the value's device: PyTorch's CUDA division by a
+    # Python scalar multiplies by its reciprocal, which rounds differently
+    scale = (absmax / torch.full_like(absmax, 127.0)).clamp_min(1e-20)
+    return torch.clamp(torch.round(vf / scale), -127, 127).to(torch.int8), scale
+
+
+def _check_q8_shapes(table, spatial_shapes, locations, weights):
+    if table.dim() != 3 or locations.dim() != 5 or weights.dim() != 5:
+        raise ValueError(
+            "expected value (B,S,C), locations (B,Q,L,P,2), weights (B,Q,H,L,P); got "
+            f"{tuple(table.shape)}, {tuple(locations.shape)}, {tuple(weights.shape)}"
+        )
+    B, S, C = table.shape
+    _, Q, L, P, two = locations.shape
+    H = weights.shape[2]
+    if (two != 2 or locations.shape[0] != B or tuple(weights.shape) != (B, Q, H, L, P)
+            or L != len(spatial_shapes) or sum(h * w for h, w in spatial_shapes) != S or C % H):
+        raise ValueError(
+            f"inconsistent q8 MSDA shapes: value {tuple(table.shape)}, levels {list(spatial_shapes)}, "
+            f"locations {tuple(locations.shape)}, weights {tuple(weights.shape)}"
+        )
+    return B, S, C, Q, L, P, H
+
+
+def q8_sample_plain(
+    table: torch.Tensor,
+    scale: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    locations: torch.Tensor,
+    weights: torch.Tensor,
+    dtype: torch.dtype,
+) -> torch.Tensor:
+    """int8 table (B, S, C), scale (C,), head-shared locations (B, Q, L, P,
+    2), weights (B, Q, H, L, P) -> (B, Q, C) in ``dtype`` (the value's, the
+    JAX core's compute dtype).  Per point, s = sum over in-level corners of
+    round(wx * wy) * q in float32, then out += round(attn) * round(s) over
+    (level, point) in float32, times the scale, rounded to ``dtype``."""
+    B, S, C, Q, L, P, H = _check_q8_shapes(table, spatial_shapes, locations, weights)
+    D = C // H
+
+    def rounded(t):
+        return t.to(dtype).float()
+
+    rows = table.float().reshape(B * S, C)
+    loc = locations.float()
+    attn = rounded(weights.float())
+    batch = (torch.arange(B, device=table.device) * S)[:, None, None]
+    out = torch.zeros(B, Q, H, D, dtype=torch.float32, device=table.device)
+    start = 0
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        x = loc[:, :, lvl, :, 0] * w - 0.5  # (B, Q, P)
+        y = loc[:, :, lvl, :, 1] * h - 0.5
+        x0, y0 = torch.floor(x), torch.floor(y)
+        fx, fy = x - x0, y - y0
+        x0i, y0i = x0.long(), y0.long()
+        s = torch.zeros(B, Q, P, C, dtype=torch.float32, device=table.device)
+        for dy, wy in ((0, 1.0 - fy), (1, fy)):
+            for dx, wx in ((0, 1.0 - fx), (1, fx)):
+                cx, cy = x0i + dx, y0i + dy
+                valid = (cx >= 0) & (cx < w) & (cy >= 0) & (cy < h)
+                token = batch + start + cy.clamp(0, h - 1) * w + cx.clamp(0, w - 1)
+                cw = rounded(torch.where(valid, wx * wy, torch.zeros_like(wx)))
+                s = s + cw[..., None] * rows[token]
+        s = rounded(s).reshape(B, Q, P, H, D)
+        for p in range(P):
+            out = out + attn[:, :, :, lvl, p, None] * s[:, :, p]
+        start += h * w
+    return (out.reshape(B, Q, C) * scale).to(dtype)
+
+
+def ms_deform_attn_q8_plain(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    locations: torch.Tensor,
+    weights: torch.Tensor,
+) -> torch.Tensor:
+    """The plain int8 head-shared MSDA, the spec of ``ms_deform_attn_core_shared_q8``:
+    value (B, S, C) with padding zeroed, locations (B, Q, L, P, 2), weights
+    (B, Q, H, L, P) -> (B, Q, C) in the value dtype."""
+    return q8_sample_plain(*q8_quantize_plain(value), spatial_shapes, locations, weights, value.dtype)
+
+
+def q8_quantize(value: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`q8_quantize_plain` on a CPU tensor; on CUDA the quantise kernel
+    (the absmax pass, then the table pass), or raise."""
+    if value.device.type == "cpu":
+        return q8_quantize_plain(value)
+    if value.device.type != "cuda":
+        raise RuntimeError(f"q8_quantize: no kernel for device {value.device}")
+    if value.dim() != 3 or value.dtype not in (torch.float32, torch.bfloat16) or not value.is_contiguous():
+        raise ValueError(f"q8_quantize: want a contiguous float32/bfloat16 (B, S, C) value, got "
+                         f"{value.dtype} {tuple(value.shape)}")
+    B, S, C = value.shape
+    if C % 8 or 256 % (C // 8) or value.data_ptr() % 16:
+        raise ValueError(f"q8_quantize: kernel takes C with C / 8 dividing 256 and a 16-byte aligned value; "
+                         f"got C={C}")
+    absmax = torch.zeros(C, dtype=torch.int32, device=value.device)
+    table = torch.empty((B, S, C), dtype=torch.int8, device=value.device)
+    scale = torch.empty(C, dtype=torch.float32, device=value.device)
+    lib = native.load()
+    with torch.cuda.device(value.device):
+        err = lib.msda_q8_quantize(value.data_ptr(), int(value.dtype == torch.bfloat16), absmax.data_ptr(),
+                                   table.data_ptr(), scale.data_ptr(), B * S, C, native.stream_of(value))
+    native.check(err, "msda_q8_quantize")
+    native.LAUNCHES["msda_q8_quantize"] += 1
+    return table, scale
+
+
+def q8_sample(
+    table: torch.Tensor,
+    scale: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    locations: torch.Tensor,
+    weights: torch.Tensor,
+    dtype: torch.dtype,
+) -> torch.Tensor:
+    """:func:`q8_sample_plain` on CPU tensors; on CUDA the sampling kernel,
+    or raise.  The kernel takes C in (32, 64, 128, 256) with each lane's
+    C / 32 channels inside one head."""
+    if table.device.type == "cpu":
+        return q8_sample_plain(table, scale, spatial_shapes, locations, weights, dtype)
+    if table.device.type != "cuda":
+        raise RuntimeError(f"q8_sample: no kernel for device {table.device}")
+    B, S, C, Q, L, P, H = _check_q8_shapes(table, spatial_shapes, locations, weights)
+    if table.dtype != torch.int8 or not table.is_contiguous() or dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q8_sample: want a contiguous int8 table and a float32/bfloat16 output, got "
+                        f"{table.dtype} -> {dtype}")
+    if C % 32 or C // 32 not in (1, 2, 4, 8) or (C // H) % (C // 32):
+        raise ValueError(f"q8_sample: kernel takes C in (32, 64, 128, 256) with C/H divisible by C/32; "
+                         f"got C={C}, H={H}")
+    if scale.shape != (C,) or any(t.device != table.device for t in (scale, locations, weights)):
+        raise ValueError("q8_sample: scale must be (C,) and all inputs on one device")
+    loc = locations.to(torch.float32).contiguous()
+    attn = weights.to(torch.float32).contiguous()
+    scale = scale.to(torch.float32).contiguous()
+    out = torch.empty((B, Q, C), dtype=dtype, device=table.device)
+    lib = native.load()
+    with torch.cuda.device(table.device):
+        err = lib.msda_q8_sample(
+            table.data_ptr(), scale.data_ptr(), native.level_table(spatial_shapes),
+            loc.data_ptr(), attn.data_ptr(), out.data_ptr(), int(dtype == torch.bfloat16),
+            B, S, Q, C, H, P, native.stream_of(table),
+        )
+    native.check(err, "msda_q8_sample")
+    native.LAUNCHES["msda_q8_sample"] += 1
+    return out
+
+
+def ms_deform_attn_q8(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    locations: torch.Tensor,
+    weights: torch.Tensor,
+) -> torch.Tensor:
+    """Forward-only int8 head-shared MSDA: :func:`ms_deform_attn_q8_plain` on
+    CPU tensors, the two kernels of ``csrc/msda_q8.cu`` on CUDA tensors (or
+    raise); same contract as the plain version."""
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    table, scale = q8_quantize(value.contiguous())
+    return q8_sample(table, scale, shapes, locations, weights, value.dtype)

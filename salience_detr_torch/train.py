@@ -1,9 +1,11 @@
 """Training entry point of the port, on synthetic batches.
 
-    python -m salience_detr_torch.train --steps N [--seed S]
+    python -m salience_detr_torch.train --steps N [--seed S] [--model-config F]
 
-Builds the flagship (configs/salience_detr_torch/salience_detr_resnet50_800_1333.py)
-with random weights from the seed and trains it for N steps through
+Builds the model of ``--model-config`` (a file assigning ``model_config``;
+the flagship configs/salience_detr_torch/salience_detr_resnet50_800_1333.py
+by default, e.g. salience_detr_resnet50_dcn_800_1333.py beside it for
+R50-DCN) with random weights from the seed and trains it for N steps through
 :func:`engine.train.train_one_epoch`: B=4 on the 800x1344 canvas, bf16
 autocast over float32 master weights, the optimizer settings of
 configs/train_config.py (AdamW lr 1e-4, weight decay 1e-4, warmup over the
@@ -107,11 +109,13 @@ def main(argv=None):
     p = argparse.ArgumentParser("Salience-DETR training on synthetic batches (PyTorch port)")
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--model-config", default=str(DEFAULT_CONFIG),
+                   help="model config file (the JAX train.py's --config-file)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("salience_detr_torch.train needs a CUDA device")
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    trainer = Trainer(load_config(DEFAULT_CONFIG), "cuda", args.seed, steps_per_epoch=args.steps)
+    trainer = Trainer(load_config(args.model_config), "cuda", args.seed, steps_per_epoch=args.steps)
     t0 = time.perf_counter()
     steps, metrics = train_one_epoch(
         trainer.step, trainer.batches(args.steps, args.seed), trainer.generator, 0,

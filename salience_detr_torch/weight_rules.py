@@ -8,7 +8,7 @@ changes between the two.  These are the JAX package's own rules
 ``salience_detr_head_rules``, ``_invert_transform`` and
 ``export_torch_state_dict``), kept here in numpy so that the port reads no
 file of that package; tests/test_torch_port_weights.py holds the two copies
-equal.  The ResNet rules have no DCN stages: the port builds none.
+equal.
 """
 
 from __future__ import annotations
@@ -83,7 +83,22 @@ def _mlp(src: str, dst: str, n: int) -> List[Rule]:
     return rules
 
 
-def _resnet_rules(layers: Tuple[int, ...] = (3, 4, 6, 3), bottleneck: bool = True) -> List[Rule]:
+def _dcn_pack(src: str, dst: str) -> List[Rule]:
+    """DeformConv2dPack: offset and mask convs with bias, and the kernel
+    without one (the ResNet's conv3x3_dcn)."""
+    rules = []
+    for part in ("conv_offset", "conv_mask"):
+        rules += _conv(f"{src}.{part}", f"{dst}/{part}")
+        rules += [(f"{src}.{part}.bias", f"params/{dst}/{part}/bias", "copy")]
+    rules += [(f"{src}.deform_conv2d.weight", f"params/{dst}/kernel", "dcn_kernel")]
+    return rules
+
+
+def _resnet_rules(
+    layers: Tuple[int, ...] = (3, 4, 6, 3),
+    bottleneck: bool = True,
+    stage_with_dcn: Tuple[bool, ...] = (False, False, False, False),
+) -> List[Rule]:
     rules = _conv("backbone.conv1", "backbone/conv1") + _frozen_bn("backbone.bn1", "backbone/bn1")
     n_convs = 3 if bottleneck else 2
     for s in range(4):
@@ -91,7 +106,10 @@ def _resnet_rules(layers: Tuple[int, ...] = (3, 4, 6, 3), bottleneck: bool = Tru
             src = f"backbone.layer{s + 1}.{b}"
             dst = f"backbone/layer{s + 1}_{b}"
             for c in range(1, n_convs + 1):
-                rules += _conv(f"{src}.conv{c}", f"{dst}/conv{c}")
+                if c == 2 and stage_with_dcn[s]:
+                    rules += _dcn_pack(f"{src}.conv2", f"{dst}/conv2")
+                else:
+                    rules += _conv(f"{src}.conv{c}", f"{dst}/conv{c}")
                 rules += _frozen_bn(f"{src}.bn{c}", f"{dst}/bn{c}")
             if b == 0 and (s > 0 or bottleneck):
                 rules += _conv(f"{src}.downsample.0", f"{dst}/downsample_conv")
@@ -217,13 +235,17 @@ def salience_detr_head_rules(
 
 def _invert_transform(value: np.ndarray, kind: str) -> np.ndarray:
     """A JAX variable -> the upstream-layout array whose conversion gives it
-    back (the kinds the R50 rules use)."""
+    back (the kinds the ResNet and head rules use)."""
     if kind == "copy":
         return value
     if kind == "conv":  # HWIO -> OIHW
         return np.transpose(value, (3, 2, 0, 1))
     if kind == "linear":  # (in, out) -> (out, in)
         return np.transpose(value, (1, 0))
+    if kind == "dcn_kernel":  # (K*K, Cin, F), taps row-major -> OIHW (F, Cin, K, K)
+        kk, cin, f = value.shape
+        k = int(round(kk ** 0.5))
+        return np.transpose(value.reshape(k, k, cin, f), (3, 2, 0, 1))
     raise ValueError(f"non-invertible transform kind: {kind}")
 
 

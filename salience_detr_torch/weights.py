@@ -22,10 +22,11 @@ from salience_detr_torch.models.factory import SalienceDETRConfig
 
 def converter_rules(cfg: SalienceDETRConfig) -> List[Tuple[str, str, str]]:
     """(torch_name, flax_path, transform) rules for a ResNet-backbone config;
-    for resnet50 these equal the JAX converter's ``salience_detr_rules("resnet50")``."""
+    these equal the JAX converter's ``salience_detr_rules(backbone,
+    stage_with_dcn)``."""
     arch = ARCH_SETTINGS[cfg.backbone]
     return weight_rules._resnet_rules(
-        arch["layers"], arch["block"] == "bottleneck"
+        arch["layers"], arch["block"] == "bottleneck", tuple(cfg.stage_with_dcn)
     ) + weight_rules.salience_detr_head_rules(
         num_encoder_layers=cfg.num_encoder_layers,
         num_decoder_layers=cfg.num_decoder_layers,

@@ -168,3 +168,29 @@ def test_cli_refuses_to_fall_back_to_cpu(image_dir):
     ])
     assert proc.returncode != 0
     assert "torch.cuda.is_available() is False" in proc.stderr
+
+
+@pytest.mark.parametrize("name", ["salience_detr_resnet50_dcn_800_1333.py", None])
+def test_train_cli_model_config_reaches_trainer(name, monkeypatch):
+    """``--model-config`` (the JAX train.py's ``--config-file``) is the config
+    the entry point's ``Trainer`` builds; without it, the flagship."""
+    from salience_detr_torch import train
+
+    built = []
+
+    class Stop(Exception):
+        pass
+
+    def trainer(cfg, device, *args, **kwargs):
+        built.append((cfg, device))
+        raise Stop
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(train, "Trainer", trainer)
+    argv = ["--steps", "1"] + (["--model-config", str(DEFAULT_CONFIG.parent / name)] if name else [])
+    with pytest.raises(Stop):
+        train.main(argv)
+    cfg, device = built[0]
+    assert device == "cuda"
+    assert cfg == load_config(DEFAULT_CONFIG.parent / name if name else DEFAULT_CONFIG)
+    assert cfg.stage_with_dcn == ((False, True, True, True) if name else (False,) * 4)

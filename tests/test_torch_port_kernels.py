@@ -45,11 +45,12 @@ def test_library_path_tracks_the_sources():
     assert path.parent.parent == native.BUILD_ROOT
     assert {p.name for p in native.CSRC_DIR.glob("*.cu")} == {
         "msda.cu", "msda_backward.cu", "grid_nms.cu", "hungarian.cu", "nms_keep.cu",
-        "gather_sum.cu", "weighted_reduce.cu", "corner_collapse.cu",
+        "gather_sum.cu", "weighted_reduce.cu", "corner_collapse.cu", "deform_conv.cu", "msda_q8.cu",
     }
     assert set(native.LAUNCHES) == {
         "msda", "msda_backward", "grid_nms", "hungarian", "nms_keep",
         "gather_sum", "weighted_reduce", "corner_collapse_blocked", "corner_collapse_packed",
+        "deform_conv", "deform_conv_backward", "msda_q8_quantize", "msda_q8_sample",
     }
 
 
@@ -542,3 +543,110 @@ def test_stage_kernels_reject_what_they_cannot_take(cuda):
         st.gather_sum(value, idx.long())
     with pytest.raises(ValueError):
         st.gather_sum(value[..., :24].contiguous(), idx)  # D=24
+
+
+# ---------------------------------------------------------------- DCNv2 sampling and the int8 MSDA
+
+
+def dcn_inputs(device, dtype, stride, C, B=2, H=13, W=17, seed=13):
+    """x normal; offsets normal with std 2 pixels (off the grid, some taps
+    outside the image); mask uniform in (0, 1)."""
+    g = torch.Generator().manual_seed(seed)
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    x = torch.randn(B, H, W, C, generator=g).to(device, dtype)
+    offsets = (2 * torch.randn(B, Ho, Wo, 18, generator=g)).to(device)
+    mask = torch.rand(B, Ho, Wo, 9, generator=g).to(device)
+    return x, offsets, mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride,C", [(1, 32), (2, 64), (1, 128), (2, 256), (1, 512)])
+def test_deform_conv_kernels_match_plain(cuda, dtype, stride, C):
+    """Forward: the plain version's operations one for one, so equal up to
+    the last bit (held at the MSDA forward's tolerance).  Backward against
+    the plain backward and autograd of the plain forward, max |d| <= atol *
+    max |ref| + rtol |ref| (BWD tolerances: atomics and lane sums in other
+    orders); without a gradient for x the scatter is skipped."""
+    from salience_detr_torch.ops.deform_conv import (
+        deform_conv_sample,
+        deform_conv_sample_backward_plain,
+        deform_conv_sample_plain,
+    )
+
+    x, offsets, mask = dcn_inputs(cuda, dtype, stride, C)
+    before = dict(native.LAUNCHES)
+    got = deform_conv_sample(x, offsets, mask, stride)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["deform_conv"] == before["deform_conv"] + 1
+    atol, rtol = (1e-5, 1e-4) if dtype == torch.float32 else (4e-3, 1e-2)
+    torch.testing.assert_close(got, deform_conv_sample_plain(x, offsets, mask, stride), atol=atol, rtol=rtol)
+
+    d_cols = torch.randn(got.shape, generator=torch.Generator().manual_seed(14)).to(cuda, dtype)
+    inputs = [t.clone().requires_grad_() for t in (x, offsets, mask)]
+    deform_conv_sample(*inputs, stride).backward(d_cols)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["deform_conv_backward"] == before["deform_conv_backward"] + 1
+    plain = deform_conv_sample_backward_plain(x, offsets, mask, stride, d_cols)
+    auto = [t.clone().requires_grad_() for t in (x, offsets, mask)]
+    deform_conv_sample_plain(*auto, stride).backward(d_cols)
+    for refs in (plain, [a.grad for a in auto]):
+        for g, r in zip((i.grad for i in inputs), refs):
+            atol_rel, rtol_b = (1e-5, 1e-4) if r.dtype == torch.float32 else (1e-3, 1e-2)
+            err = (g.float() - r.float()).abs()
+            assert bool((err <= atol_rel * r.float().abs().max() + rtol_b * r.float().abs()).all())
+    off, msk = offsets.clone().requires_grad_(), mask.clone().requires_grad_()
+    deform_conv_sample(x, off, msk, stride).backward(d_cols)
+    torch.testing.assert_close(off.grad, inputs[1].grad, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(msk.grad, inputs[2].grad, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_deform_conv_kernels_reject_what_they_cannot_take(cuda):
+    from salience_detr_torch.ops.deform_conv import deform_conv_sample
+
+    x, offsets, mask = dcn_inputs(cuda, torch.bfloat16, 1, 64)
+    with pytest.raises(TypeError):
+        deform_conv_sample(x.half(), offsets, mask, 1)
+    with pytest.raises(ValueError):
+        deform_conv_sample(x[..., :48].contiguous(), offsets, mask, 1)  # C=48
+    with pytest.raises(ValueError):
+        deform_conv_sample(x.transpose(1, 2), offsets, mask, 1)  # not channels-last contiguous
+    with pytest.raises(ValueError):
+        deform_conv_sample(x, offsets, mask, 2)  # offsets of a stride-1 layer
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,C", [(8, 256), (4, 32), (4, 128)])
+def test_msda_q8_kernels_match_plain(cuda, dtype, H, C):
+    """The int8 table and scale bit-exact with the plain quantisation; the
+    sampler bit-exact with the plain sampling on the same table (the same
+    IEEE operations in the same order), at borders and in a 1-wide level."""
+    from salience_detr_torch.ops.deform_attn import (
+        ms_deform_attn_q8,
+        ms_deform_attn_q8_plain,
+        q8_quantize,
+        q8_quantize_plain,
+        q8_sample,
+        q8_sample_plain,
+    )
+
+    levels = LEVELS[:3] + [(4, 1)]
+    g = torch.Generator().manual_seed(15)
+    B, Q, P = 2, 41, 4
+    value = (torch.randn(B, sum(h * w for h, w in levels), C, generator=g) * 3).to(cuda, dtype)
+    locs = (torch.rand(B, Q, len(levels), P, 2, generator=g) * 1.6 - 0.3).to(cuda)
+    w = torch.rand(B, Q, H, len(levels), P, generator=g)
+    w = (w / w.sum((-2, -1), keepdim=True)).to(cuda, dtype)
+    before = dict(native.LAUNCHES)
+    table, scale = q8_quantize(value)
+    want_table, want_scale = q8_quantize_plain(value)
+    torch.cuda.synchronize()
+    assert torch.equal(table, want_table) and torch.equal(scale, want_scale)
+    got = q8_sample(table, scale, levels, locs, w, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, q8_sample_plain(table, scale, levels, locs, w, dtype))
+    assert torch.equal(ms_deform_attn_q8(value, levels, locs, w), ms_deform_attn_q8_plain(value, levels, locs, w))
+    assert native.LAUNCHES["msda_q8_quantize"] == before["msda_q8_quantize"] + 2
+    assert native.LAUNCHES["msda_q8_sample"] == before["msda_q8_sample"] + 2

@@ -70,6 +70,12 @@ def test_flagship_weights_load_strict():
 
 def test_tiny_slice_parity(tiny, monkeypatch):
     jcfg, tcfg, jmodel, variables, tmodel = tiny
+    check_slice_parity(jmodel, variables, tmodel, monkeypatch)
+
+
+def check_slice_parity(jmodel, variables, tmodel, monkeypatch):
+    """The eval forward of both models on the same two images (one padded):
+    proposal indices exact, salience maps and outputs at RTOL / ATOL."""
     B, (H, W) = 2, CANVAS
     rng = np.random.default_rng(42)
     images = rng.normal(size=(B, H, W, 3)).astype(np.float32)

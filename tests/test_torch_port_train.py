@@ -411,10 +411,13 @@ def test_optimizer_steps_match_optax(tiny_jax, train_step_run):
 
 @pytest.fixture(scope="module")
 def train_step_run(tiny_jax):
+    return run_tiny_train_step(*tiny_jax)
+
+
+def run_tiny_train_step(jcfg, tcfg, jmodel, jcrit, jsal, variables):
     """One tiny train step in both packages from the same variables, batch
     and CDN draws: B=2, one image padded, 3 and 1 valid gts of 4 slots (so
     m=3, g=1 and 2 of the 8 CDN slots are dead)."""
-    jcfg, tcfg, jmodel, jcrit, jsal, variables = tiny_jax
     rng = np.random.default_rng(11)
     B, M, counts = 2, 4, (3, 1)
     images = rng.normal(size=(B, *CANVAS, 3)).astype(np.float32)
@@ -482,22 +485,21 @@ def train_step_run(tiny_jax):
                 model=model, plosses=plosses, ptotal=ptotal.item(), pmatches=pmatches)
 
 
-def test_train_step_losses(train_step_run):
-    r = train_step_run
+def check_step_losses(r):
     assert set(r["plosses"]) == set(r["jlosses"])
     for k, v in r["jlosses"].items():
         np.testing.assert_allclose(r["plosses"][k].item(), float(v), rtol=LOSS_RTOL, atol=LOSS_ATOL, err_msg=k)
     np.testing.assert_allclose(r["ptotal"], r["jtotal"], rtol=LOSS_RTOL)
 
 
-def test_train_step_assignments(train_step_run):
-    r = train_step_run
+def check_step_assignments(r):
     for layer, (got, want) in enumerate(zip(r["pmatches"], r["jmatches"])):
         np.testing.assert_array_equal(got, want, err_msg=f"assignment {layer}")
 
 
-def test_train_step_gradients(train_step_run):
-    r = train_step_run
+def check_step_gradients(r):
+    """Every trainable parameter's gradient against the exported JAX
+    gradient, max |d| <= 1e-3 max |g| + 1e-6; returns how many."""
     checked = 0
     for name, p in r["model"].named_parameters():
         if not p.requires_grad:
@@ -508,7 +510,19 @@ def test_train_step_gradients(train_step_run):
         bound = 1e-3 * np.abs(want).max() + 1e-6
         assert np.abs(got - want).max() <= bound, (name, np.abs(got - want).max(), bound)
         checked += 1
-    assert checked > 300
+    return checked
+
+
+def test_train_step_losses(train_step_run):
+    check_step_losses(train_step_run)
+
+
+def test_train_step_assignments(train_step_run):
+    check_step_assignments(train_step_run)
+
+
+def test_train_step_gradients(train_step_run):
+    assert check_step_gradients(train_step_run) > 300
 
 
 def test_train_step_batch_stats(train_step_run):

@@ -31,6 +31,7 @@ ROOT = Path(__file__).resolve().parent.parent
 def jax_rules(cfg: SalienceDETRConfig):
     return jax_wc.salience_detr_rules(
         cfg.backbone,
+        tuple(cfg.stage_with_dcn),
         num_encoder_layers=cfg.num_encoder_layers,
         num_decoder_layers=cfg.num_decoder_layers,
         num_levels=cfg.num_feature_levels,
@@ -40,7 +41,9 @@ def jax_rules(cfg: SalienceDETRConfig):
 
 CONFIGS = {
     "flagship": lambda: load_config(DEFAULT_CONFIG),
+    "flagship_dcn": lambda: load_config(DEFAULT_CONFIG.parent / "salience_detr_resnet50_dcn_800_1333.py"),
     "tiny": lambda: SalienceDETRConfig(**TINY_TORCH),
+    "tiny_dcn": lambda: SalienceDETRConfig(**TINY_TORCH, stage_with_dcn=(False, True, True, True)),
 }
 
 
@@ -63,6 +66,7 @@ HELPERS = [
     ("_repvgg_block", ("a.b", "a/b", True)),
     ("_csp_layer", ("a.b", "a/b", 2, True)),
     ("_repnet_rules", ("a.b", "a/b", 4)),
+    ("_dcn_pack", ("a.b", "a/b")),
 ]
 
 
@@ -77,7 +81,8 @@ def test_mha_and_resnet_rules_equal_the_jax_converters():
         assert weight_rules._resnet_rules(layers, bottleneck) == jax_wc._resnet_rules(layers, bottleneck)
 
 
-@pytest.mark.parametrize("kind,shape", [("copy", (5,)), ("conv", (3, 3, 4, 6)), ("linear", (7, 5))])
+@pytest.mark.parametrize("kind,shape", [("copy", (5,)), ("conv", (3, 3, 4, 6)), ("linear", (7, 5)),
+                                        ("dcn_kernel", (9, 4, 6))])
 def test_invert_transform_equals_the_jax_converters(kind, shape):
     x = np.random.default_rng(0).normal(size=shape).astype(np.float32)
     np.testing.assert_array_equal(weight_rules._invert_transform(x, kind), jax_wc._invert_transform(x, kind))

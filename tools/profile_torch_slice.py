@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's flagship eval forward and train step
-goes, on one CUDA card.
+"""Where the time of the PyTorch port's eval forward and train step goes, on
+one CUDA card.
 
-    python tools/profile_torch_slice.py [--out FILE.json]
+    python tools/profile_torch_slice.py [--model-config F] [--no-train] [--out FILE.json]
 
-Builds the flagship R50 model (random weights from seed 0, bf16 autocast),
+Builds the model of ``--model-config`` (the flagship R50 by default; random
+weights from seed 0, bf16 autocast),
 serves one batch of 4 landscape requests padded to the 800x1344 canvas, and
 reports for that forward (top-level keys) and, under "train", for the train
 step of ``salience_detr_torch.train.Trainer`` on synthetic B=4 800x1344
@@ -22,14 +23,17 @@ batches (steps in place of forwards, plus the peak device memory):
   and at the fastest and slowest of the 5 (the host's speed varies);
 * device ms per forward by category of kernel name, and the top kernels.
 
-Prints one JSON line (also written to ``--out`` when given).  Fails without a
-CUDA device.
+``--no-train`` skips the train step; ``MSDA_GATHER_QUANT=int8`` in the
+environment profiles the int8 encoder sampling of the eval forward.  Prints
+one JSON line (also written to ``--out`` when given).  Fails without a CUDA
+device.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -50,6 +54,9 @@ from salience_detr_torch.train import Trainer  # noqa: E402
 
 # first matching pattern names the category of a kernel
 CATEGORIES = [
+    ("msda_q8", r"msda_q8_sample_kernel|q8_absmax_kernel|q8_table_kernel"),
+    ("deform_conv_backward", r"deform_conv_backward_kernel"),
+    ("deform_conv", r"deform_conv_forward_kernel"),
     ("msda", r"msda_forward_kernel"),
     ("msda_backward", r"msda_backward_kernel"),
     ("grid_nms", r"grid_nms_kernel"),
@@ -120,6 +127,8 @@ def measure(run, iters: int):
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--out", default=None)
+    p.add_argument("--model-config", default=str(DEFAULT_CONFIG))
+    p.add_argument("--no-train", action="store_true")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_torch_slice: needs a CUDA device")
@@ -128,7 +137,7 @@ def main(argv=None):
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
 
-    cfg = load_config(DEFAULT_CONFIG)
+    cfg = load_config(args.model_config)
     predictor = Predictor(cfg, None, "cuda", seed=SEED)
     rng = np.random.default_rng(SEED)
     sizes = [(480, 640), (800, 1200), (600, 600), (720, 1280)]
@@ -140,9 +149,12 @@ def main(argv=None):
     for _ in range(2):
         predictor.forward(*inputs)
     torch.cuda.synchronize()
-    report = {"card": card, "batch": BATCH, "canvas": list(inputs[0].shape[-2:])}
+    report = {"card": card, "config": Path(args.model_config).name, "batch": BATCH,
+              "canvas": list(inputs[0].shape[-2:]), "msda_gather_quant": os.environ.get("MSDA_GATHER_QUANT", "none")}
     report.update(measure(lambda: predictor.forward(*inputs), ITERS))
     del predictor
+    if args.no_train:
+        return finish(report, args.out)
 
     # the train step: warm-up, then steps on one batch (a fresh batch per
     # step would add host time that the step itself does not spend)
@@ -155,11 +167,14 @@ def main(argv=None):
     train = measure(lambda: trainer.step(batch, trainer.generator), ITERS)
     train["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
     report["train"] = {k.replace("_per_forward", "_per_step"): v for k, v in train.items()}
+    finish(report, args.out)
 
+
+def finish(report, out):
     line = json.dumps(report)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(line + "\n")
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(line + "\n")
     print(line)
 
 
