@@ -100,7 +100,15 @@ non-zero exit and no result line:
    backward and autograd of the plain forward; times, bounds and
    F.grid_sample's times (the library yardstick), and the totals over the 13
    layers.  With ``--baseline-csrc``, each directory's DCN kernels timed in
-   turns with these (``dcn_ab:``);
+   turns with these (``dcn_ab:``; the backward as whole calls, each
+   baseline's gradients held against the plain backward);
+17b. dcn_captured: the backward on the inputs of the 13 DCN layers of one
+   R50-DCN train step (offset and mask convs at seeded small normals), and
+   on the same with offsets of std 8 px: against the plain backward and
+   autograd, d_x bitwise repeatable, the gather's list sizes, times and
+   bounds per layer and over the 13; with ``--baseline-csrc``, each
+   directory's backward (the earlier per-corner atomic push, the halo push
+   of tools/dcn_halo/, ...) in turns as whole calls;
 18. dcn_slice: phases 5 and 9 on the small model with DCN stages 2-4, its
    offset and mask convs at seeded small normals (``offsets_off_grid``) on
    both devices;
@@ -155,6 +163,7 @@ from salience_detr_torch.engine.train import evaluate, train_one_epoch
 from salience_detr_torch.inference import DEFAULT_CONFIG, Predictor, load_config, preprocess
 from salience_detr_torch.models.bricks import attention, salience_transformer
 from salience_detr_torch.models.bricks import criterion as criterion_module
+from salience_detr_torch.models.bricks import deform_conv as dcn_module
 from salience_detr_torch.models.bricks.attention import MultiScaleDeformableAttention
 from salience_detr_torch.models.bricks.criterion import Targets, compute_matching_cost
 from salience_detr_torch.models.bricks.deform_conv import DeformConv2dPack
@@ -841,7 +850,8 @@ def baseline_library(csrc_dir):
     """The kernels built from another version of csrc/, for timing in turns;
     each entry point that the library has is bound by its own C signature
     (``hungarian_forward`` is the earlier assignment kernel's entry point,
-    whose cost rows are exactly N floats long)."""
+    whose cost rows are exactly N floats long; ``deform_conv_backward`` the
+    earlier DCN backward, which adds d_x into a zeroed f32 buffer)."""
     lib = ctypes.CDLL(str(native.build(Path(csrc_dir).resolve())))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     if hasattr(lib, "msda_forward"):
@@ -849,6 +859,8 @@ def baseline_library(csrc_dir):
     signatures = {
         "deform_conv_forward": [ptr, i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr],
         "deform_conv_backward": [ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr],
+        "deform_conv_backward_halo": [ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr],
+        "deform_conv_backward_gather": [ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr],
         "msda_q8_quantize": [ptr, i32, ptr, ptr, ptr, i64, i32, ptr],
         "msda_q8_sample": [ptr, ptr, native.LevelTable, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr],
         "grid_nms_forward": [ptr, native.LevelTable, ptr, i32, i32, i32, ptr],
@@ -860,6 +872,9 @@ def baseline_library(csrc_dir):
         if hasattr(lib, name):
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = i32
+    if hasattr(lib, "deform_conv_backward_workspace"):
+        lib.deform_conv_backward_workspace.argtypes = [i32] * 5
+        lib.deform_conv_backward_workspace.restype = i64
     return lib
 
 
@@ -1551,20 +1566,21 @@ def dcn_valid_corners(offsets, H, W, stride):
 
 
 def dcn_bounds(x, offsets, mask, stride):
-    """Bounds of the DCN forward and backward kernels on these inputs.  The
-    forward reads x, offsets and mask (f32, as the kernel takes them) and
-    writes the columns in x's dtype; 2 operations per channel of each
-    in-image corner and 1 for the mask.  The backward also reads d_cols and
-    writes d_x (f32), d_offsets and d_mask (f32); per channel of each
-    in-image corner 2 dot products and the d_x add (6 operations), and the
-    masked gradient (1)."""
+    """Bounds of the DCN forward and backward functions on these inputs.
+    The forward reads x, offsets and mask (f32, as the kernel takes them)
+    and writes the columns in x's dtype; 2 operations per channel of each
+    in-image corner and 1 for the mask.  The backward reads x, d_cols,
+    offsets and mask and writes d_x in x's dtype, d_offsets and d_mask (f32):
+    the function's bytes, whatever scratch an implementation adds; per
+    channel of each in-image corner 2 dot products and the d_x add (6
+    operations), and the masked gradient (1)."""
     B, H, W, C = x.shape
     taps = offsets[..., 0].numel() * 9
     valid = dcn_valid_corners(offsets, H, W, stride)
     small = 4 * (offsets.numel() + mask.numel())
     cols = taps * C * x.element_size()
     forward = bound(nbytes(x) + small + cols, (2 * valid + taps) * C)
-    backward = bound(nbytes(x) + cols + 2 * small + B * H * W * C * 4, (6 * valid + taps) * C)
+    backward = bound(2 * nbytes(x) + cols + 2 * small, (6 * valid + taps) * C)
     return forward, backward, valid / (4 * taps)
 
 
@@ -1592,28 +1608,114 @@ def grid_sample_calls(x, offsets, stride, dtype):
     return forward, lambda: torch.autograd.grad(out, (xn, grid), d_out, retain_graph=True)
 
 
-def dcn_launchers(x, offsets, mask, stride, d_cols):
-    """Launch-only calls of a library's DCN forward and backward kernels on
-    these inputs (offsets and mask cast to f32 once, outputs allocated once);
-    returns them and the forward's output."""
+def dcn_forward_launcher(x, offsets, mask, stride):
+    """A launch-only call of a library's DCN forward kernel on these inputs
+    (offsets and mask cast to f32 once, the output allocated once); returns
+    it and the output."""
     B, H, W, C = x.shape
     Ho, Wo = offsets.shape[1:3]
     off, msk = offsets.float().contiguous(), mask.float().contiguous()
     cols = torch.empty(B, Ho, Wo, 9, C, dtype=x.dtype, device=x.device)
-    d_x = torch.zeros(B, H, W, C, device=x.device)
-    d_off, d_msk = torch.empty_like(off), torch.empty_like(msk)
     bf16, stream = int(x.dtype == torch.bfloat16), native.stream_of(x)
 
     def forward(lib):
         native.check(lib.deform_conv_forward(x.data_ptr(), bf16, off.data_ptr(), msk.data_ptr(), cols.data_ptr(),
                                              B, H, W, C, stride, stream), "deform_conv_forward")
 
-    def backward(lib):  # d_x keeps accumulating: the same atomics each call
-        native.check(lib.deform_conv_backward(x.data_ptr(), bf16, off.data_ptr(), msk.data_ptr(), d_cols.data_ptr(),
-                                              d_x.data_ptr(), d_off.data_ptr(), d_msk.data_ptr(), B, H, W, C,
-                                              stride, stream), "deform_conv_backward")
+    return forward, cols
 
-    return forward, backward, cols
+
+# the C entry points of the DCN backward designs: the shipped gather, the
+# halo push (tools/dcn_halo/, a baseline directory) and the earlier
+# per-corner atomic push (``deform_conv_backward``, in csrc/ of older commits)
+DCN_BACKWARD_ENTRIES = ("deform_conv_backward_gather", "deform_conv_backward_halo", "deform_conv_backward")
+
+
+def dcn_backward_call(x, offsets, mask, stride, d_cols):
+    """One whole backward call of a library on these inputs, through the
+    entry point it has, as its wrapper makes it: the gather (its seven
+    launches into a workspace allocated once, d_x written in x's dtype), the
+    halo push (an f32 d_x that the entry zeroes, the launch, the cast to x's
+    dtype) or the earlier per-corner atomic push (a zeroed f32 scratch, the
+    launch, the cast).
+    Offsets and mask are cast to f32 once.  Returns run(lib) -> (d_x,
+    d_offsets, d_mask)."""
+    B, H, W, C = x.shape
+    off, msk = offsets.float().contiguous(), mask.float().contiguous()
+    d_off, d_msk = torch.empty_like(off), torch.empty_like(msk)
+    d_x = torch.empty_like(x)
+    bf16, stream = int(x.dtype == torch.bfloat16), native.stream_of(x)
+    workspaces = {}
+
+    def run(lib):
+        args = (x.data_ptr(), bf16, off.data_ptr(), msk.data_ptr(), d_cols.data_ptr())
+        if hasattr(lib, "deform_conv_backward_gather"):
+            if id(lib) not in workspaces:
+                size = lib.deform_conv_backward_workspace(B, H, W, C, stride)
+                workspaces[id(lib)] = torch.empty(size, dtype=torch.uint8, device=x.device)
+            native.check(lib.deform_conv_backward_gather(*args, d_x.data_ptr(), d_off.data_ptr(), d_msk.data_ptr(),
+                                                         workspaces[id(lib)].data_ptr(), B, H, W, C, stride, stream),
+                         "deform_conv_backward_gather")
+            return d_x, d_off, d_msk
+        if hasattr(lib, "deform_conv_backward_halo"):
+            scratch = torch.empty(B, H, W, C, device=x.device)
+            entry = lib.deform_conv_backward_halo
+        else:
+            scratch = torch.zeros(B, H, W, C, device=x.device)
+            entry = lib.deform_conv_backward
+        native.check(entry(*args, scratch.data_ptr(), d_off.data_ptr(), d_msk.data_ptr(), B, H, W, C, stride,
+                           stream), "DCN backward")
+        return scratch.to(x.dtype), d_off, d_msk
+
+    return run
+
+
+def dcn_backward_checks(x, offsets, mask, stride, d_cols, label):
+    """B6's backward through autograd (counted) against the plain backward
+    and autograd of the plain forward, within BWD_TOL; returns the largest
+    error and raises on a violation."""
+    inputs = [t.clone().requires_grad_() for t in (x, offsets, mask)]
+    before = native.LAUNCHES["deform_conv_backward"]
+    dcn_ops.deform_conv_sample(*inputs, stride).backward(d_cols)
+    torch.cuda.synchronize()
+    if native.LAUNCHES["deform_conv_backward"] != before + 1:
+        raise AssertionError("the DCN backward kernel did not run")
+    got = [i.grad for i in inputs]
+    return check_dcn_grads(got, x, offsets, mask, stride, d_cols, label, autograd=True)
+
+
+def check_dcn_grads(got, x, offsets, mask, stride, d_cols, label, autograd=False):
+    """(d_x, d_offsets, d_mask) against the plain backward (and autograd of
+    the plain forward) within BWD_TOL; the largest error, or raises."""
+    refs = [("plain", dcn_ops.deform_conv_sample_backward_plain(x, offsets, mask, stride, d_cols))]
+    if autograd:
+        auto = [t.clone().requires_grad_() for t in (x, offsets, mask)]
+        dcn_ops.deform_conv_sample_plain(*auto, stride).backward(d_cols)
+        refs.append(("autograd", [a.grad for a in auto]))
+    torch.cuda.synchronize()
+    worst = 0.0
+    for ref_name, ref in refs:
+        for gname, g, r in zip(("d_x", "d_offsets", "d_mask"), got, ref):
+            err, _, bad, _, _ = compare_bwd(g, r)
+            if bad:
+                raise AssertionError(f"deform_conv backward {gname} disagrees with {ref_name} on {label}: "
+                                     f"{bad} elements")
+            worst = max(worst, err)
+    return worst
+
+
+def dcn_bins(offsets, H, W, stride):
+    """The gather backward's lists on these offsets: entries (in-image
+    corners) per input pixel, mean and max, and the share of pixels whose
+    list is longer than the 128 keys sorted in registers; and the share of
+    taps with an offset beyond the halo design's 2 px margin."""
+    py, px = dcn_ops._tap_positions(offsets, stride)
+    counts = torch.zeros(offsets.shape[0] * H * W, dtype=torch.int64, device=offsets.device)
+    for valid, idx, *_ in dcn_ops._corners(py, px, H, W):
+        counts.index_add_(0, idx[valid], torch.ones_like(idx[valid]))
+    off = offsets.float().reshape(*offsets.shape[:-1], 9, 2)
+    far = float((off.abs().amax(-1) > 2).float().mean())
+    return float(counts.float().mean()), int(counts.max()), float((counts > 128).float().mean()), far
 
 
 def phase_deform_conv(smi, baselines=()):
@@ -1627,13 +1729,16 @@ def phase_deform_conv(smi, baselines=()):
     the totals over the 13 layers of one forward.  Returns the largest
     errors and (ms, plain ms, bound ms, bound by, library ms) of each kernel
     at DCN_HOT.  With ``--baseline-csrc``, each directory's DCN kernels are
-    timed launch only in turns with these at every shape (``dcn_ab:``)."""
+    timed in turns with these at every shape (``dcn_ab:``): the forward
+    launch only, the backward as whole calls (``dcn_backward_call``), the
+    baseline's gradients held against the plain backward first."""
     t0 = time.perf_counter()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(21)
     new = native.load()
     bases = [(d, baseline_library(d)) for d in baselines]
-    bases = [(d, lib) for d, lib in bases if hasattr(lib, "deform_conv_forward")]
+    bases = [(d, lib) for d, lib in bases
+             if any(hasattr(lib, e) for e in ("deform_conv_forward",) + DCN_BACKWARD_ENTRIES)]
     fwd_err = bwd_err = 0.0
     totals = np.zeros(8)
     hot = None
@@ -1656,27 +1761,11 @@ def phase_deform_conv(smi, baselines=()):
             fwd_err = max(fwd_err, max_abs)
             del got, want
             d_cols = torch.randn(B, Ho, Wo, 9, C, generator=gen, device=dev).to(dtype)
-            inputs = [t.clone().requires_grad_() for t in (x, offsets, mask)]
-            before = native.LAUNCHES["deform_conv_backward"]
-            dcn_ops.deform_conv_sample(*inputs, stride).backward(d_cols)
-            torch.cuda.synchronize()
-            if native.LAUNCHES["deform_conv_backward"] != before + 1:
-                raise AssertionError("the DCN backward kernel did not run")
-            plain = dcn_ops.deform_conv_sample_backward_plain(x, offsets, mask, stride, d_cols)
-            auto = [t.clone().requires_grad_() for t in (x, offsets, mask)]
-            dcn_ops.deform_conv_sample_plain(*auto, stride).backward(d_cols)
-            torch.cuda.synchronize()
-            for ref_name, refs in (("plain", plain), ("autograd", [a.grad for a in auto])):
-                for gname, g, r in zip(("d_x", "d_offsets", "d_mask"), (i.grad for i in inputs), refs):
-                    err, scale, bad, atol_rel, brtol = compare_bwd(g, r)
-                    if bad:
-                        raise AssertionError(f"deform_conv backward {gname} disagrees with {ref_name} at C={C} "
-                                             f"stride={stride} {dtype}: {bad} elements")
-                    bwd_err = max(bwd_err, err)
+            bwd_err = max(bwd_err, dcn_backward_checks(x, offsets, mask, stride, d_cols,
+                                                       f"C={C} stride={stride} {dtype}"))
             parts.append(f"{str(dtype)[6:]} forward max_abs_err={max_abs:.3e} (atol {atol} rtol {rtol}) "
                          f"not_bit_equal={exact}; backward vs plain and autograd within "
                          f"{BWD_TOL[torch.float32 if dtype == torch.float32 else torch.bfloat16]}")
-            del inputs, plain, auto
         x = x32.to(torch.bfloat16)
         d_cols = torch.randn(B, Ho, Wo, 9, C, generator=gen, device=dev).to(torch.bfloat16)
         (fb, fby), (bb, bby), in_image = dcn_bounds(x, offsets, mask, stride)
@@ -1703,17 +1792,113 @@ def phase_deform_conv(smi, baselines=()):
               f"kernel_ms={bwd_ms:.4f} plain_ms={bwd_plain:.4f} bound_ms={bb:.4f} ({bby}) library_ms={lib_bwd_ms:.4f} "
               f"(grid_sample autograd f32; bf16 {lib_bwd_bf16_ms:.4f}); card: {smi}")
         for base_dir, base in bases:
-            forward, backward, cols = dcn_launchers(x, offsets, mask, stride, d_cols)
-            print(f"dcn_ab: C={C} {H}x{W} stride={stride} bf16 baseline={base_dir}: forward ms base/new/new/base "
-                  f"{[round(v, 4) for v in in_turns(forward, base, new, 20)]} same_output="
-                  f"{same_output(forward, cols, base, new)} bound {fb:.4f}; backward ms base/new/new/base "
-                  f"{[round(v, 4) for v in in_turns(backward, base, new, 10)]} bound {bb:.4f}; card: {smi}")
+            parts = []
+            if hasattr(base, "deform_conv_forward"):
+                forward, cols = dcn_forward_launcher(x, offsets, mask, stride)
+                parts.append(f"forward ms base/new/new/base {[round(v, 4) for v in in_turns(forward, base, new, 20)]} "
+                             f"same_output={same_output(forward, cols, base, new)} bound {fb:.4f}")
+            if any(hasattr(base, e) for e in DCN_BACKWARD_ENTRIES):
+                backward = dcn_backward_call(x, offsets, mask, stride, d_cols)
+                err = check_dcn_grads(backward(base), x, offsets, mask, stride, d_cols, f"baseline {base_dir}")
+                parts.append(f"backward (whole calls) ms base/new/new/base "
+                             f"{[round(v, 4) for v in in_turns(backward, base, new, 10)]} bound {bb:.4f}, "
+                             f"baseline max_abs_err vs plain {err:.3e}")
+            print(f"dcn_ab: C={C} {H}x{W} stride={stride} bf16 baseline={base_dir}: {'; '.join(parts)}; card: {smi}")
         del x32, x, offsets, mask, d_cols
     print(f"deform_conv: the 13 layers of one R50-DCN forward/step, bf16: forward kernel_ms={totals[0]:.4f} "
           f"plain_ms={totals[1]:.4f} bound_ms={totals[2]:.4f} library_ms={totals[3]:.4f}; backward "
           f"kernel_ms={totals[4]:.4f} plain_ms={totals[5]:.4f} bound_ms={totals[6]:.4f} library_ms={totals[7]:.4f}; "
           f"phase_s={time.perf_counter() - t0:.2f}; card: {smi}")
     return fwd_err, bwd_err, hot
+
+
+def capture_dcn_train_inputs():
+    """What one R50-DCN train step (``Trainer``, B=4, 800x1344, bf16
+    autocast), its offset and mask convs at seeded small normals
+    (``offsets_off_grid``), gives the DCN sampling: x, offsets, mask, stride
+    and d_cols of each of its 13 layers, recorded by a wrapper around the
+    DCN modules' call of ``deform_conv_sample``."""
+    trainer = Trainer(load_config(DCN_CONFIG), "cuda", seed=0, steps_per_epoch=1)
+    offsets_off_grid(trainer.model)
+    batch = next(trainer.batches(1, seed=0, counts=GT_COUNTS))
+    calls, real = [], dcn_module.deform_conv_sample
+
+    def recording(x, offsets, mask, stride):
+        out = real(x, offsets, mask, stride)
+        call = {"x": x.detach(), "offsets": offsets.detach(), "mask": mask.detach(), "stride": stride}
+        out.register_hook(lambda grad: call.__setitem__("d_cols", grad.detach()))
+        calls.append(call)
+        return out
+
+    dcn_module.deform_conv_sample = recording
+    try:
+        trainer.step(batch, trainer.generator)
+    finally:
+        dcn_module.deform_conv_sample = real
+    torch.cuda.synchronize()
+    if len(calls) != 13 or any("d_cols" not in c for c in calls):
+        raise AssertionError(f"{len(calls)} DCN calls in one R50-DCN train step, "
+                             f"{sum('d_cols' in c for c in calls)} with a gradient")
+    return calls
+
+
+def phase_dcn_captured(smi, baselines):
+    """B6's backward on the inputs the 13 DCN layers of an R50-DCN train step
+    give it (``capture_dcn_train_inputs``), and on the same with offsets of
+    std 8 px in place of the captured ones (far taps): against the plain
+    backward and autograd of the plain forward (BWD_TOL), d_x bitwise equal
+    over two calls, the gather's list sizes and the share of taps beyond the
+    halo design's margin, times (with the wrapper), bounds; with
+    ``--baseline-csrc``, each directory's backward as whole calls in turns
+    with the shipped one per layer, and the totals over the 13 layers."""
+    t0 = time.perf_counter()
+    calls = capture_dcn_train_inputs()
+    new = native.load()
+    bases = [(d, baseline_library(d)) for d in baselines]
+    bases = [(d, lib) for d, lib in bases if any(hasattr(lib, e) for e in DCN_BACKWARD_ENTRIES)]
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    totals = {}
+    worst = 0.0
+    for i, c in enumerate(calls):
+        x, mask, stride, d_cols = c["x"], c["mask"], c["stride"], c["d_cols"]
+        B, H, W, C = x.shape
+        far = torch.randn(c["offsets"].shape, generator=gen, device="cuda") * 8
+        for label, offsets in (("captured", c["offsets"]), ("std 8 px", far.to(c["offsets"].dtype))):
+            name = f"layer {i} C={C} {H}x{W} stride={stride} {label}"
+            err = dcn_backward_checks(x, offsets, mask, stride, d_cols, name)
+            worst = max(worst, err)
+            first = dcn_ops._backward_cuda(x, offsets, mask, stride, d_cols)
+            second = dcn_ops._backward_cuda(x, offsets, mask, stride, d_cols)
+            torch.cuda.synchronize()
+            repeatable = all(torch.equal(a, b) for a, b in zip(first, second))
+            if not repeatable:
+                raise AssertionError(f"dcn_captured: two backward calls differ on {name}")
+            del first, second
+            mean, most, long_share, far_share = dcn_bins(offsets, H, W, stride)
+            _, (bb, bby), in_image = dcn_bounds(x, offsets, mask, stride)
+            ms = steady_ms(lambda: dcn_ops._backward_cuda(x, offsets, mask, stride, d_cols), 10)
+            row = totals.setdefault(label, {"ms": 0.0, "bound": 0.0})
+            row["ms"] += ms
+            row["bound"] += bb
+            ab = []
+            for base_dir, base in bases:
+                run = dcn_backward_call(x, offsets, mask, stride, d_cols)
+                base_err = check_dcn_grads(run(base), x, offsets, mask, stride, d_cols, f"{name} baseline {base_dir}")
+                turns = in_turns(run, base, new, 10)
+                row[base_dir] = np.add(row.get(base_dir, np.zeros(4)), turns)
+                ab.append(f"baseline={base_dir} base/new/new/base {[round(v, 4) for v in turns]} "
+                          f"(baseline max_abs_err vs plain {base_err:.3e})")
+            print(f"dcn_captured: {name} {str(x.dtype)[6:]} offsets {str(offsets.dtype)[6:]}: in-image corners "
+                  f"{in_image:.4f}, taps beyond 2 px {far_share:.4f}; list entries per pixel mean {mean:.2f} max "
+                  f"{most}, pixels over 128 {long_share:.6f}; backward vs plain and autograd max_abs_err {err:.3e}, "
+                  f"d_x bitwise repeatable; kernel_ms={ms:.4f} bound_ms={bb:.4f} ({bby}); {'; '.join(ab)}; "
+                  f"card: {smi}")
+        del c["d_cols"]
+    for label, row in totals.items():
+        ab = "; ".join(f"baseline={d} base/new/new/base {[round(float(v), 4) for v in row[d]]}" for d, _ in bases)
+        print(f"dcn_captured: the 13 layers, {label} offsets: kernel_ms={row['ms']:.4f} bound_ms={row['bound']:.4f}; "
+              f"{ab}; card: {smi}")
+    print(f"dcn_captured: largest error {worst:.3e}; phase_s={time.perf_counter() - t0:.2f}")
 
 
 def phase_dcn_slice():
@@ -1965,6 +2150,7 @@ def main(argv=None):
     keep_t = phase_nms_keep(smi, args.baseline_csrc)
     eval_launches = phase_eval(smi)
     dcn_fwd_err, dcn_bwd_err, dcn_t = phase_deform_conv(smi, args.baseline_csrc)
+    phase_dcn_captured(smi, args.baseline_csrc)
     phase_dcn_slice()
     dcn_serve_launches = phase_dcn_serve(smi)
     dcn_train_launches = phase_dcn_train(smi)

@@ -164,9 +164,11 @@ def load() -> ctypes.CDLL:
         lib.nms_keep_forward.restype = i32
         lib.deform_conv_forward.argtypes = [ptr, i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
         lib.deform_conv_forward.restype = i32
-        lib.deform_conv_backward.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr,
-                                             i32, i32, i32, i32, i32, ptr]
-        lib.deform_conv_backward.restype = i32
+        lib.deform_conv_backward_workspace.argtypes = [i32, i32, i32, i32, i32]
+        lib.deform_conv_backward_workspace.restype = i64
+        lib.deform_conv_backward_gather.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                                    i32, i32, i32, i32, i32, ptr]
+        lib.deform_conv_backward_gather.restype = i32
         lib.msda_q8_quantize.argtypes = [ptr, i32, ptr, ptr, ptr, i64, i32, ptr]
         lib.msda_q8_quantize.restype = i32
         lib.msda_q8_sample.argtypes = [ptr, ptr, LevelTable, ptr, ptr, ptr, i32,

@@ -179,9 +179,12 @@ def _forward_cuda(x, offsets, mask, stride):
 
 
 def _backward_cuda(x, offsets, mask, stride, d_cols, need_x=True):
-    """d_x accumulates by float32 atomics into a zeroed scratch buffer, cast
-    once to x's dtype (skipped without ``need_x``); d_offsets and d_mask are
-    written directly, in float32."""
+    """The gather backward (``deform_conv_backward_gather``): d_x is summed
+    per input pixel in registers and written once, in x's dtype (not at all
+    without ``need_x``); d_offsets and d_mask in float32, cast to their
+    inputs' dtypes.  Bitwise repeatable.  The scratch (per-pixel counts and
+    lists, per-corner weights and dot products) is one workspace of the
+    size the library names."""
     B, H, W, C, Ho, Wo = _check_kernel_inputs(x, offsets, mask, stride)
     if tuple(d_cols.shape) != (B, Ho, Wo, TAPS, C) or d_cols.device != x.device:
         raise ValueError(f"deform_conv_sample backward: d_cols {tuple(d_cols.shape)} != "
@@ -189,25 +192,32 @@ def _backward_cuda(x, offsets, mask, stride, d_cols, need_x=True):
     off = offsets.to(torch.float32).contiguous()
     msk = mask.to(torch.float32).contiguous()
     grad = d_cols.to(x.dtype).contiguous()
-    d_x = torch.zeros((B, H, W, C), dtype=torch.float32, device=x.device) if need_x else None
+    if grad.data_ptr() % 16:
+        grad = grad.clone()
+    lib = native.load()
+    ws_bytes = lib.deform_conv_backward_workspace(B, H, W, C, stride)
+    if ws_bytes < 0:
+        raise ValueError(f"deform_conv_sample backward: {B * Ho * Wo * TAPS * 4} corner keys at x "
+                         f"{tuple(x.shape)} stride {stride} exceed the kernel's int32 keys")
+    workspace = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device)
+    d_x = torch.empty_like(x) if need_x else None
     d_off = torch.empty((B, Ho, Wo, 2 * TAPS), dtype=torch.float32, device=x.device)
     d_mask = torch.empty((B, Ho, Wo, TAPS), dtype=torch.float32, device=x.device)
-    lib = native.load()
     with torch.cuda.device(x.device):
-        err = lib.deform_conv_backward(
+        err = lib.deform_conv_backward_gather(
             x.data_ptr(), int(x.dtype == torch.bfloat16), off.data_ptr(), msk.data_ptr(),
             grad.data_ptr(), d_x.data_ptr() if need_x else None, d_off.data_ptr(), d_mask.data_ptr(),
-            B, H, W, C, stride, native.stream_of(x),
+            workspace.data_ptr(), B, H, W, C, stride, native.stream_of(x),
         )
-    native.check(err, "deform_conv_backward")
+    native.check(err, "deform_conv_backward_gather")
     native.LAUNCHES["deform_conv_backward"] += 1
-    return d_x.to(x.dtype) if need_x else None, d_off.to(offsets.dtype), d_mask.to(mask.dtype)
+    return d_x, d_off.to(offsets.dtype), d_mask.to(mask.dtype)
 
 
 class _DeformConvSample(torch.autograd.Function):
     """Forward and backward kernels on CUDA tensors, the plain versions on CPU
     tensors; nothing on CUDA gives way to a plain version.  The backward
-    skips the d_x scatter when x needs no gradient."""
+    writes no d_x when x needs no gradient."""
 
     @staticmethod
     def forward(ctx, x, offsets, mask, stride):

@@ -118,6 +118,142 @@ def test_sample_and_its_backward_match_jax(stride):
     assert torch.equal(d_off, plain[1]) and torch.equal(d_mask, plain[2])
 
 
+def gather_mirror(x, offsets, mask, stride, d_cols, fill_seed=0):
+    """A numpy copy of the gather backward of csrc/deform_conv.cu, step for
+    step, in float32: (d_x, d_offsets, d_mask, list length per input pixel).
+
+    1. count: each in-image corner of each item (b, ho, wo, tap) takes a
+       rank in its pixel's list from the pixel's count (in an arbitrary
+       order: a permutation drawn from ``fill_seed``, as the kernel's atomics
+       leave it) and keeps w = wx * wy * mask at its key item * 4 + corner;
+    2. scan: each list starts at the exclusive prefix of the counts; 3.
+    place: each key goes to its list's start plus its rank; 4. gather: each
+    list is sorted and taken in key order, d_x[pixel] += w * d_cols[item] and
+    dot[key] = <d_cols[item], x[pixel]>; 5. combine: per item d_mask = sum w
+    * dot, d_offsets = mask * sum (+-wx, +-wy) * dot over its in-image
+    corners."""
+    f32 = np.float32
+    B, H, W, C = x.shape
+    Ho, Wo = offsets.shape[1:3]
+    items = B * Ho * Wo * 9
+    item = np.arange(items)
+    k, pix = item % 9, item // 9
+    wo, ho, b = pix % Wo, (pix // Wo) % Ho, pix // (Wo * Ho)
+    off = offsets.reshape(items, 2).astype(f32)
+    m = mask.reshape(items).astype(f32)
+    py = (ho * stride + k // 3 - 1).astype(f32) + off[:, 0]
+    px = (wo * stride + k % 3 - 1).astype(f32) + off[:, 1]
+    y = np.clip(py, f32(-2), f32(H + 1))
+    xx = np.clip(px, f32(-2), f32(W + 1))
+    y0, x0 = np.floor(y), np.floor(xx)
+    fy, fx = y - y0, xx - x0
+    y0, x0 = y0.astype(np.int64), x0.astype(np.int64)
+    one = f32(1)
+    keys, pixels, corners = [], [], []
+    wcoef = np.zeros(items * 4, f32)
+    for c, (dy, dx) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+        cy, cx = y0 + dy, x0 + dx
+        valid = (cy >= 0) & (cy < H) & (cx >= 0) & (cx < W)
+        wy = fy if dy else one - fy
+        wx = fx if dx else one - fx
+        corners.append((valid, wx, wy, one if dy else -one, one if dx else -one))
+        keys.append((item * 4 + c)[valid])
+        pixels.append(((b * H + cy) * W + cx)[valid])
+        wcoef[(item * 4 + c)[valid]] = (wx * wy * m)[valid]
+    keys, pixels = np.concatenate(keys), np.concatenate(pixels)
+    counts = np.bincount(pixels, minlength=B * H * W)
+    starts = np.cumsum(counts) - counts
+    # ranks in the order the atomics happen to serve the corners
+    order = np.random.default_rng(fill_seed).permutation(len(keys))
+    rank = np.empty(len(keys), np.int64)
+    rank[order[np.argsort(pixels[order], kind="stable")]] = (
+        np.arange(len(keys)) - starts[np.sort(pixels)])
+    lists = np.empty(len(keys), np.int64)
+    lists[starts[pixels] + rank] = keys
+    rows = d_cols.reshape(items, C).astype(f32)
+    x_rows = x.reshape(B * H * W, C).astype(f32)
+    d_x = np.zeros((B * H * W, C), f32)
+    dots = np.zeros(items * 4, f32)
+    for p in np.flatnonzero(counts):
+        lists[starts[p]:starts[p] + counts[p]].sort()
+    for r in range(int(counts.max(initial=0))):
+        at = np.flatnonzero(counts > r)
+        key = lists[starts[at] + r]
+        g = rows[key // 4]
+        d_x[at] += wcoef[key][:, None] * g
+        dots[key] = (g * x_rows[at]).sum(-1)
+    d_mask = np.zeros(items, f32)
+    d_py, d_px = np.zeros(items, f32), np.zeros(items, f32)
+    for c, (valid, wx, wy, sy, sx) in enumerate(corners):
+        dot = np.where(valid, dots[item * 4 + c], f32(0))
+        d_mask += wx * wy * dot
+        d_py += sy * wx * dot
+        d_px += sx * wy * dot
+    d_off = np.stack([d_py * m, d_px * m], -1).reshape(offsets.shape)
+    return d_x.reshape(x.shape), d_off, d_mask.reshape(mask.shape), counts
+
+
+def far_and_border_inputs(stride, seed, B=2, H=9, W=11, C=6):
+    """Offsets that put taps exactly on pixels (integers: zero-weight
+    corners), far outside any neighbourhood (+-20 px) and outside the image,
+    beside small ones."""
+    x, offsets, mask = sample_inputs(stride, seed, B, H, W, C)
+    rng = np.random.default_rng(seed + 100)
+    kind = rng.integers(0, 4, size=offsets.shape[:-1] + (9,))
+    pairs = offsets.reshape(*offsets.shape[:-1], 9, 2)
+    pairs[kind == 0] = np.round(pairs[kind == 0])
+    pairs[kind == 1] = rng.uniform(-20, 20, size=pairs[kind == 1].shape)
+    pairs[kind == 2] = np.array([-30.5, 40.25], np.float32)
+    return x, pairs.reshape(offsets.shape).astype(np.float32), mask
+
+
+@pytest.mark.parametrize("case", ["random", "far_and_border"])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_gather_mirror_matches_plain_and_jax(stride, case):
+    """The gather's algorithm (binning by destination pixel, lists in key
+    order, dot products per key combined per item) against the plain
+    backward and jax.vjp of the JAX sampling; a second fill order gives the
+    same bits."""
+    make = sample_inputs if case == "random" else far_and_border_inputs
+    x, offsets, mask = make(stride, seed=30 + stride)
+    want, vjp = jax.vjp(lambda *a: jax_sample(*a, stride), *map(jnp.asarray, (x, offsets, mask)))
+    d_cols = np.random.default_rng(31).normal(size=np.asarray(want).shape).astype(np.float32)
+    jgrads = vjp(jnp.asarray(d_cols))
+    plain = deform_conv_sample_backward_plain(t(x), t(offsets), t(mask), stride, t(d_cols))
+    got = gather_mirror(x, offsets, mask, stride, d_cols)
+    again = gather_mirror(x, offsets, mask, stride, d_cols, fill_seed=1)
+    for name, g, a, p, j in zip(("d_x", "d_offsets", "d_mask"), got, again, plain, jgrads):
+        assert_grad_close(g, p.numpy(), 1e-5, f"{name} mirror vs plain")
+        assert_grad_close(g, j, 1e-5, f"{name} mirror vs jax")
+        np.testing.assert_array_equal(g, a, err_msg=f"{name} depends on the fill order")
+    # every in-image corner has one place in its pixel's list
+    want = np.zeros(x.shape[0] * x.shape[1] * x.shape[2], np.int64)
+    for valid, idx, *_ in _valid_corners(x, offsets, stride):
+        np.add.at(want, idx[valid].numpy(), 1)
+    np.testing.assert_array_equal(got[3], want)
+    if case == "far_and_border":
+        assert (offsets.reshape(-1, 2)[:, 0] == -30.5).any()  # taps with no corner in the image
+
+
+def _valid_corners(x, offsets, stride):
+    from salience_detr_torch.ops.deform_conv import _corners, _tap_positions
+    return list(_corners(*_tap_positions(t(offsets), stride), x.shape[1], x.shape[2]))
+
+
+def test_gather_mirror_lists_follow_the_taps():
+    """At zero offsets every tap of an interior output pixel sits on a pixel
+    with weight 1 and its three other corners weigh 0 but stay in the lists
+    (their derivatives reach d_offsets): an interior pixel at stride 1 gets
+    9 taps x 4 corners = 36 entries; taps outside the image add none."""
+    x, offsets, mask = sample_inputs(1, seed=40, B=1, H=8, W=8, C=4)
+    d_cols = np.random.default_rng(41).normal(size=(1, 8, 8, 9, 4)).astype(np.float32)
+    counts = gather_mirror(x, np.zeros_like(offsets), mask, 1, d_cols)[3].reshape(8, 8)
+    assert (counts[2:-2, 2:-2] == 36).all()
+    away = np.full_like(offsets, 100.0)
+    d_x, d_off, d_mask, counts = gather_mirror(x, away, mask, 1, d_cols)
+    assert counts.sum() == 0 and not d_x.any() and not d_off.any() and not d_mask.any()
+
+
 def dcn_variables(jmodule, x, seed):
     """Random module variables: offset convs wide enough to move the taps a
     few pixels, mask convs around 0, the kernel ~ N(0, 1 / (9 Cin))."""

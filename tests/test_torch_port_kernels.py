@@ -601,6 +601,102 @@ def test_deform_conv_kernels_match_plain(cuda, dtype, stride, C):
     torch.testing.assert_close(msk.grad, inputs[2].grad, atol=1e-5, rtol=1e-4)
 
 
+def dcn_backward_refs(x, offsets, mask, stride, d_cols):
+    """The plain backward and autograd of the plain forward."""
+    from salience_detr_torch.ops.deform_conv import deform_conv_sample_backward_plain, deform_conv_sample_plain
+
+    auto = [t.clone().requires_grad_() for t in (x, offsets, mask)]
+    deform_conv_sample_plain(*auto, stride).backward(d_cols)
+    return deform_conv_sample_backward_plain(x, offsets, mask, stride, d_cols), [a.grad for a in auto]
+
+
+def assert_dcn_grads_close(got, refs):
+    """max |d| <= atol * max |ref| + rtol |ref| per gradient, at the MSDA
+    backward's tolerances by the gradient's dtype."""
+    for ref in refs:
+        for name, g, r in zip(("d_x", "d_offsets", "d_mask"), got, ref):
+            assert g.dtype == r.dtype, name
+            atol_rel, rtol = (1e-5, 1e-4) if r.dtype == torch.float32 else (1e-3, 1e-2)
+            err = (g.float() - r.float()).abs()
+            assert bool((err <= atol_rel * r.float().abs().max() + rtol * r.float().abs()).all()), name
+
+
+def dcn_offsets_case(case, offsets):
+    """Offsets of one kind: on pixel borders (integers: zero-weight corners),
+    far beyond any neighbourhood (+-20 px), every tap outside the image."""
+    g = torch.Generator().manual_seed(16)
+    if case == "integer":
+        return offsets.round()
+    if case == "far":
+        return ((torch.rand(offsets.shape, generator=g) * 40 - 20)).to(offsets.device)
+    if case == "outside":
+        return torch.full_like(offsets, -500.0)
+    return offsets
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("C", [32, 64, 128, 256, 512])
+def test_deform_conv_backward_gather_matches_plain(cuda, dtype, stride, C):
+    """The gather backward through autograd (one counted launch) against the
+    plain backward and autograd of the plain forward; d_x in x's dtype and
+    bitwise equal over two calls."""
+    from salience_detr_torch.ops.deform_conv import _backward_cuda, deform_conv_sample
+
+    x, offsets, mask = dcn_inputs(cuda, dtype, stride, C, H=19, W=23)
+    d_cols = torch.randn(*offsets.shape[:3], 9, C, generator=torch.Generator().manual_seed(17)).to(cuda, dtype)
+    inputs = [t.clone().requires_grad_() for t in (x, offsets, mask)]
+    before = native.LAUNCHES["deform_conv_backward"]
+    deform_conv_sample(*inputs, stride).backward(d_cols)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["deform_conv_backward"] == before + 1
+    assert_dcn_grads_close([i.grad for i in inputs], dcn_backward_refs(x, offsets, mask, stride, d_cols))
+    first, second = (_backward_cuda(x, offsets, mask, stride, d_cols) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["integer", "far", "outside"])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_deform_conv_backward_gather_any_offsets(cuda, case, stride):
+    """Taps exactly on pixels and so on tile and halo borders, taps +-20 px
+    away, and every tap outside the image (all gradients 0), in bf16 at
+    C=128; x without a gradient (no d_x written) gives the same d_offsets
+    and d_mask."""
+    from salience_detr_torch.ops.deform_conv import _backward_cuda
+
+    x, offsets, mask = dcn_inputs(cuda, torch.bfloat16, stride, 128, H=21, W=37)
+    offsets = dcn_offsets_case(case, offsets)
+    d_cols = torch.randn(*offsets.shape[:3], 9, 128, generator=torch.Generator().manual_seed(18)).to(
+        cuda, torch.bfloat16)
+    got = _backward_cuda(x, offsets, mask, stride, d_cols)
+    torch.cuda.synchronize()
+    assert_dcn_grads_close(got, dcn_backward_refs(x, offsets, mask, stride, d_cols))
+    if case == "outside":
+        assert not any(bool(g.any()) for g in got)
+    none, d_off, d_mask = _backward_cuda(x, offsets, mask, stride, d_cols, need_x=False)
+    assert none is None and torch.equal(d_off, got[1]) and torch.equal(d_mask, got[2])
+
+
+@pytest.mark.gpu
+def test_deform_conv_backward_gather_long_lists(cuda):
+    """Offsets that pile every tap of a 12x12 output onto one 2x2 corner
+    block: lists of 1296 keys take the selection path, in key order all the
+    same (d_x bitwise repeatable)."""
+    from salience_detr_torch.ops.deform_conv import _backward_cuda, _tap_positions
+
+    x, offsets, mask = dcn_inputs(cuda, torch.float32, 1, 64, B=1, H=12, W=12)
+    base_y, base_x = (p - o for p, o in zip(_tap_positions(offsets, 1), (offsets[..., 0::2], offsets[..., 1::2])))
+    offsets = torch.stack([5.25 - base_y, 6.5 - base_x], -1).reshape(offsets.shape).contiguous()
+    d_cols = torch.randn(1, 12, 12, 9, 64, generator=torch.Generator().manual_seed(19)).to(cuda)
+    first, second = (_backward_cuda(x, offsets, mask, 1, d_cols) for _ in range(2))
+    torch.cuda.synchronize()
+    assert_dcn_grads_close(first, dcn_backward_refs(x, offsets, mask, 1, d_cols))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert int((first[0].abs().sum(-1) > 0).sum()) == 4
+
+
 @pytest.mark.gpu
 def test_deform_conv_kernels_reject_what_they_cannot_take(cuda):
     from salience_detr_torch.ops.deform_conv import deform_conv_sample

@@ -55,7 +55,9 @@ from salience_detr_torch.train import Trainer  # noqa: E402
 # first matching pattern names the category of a kernel
 CATEGORIES = [
     ("msda_q8", r"msda_q8_sample_kernel|q8_absmax_kernel|q8_table_kernel"),
-    ("deform_conv_backward", r"deform_conv_backward_kernel"),
+    # B6 backward: the gather's seven kernels (and the earlier design's name)
+    ("deform_conv_backward", r"deform_conv_backward_kernel|dcn_(zero|count|scan_sums|scan_offsets|place|gather|"
+                             r"combine)_kernel"),
     ("deform_conv", r"deform_conv_forward_kernel"),
     ("msda", r"msda_forward_kernel"),
     ("msda_backward", r"msda_backward_kernel"),
