@@ -144,6 +144,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import math
 import os
@@ -158,7 +159,7 @@ import torch
 from salience_detr_torch import native
 from salience_detr_torch import test as eval_entry
 from salience_detr_torch.data.coco import CocoDetection
-from salience_detr_torch.data.loader import DetectionLoader, DevicePrefetcher
+from salience_detr_torch.data.loader import DetectionLoader, DevicePrefetcher, to_device
 from salience_detr_torch.engine.train import evaluate, train_one_epoch
 from salience_detr_torch.inference import DEFAULT_CONFIG, Predictor, load_config, preprocess
 from salience_detr_torch.models.bricks import attention, salience_transformer
@@ -190,7 +191,11 @@ from salience_detr_torch.ops.nms import grid_nms_topk, grid_nms_topk_plain, nms_
 from salience_detr_torch.parallel.train_step import make_eval_step
 from salience_detr_torch.timing import card_line, cuda_ms
 from salience_detr_torch.tools import msda_stages as stage_tool
-from salience_detr_torch.train import GT_COUNTS, Trainer, load_train_config
+from salience_detr_torch import train as train_entry
+from salience_detr_torch.parallel import train_step as train_step_module
+from salience_detr_torch.train import GT_COUNTS, TRAIN_CONFIG, Trainer
+from salience_detr_torch.utils.checkpoint import CheckpointManager
+from salience_detr_torch.utils.config import Config
 from salience_detr_torch.utils.coco_eval import METRIC_NAMES, CocoEvaluator
 
 LEVELS = [(100, 168), (50, 84), (25, 42), (13, 21)]  # 800x1344 canvas, strides 8..64
@@ -659,7 +664,7 @@ def small_train_step(device, counts=(3, 1), stage_with_dcn=(False,) * 4):
     (metrics, assignments, clipped gradients, parameters, buffers, calls of
     the criterion's batched matching)."""
     cfg = SalienceDETRConfig(**SMALL, denoising_nums=4, stage_with_dcn=stage_with_dcn)
-    tc = dict(load_train_config(), max_gt=6, train_canvas=(96, 128))
+    tc = Config(str(TRAIN_CONFIG), max_gt=6, train_canvas=(96, 128)).to_dict()
     trainer = Trainer(cfg, device, seed=6, steps_per_epoch=1, train_cfg=tc)
     # At init the sampling-offset weights are zero, so most sampling points
     # sit exactly on pixel centres, where the bilinear weights have a kink:
@@ -1481,7 +1486,7 @@ def phase_eval(smi):
     try:
         t1 = time.perf_counter()
         stats1 = evaluate(make_eval_step(model, post, exact.dtype),
-                          DevicePrefetcher(DetectionLoader(dataset, 4), exact, dev), evaluator)
+                          DevicePrefetcher(DetectionLoader(dataset, 4), functools.partial(to_device, cfg=exact), dev), evaluator)
         torch.cuda.synchronize()
         wall1 = time.perf_counter() - t1
     finally:
@@ -1540,6 +1545,222 @@ def phase_eval(smi):
           f"img_s={n / wall2:.3f}, re-scored from {pred.name} max gap {gap:.3e}; "
           f"phase_s={time.perf_counter() - t0:.2f}; card: {smi}")
     return launches1
+
+
+# the train_coco phase's split: COCO's three most common image sizes, half
+# portrait (20 images give at least 4 batches of 4 an epoch whatever the
+# crops do to the orientations), 0 to 40 boxes per image (about one in eight
+# a crowd box), written under an ignored directory of the checkout
+TRAIN_COCO_SIZES = [(480, 640), (640, 480), (427, 640), (640, 480)] * 5
+TRAIN_COCO_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+TRAIN_STEP_KERNELS = {"msda": 12, "msda_backward": 12, "grid_nms": 1, "hungarian": 1}  # per micro-batch
+EVAL_FORWARD_KERNELS = {"msda": 12, "grid_nms": 1}
+# fp16 epochs of the train_coco phase: at init the float16 gradient of
+# transformer.enc_output.bias (a sum over B x 22323 tokens) is not finite at a
+# loss scale of 16 on padded images (tools/fp16_grad_probe.py), so the
+# GradScaler, from its default 65536, skips its first steps (17 on this
+# phase's data) before it steps
+FP16_EPOCHS = 5
+
+
+def write_train_split(root, seed=21):
+    """TRAIN_COCO_SIZES as ``.npy`` uint8 RGB images drawn from ``seed`` and a
+    COCO annotation file with 0 to 40 random boxes per image, labels in
+    1..90; returns (image dir, annotation path)."""
+    rng = np.random.default_rng(seed)
+    img_dir = root / "images"
+    img_dir.mkdir(parents=True, exist_ok=True)
+    images, anns = [], []
+    for i, (h, w) in enumerate(TRAIN_COCO_SIZES):
+        np.save(img_dir / f"{i:03d}.npy", rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        images.append({"id": i + 1, "file_name": f"{i:03d}.npy", "height": h, "width": w})
+        for _ in range(int(rng.integers(0, 41))):
+            bw, bh = rng.uniform(0.02, 0.5) * w, rng.uniform(0.02, 0.5) * h
+            x, y = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            anns.append({"id": len(anns) + 1, "image_id": i + 1, "category_id": int(rng.integers(1, 91)),
+                         "bbox": [x, y, bw, bh], "area": bw * bh, "iscrowd": int(rng.uniform() < 0.125)})
+    ann = root / "annotations.json"
+    ann.write_text(json.dumps({"images": images, "annotations": anns,
+                               "categories": [{"id": c, "name": f"class{c}"} for c in range(1, 91)]}))
+    return img_dir, ann
+
+
+class TimedStep(train_step_module.TrainStep):
+    """The CLI's train step, timed (host clock to a synchronise, and CUDA
+    events) with the kernel launches, canvas and gt counts of each step;
+    ``last`` is the last instance built, which keeps its batches for a
+    replay."""
+
+    records: list = []
+    last = None
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.batches = []
+        TimedStep.last = self
+
+    def __call__(self, batch, generator=None, draws=None):
+        self.batches.append(batch)
+        before = dict(native.LAUNCHES)
+        scale = self.scaler.get_scale() if self.scaler is not None else None
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        metrics = super().__call__(batch, generator, draws)
+        end.record()
+        torch.cuda.synchronize()
+        TimedStep.records.append({
+            "wall_ms": 1e3 * (time.perf_counter() - t0), "device_ms": start.elapsed_time(end),
+            "launches": {k: native.LAUNCHES[k] - before[k] for k in native.LAUNCHES},
+            "canvas": tuple(batch["images"].shape[-2:]), "counts": batch["targets"].counts,
+            "accumulate": self.accumulate_steps,
+            "losses_finite": all(bool(torch.isfinite(v)) for k, v in metrics.items() if k != "grad_norm"),
+            "grad_norm": float(metrics["grad_norm"]),
+            # a GradScaler skips a step whose gradients overflowed and halves its scale
+            "stepped": scale is None or self.scaler.get_scale() >= scale,
+            "scale": self.scaler.get_scale() if self.scaler is not None else None,
+        })
+        return metrics
+
+
+def train_coco_config(path, img_dir, ann, output_dir, **overrides):
+    values = dict(
+        num_epochs=1, batch_size=4, num_workers=8, print_freq=1, output_dir=str(output_dir), train_transform="detr",
+        train_img_folder=str(img_dir), train_ann_file=str(ann), test_img_folder=str(img_dir), test_ann_file=str(ann),
+        model_path=str(DEFAULT_CONFIG), resume_from_checkpoint=True, learning_rate=1e-4, train_canvas=(800, 1344),
+        max_gt=100,
+    )
+    values.update(overrides)
+    path.write_text("".join(f"{k} = {v!r}\n" for k, v in values.items()))
+    return str(path)
+
+
+def run_train_cli(args, forwards):
+    """``salience_detr_torch.train.main(args)`` with the launch counts set to
+    0 just before and read just after; checks that each train step launched
+    K1, K3, K2 and K4 as the flagship's micro-batches need and each eval
+    forward (``forwards`` after each epoch) K1 and K2; returns (summary,
+    this run's step records, launches)."""
+    first = len(TimedStep.records)
+    for k in native.LAUNCHES:
+        native.LAUNCHES[k] = 0
+    summary = train_entry.main(args)
+    torch.cuda.synchronize()
+    launches = dict(native.LAUNCHES)
+    records = TimedStep.records[first:]
+    for r in records:
+        want = {k: v * r["accumulate"] for k, v in TRAIN_STEP_KERNELS.items()}
+        finite = r["losses_finite"] and (not r["stepped"] or np.isfinite(r["grad_norm"]))
+        if {k: r["launches"][k] for k in want} != want or not finite:
+            raise AssertionError(f"train_coco step {r}")
+    evals = 0 if summary["stats"] is None else forwards * len(summary["epochs"])  # an eval after each epoch
+    expect = {k: sum(r["launches"][k] for r in records) for k in launches}
+    for k, v in EVAL_FORWARD_KERNELS.items():
+        expect[k] += v * evals
+    if launches != expect:
+        raise AssertionError(f"train_coco: launches {launches}, expected {expect} ({len(records)} steps, {evals} "
+                             "eval forwards)")
+    if not all(np.isfinite(v) for k, v in summary["metrics"].items() if k != "grad_norm"):
+        raise AssertionError(f"train_coco: non-finite losses {summary['metrics']}")
+    if summary["stats"] is not None:
+        check_stats(summary["stats"], "train_coco eval")
+    return summary, records, launches
+
+
+def phase_train_coco(smi):
+    """The train CLI (python -m salience_detr_torch.train) on a COCO-format
+    split of TRAIN_COCO_SIZES written under build/: the flagship at full
+    width, bf16, B=4, the detr preset, the fixed canvases of both
+    orientations; run 1 trains 4 steps of epoch 0, evaluates and
+    checkpoints; run 2 resumes from that checkpoint at epoch 1 for 2 steps
+    and evaluates; run 3 trains 1 step at --accumulate-steps 2 (two
+    micro-batches of 2); run 4 trains FP16_EPOCHS epochs in fp16 with the
+    GradScaler, evaluating after each, whose losses must be finite and which
+    must take at least one step (it skips a step whose scaled gradients
+    overflowed and halves its scale).
+    Each step must launch K1 and K3 12 times, K2 and K4 once per
+    micro-batch, each eval forward K1 12 times and K2 once.  Returns run 1's
+    launches over its 4 steps."""
+    import shutil
+
+    t0 = time.perf_counter()
+    if TRAIN_COCO_DIR.exists():
+        shutil.rmtree(TRAIN_COCO_DIR)
+    img_dir, ann = write_train_split(TRAIN_COCO_DIR)
+    forwards = sum(1 for _ in DetectionLoader(CocoDetection(str(img_dir), str(ann)), 4))
+    real_make = train_entry.make_train_step
+    train_entry.make_train_step = lambda *a, **k: TimedStep(*a, **k)
+    out = TRAIN_COCO_DIR / "run"
+    try:
+        config = train_coco_config(TRAIN_COCO_DIR / "epoch0.py", img_dir, ann, out)
+        torch.cuda.reset_peak_memory_stats()
+        s1, r1, l1 = run_train_cli(["--config-file", config, "--seed", "0", "--dry-run-steps", "4"], forwards)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        # run 1's step on its own device batches again, no loader thread running
+        replay = TimedStep.last
+        generator = torch.Generator(replay.batches[0]["images"].device).manual_seed(0)
+        for batch in replay.batches[:] * 2:
+            replay(batch, generator)
+        replay_ms = [r["wall_ms"] for r in TimedStep.records[-len(r1):]]
+        replay.batches.clear()
+        TimedStep.last = replay = None  # run 1's model and optimizer go
+        restored = CheckpointManager(str(out / "checkpoints")).restore()
+        model, _ = build_salience_detr(load_config(DEFAULT_CONFIG), torch.device("cuda"))
+        model.load_state_dict(restored["model"], strict=True)  # the checkpoint is a whole state dict
+        del model
+        config = train_coco_config(TRAIN_COCO_DIR / "epoch1.py", img_dir, ann, out, num_epochs=2)
+        s2, r2, _ = run_train_cli(["--config-file", config, "--dry-run-steps", "2"], forwards)
+        config = train_coco_config(TRAIN_COCO_DIR / "accum.py", img_dir, ann, TRAIN_COCO_DIR / "accum")
+        s3, r3, _ = run_train_cli(["--config-file", config, "--seed", "1", "--dry-run-steps", "1",
+                                   "--accumulate-steps", "2"], forwards)
+        config = train_coco_config(TRAIN_COCO_DIR / "fp16.py", img_dir, ann, TRAIN_COCO_DIR / "fp16",
+                                   num_epochs=FP16_EPOCHS)
+        s4, r4, _ = run_train_cli(["--config-file", config, "--seed", "2", "--mixed-precision", "fp16"], forwards)
+        scaler = CheckpointManager(str(TRAIN_COCO_DIR / "fp16" / "checkpoints")).restore()["scaler"]
+    finally:
+        train_entry.make_train_step = real_make
+    if ((len(r1), len(r2), len(r3)) != (4, 2, 1) or len(r4) < 4 * FP16_EPOCHS
+            or s4["epochs"] != list(range(FP16_EPOCHS))):
+        raise AssertionError(f"train_coco: steps {len(r1)}, {len(r2)}, {len(r3)}, {len(r4)}")
+    if (s2["starting_epoch"], restored["step"], s2["global_step"]) != (1, 4, 6) or s2["seed"] != 0:
+        raise AssertionError(f"train_coco: resumed at epoch {s2['starting_epoch']} from step {restored['step']} "
+                             f"to step {s2['global_step']}, seed {s2['seed']}")
+    records = r1 + r2 + r3
+    canvases = sorted({r["canvas"] for r in records})
+    if len(canvases) != 2 or canvases[0] != canvases[1][::-1]:
+        raise AssertionError(f"train_coco: canvases {canvases}, both orientations expected")
+    fp16_stepped = [r for r in r4 if r["stepped"]]
+    if scaler is None or not scaler["scale"] > 0 or not fp16_stepped:
+        raise AssertionError(f"train_coco fp16: scaler state {scaler}, steps {r4}")
+    counts = [n for r in records for n in r["counts"]]
+    wall = [r["wall_ms"] for r in r1 + r2]
+    device = [r["device_ms"] for r in r1 + r2]
+    warm = [r["wall_ms"] for r in r1[1:] + r2[1:]]  # each run's first step warms up the process
+    steps = len(wall)
+    waits_ms = [1e3 * w for w in s1["loader_waits_s"][:len(r1)] + s2["loader_waits_s"][:len(r2)]]
+    transform_ms = 1e3 * (s1["transform_s"] + s2["transform_s"]) / max(s1["samples"] + s2["samples"], 1)
+    per_step = {k: sum(r["launches"][k] for r in r1) / len(r1) for k in TRAIN_STEP_KERNELS}
+    print(f"train_coco: flagship R50 bf16 B=4 detr preset through salience_detr_torch.train.main on "
+          f"{len(TRAIN_COCO_SIZES)} .npy images {sorted(set(TRAIN_COCO_SIZES))}; run 1 {len(r1)} steps + eval, "
+          f"run 2 resumed at epoch {s2['starting_epoch']} from step {restored['step']} for {len(r2)} steps "
+          f"(global step {s2['global_step']}) + eval, run 3 --accumulate-steps 2 {len(r3)} step, run 4 fp16 "
+          f"{FP16_EPOCHS} epochs, {len(r4)} steps, {FP16_EPOCHS} evals (the scaler stepped {len(fp16_stepped)}, "
+          f"scales {[r['scale'] for r in r4]}, "
+          f"grad_norm {[round(r['grad_norm'], 3) for r in r4]}); canvases {canvases}; "
+          f"gts per image min {min(counts)} max {max(counts)} zero-gt images {counts.count(0)}; "
+          f"step wall_ms={[round(x, 3) for x in wall]} median_wall_ms (runs 1-2 but their first steps)="
+          f"{statistics.median(warm):.3f} device_ms={[round(x, 3) for x in device]}; run 1's steps again on its "
+          f"batches with no loader running: wall_ms={[round(x, 3) for x in replay_ms]} median="
+          f"{statistics.median(replay_ms):.3f}; loader_wait_ms per step={[round(x, 3) for x in waits_ms]} "
+          f"mean={statistics.mean(waits_ms):.3f} host_transform_ms_per_sample={transform_ms:.3f} "
+          f"(8 worker threads, 1 intra-op thread each); run 1 launches per step {per_step} and in all "
+          f"{ {k: v for k, v in l1.items() if v} } with {forwards} eval forwards; accumulated step launches "
+          f"{ {k: v for k, v in r3[0]['launches'].items() if v} }; "
+          f"peak_mem_gib={peak_gib:.3f}; run 1 loss={s1['metrics']['loss']:.4f} grad_norm="
+          f"{s1['metrics']['grad_norm']:.4f} eval AP={s1['stats']['AP']:.6f} AR100={s1['stats']['AR100']:.6f}, "
+          f"run 2 loss={s2['metrics']['loss']:.4f}, run 3 loss={s3['metrics']['loss']:.4f}, run 4 loss="
+          f"{s4['metrics']['loss']:.4f}, all finite; phase_s={time.perf_counter() - t0:.2f}; card: {smi}")
+    return {k: sum(r["launches"][k] for r in r1) for k in native.LAUNCHES}
 
 
 # the DCN layers of the R50-DCN config at B=4 on the 800x1344 canvas: (Cin,
@@ -2149,6 +2370,7 @@ def main(argv=None):
     del captured
     keep_t = phase_nms_keep(smi, args.baseline_csrc)
     eval_launches = phase_eval(smi)
+    coco_launches = phase_train_coco(smi)
     dcn_fwd_err, dcn_bwd_err, dcn_t = phase_deform_conv(smi, args.baseline_csrc)
     phase_dcn_captured(smi, args.baseline_csrc)
     phase_dcn_slice()
@@ -2158,21 +2380,23 @@ def main(argv=None):
     q8_launches = phase_serve_q8(smi)
     stage_launches, stage_results = phase_msda_stages(smi)
     print(f"serve launches {serve_launches}; train launches {train_launches}; "
+          f"train_coco launches (run 1, 4 steps) {coco_launches}; "
           f"eval launches (NMS filter on) {eval_launches}; dcn_serve launches {dcn_serve_launches}; "
           f"dcn_train launches {dcn_train_launches}; serve_q8 launches {q8_launches}; "
           f"msda_stages launches {stage_launches}")
     # K1-K4, K9: no single PyTorch call computes them (MSDA is a grid_sample
     # per level and a weighted sum; PyTorch has no NMS or assignment op).  K2,
-    # K4 and K9 are exact, and timed on the main path's own inputs.
+    # K4 and K9 are exact, and timed on the main path's own inputs.  K1-K4
+    # launches: the train CLI's 4 steps on COCO-format data (phase train_coco)
     kernels = [
         kernel_entry("msda_forward", "msda.cu", "salience_detr_tpu/ops/deform_attn.py:768",
-                     train_launches["msda"], msda_err, msda_t),
+                     coco_launches["msda"], msda_err, msda_t),
         kernel_entry("grid_nms_forward", "grid_nms.cu", "salience_detr_tpu/ops/nms.py:68",
-                     train_launches["grid_nms"], 0.0, nms_t),
+                     coco_launches["grid_nms"], 0.0, nms_t),
         kernel_entry("msda_backward", "msda_backward.cu", "salience_detr_tpu/ops/deform_attn.py:666",
-                     train_launches["msda_backward"], bwd_err, bwd_t),
+                     coco_launches["msda_backward"], bwd_err, bwd_t),
         kernel_entry("assignment_forward", "hungarian.cu", "salience_detr_tpu/ops/hungarian.py:36",
-                     train_launches["hungarian"], 0.0, hung_t),
+                     coco_launches["hungarian"], 0.0, hung_t),
         # K9 launches on the eval path with the NMS filter on (phase eval's run 1)
         kernel_entry("nms_keep_forward", "nms_keep.cu", "salience_detr_tpu/ops/nms.py:133",
                      eval_launches["nms_keep"], 0.0, keep_t),

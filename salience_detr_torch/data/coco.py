@@ -1,21 +1,24 @@
 """COCO-format detection dataset, boxes only (the port's copy of
-salience_detr_tpu/data/coco.py's ``CocoIndex``, ``_prepare_target`` and
-``CocoDetection``).
+salience_detr_tpu/data/coco.py's ``CocoIndex``, ``_prepare_target``,
+``CocoDetection`` with its transforms, and ``Object365Detection``).
 
 The annotation index is built directly from the JSON, and the same index
 feeds the evaluator (``utils/coco_eval.py``).  Images are decoded with cv2
 (BGR -> RGB) where it is installed; ``.npy`` files holding uint8 HWC RGB
 arrays are read with numpy everywhere.  A machine without cv2, as the CUDA
-card's machine is, evaluates ``.npy`` images only.
+card's machine is, reads ``.npy`` images only.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List
+import random
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
+
+from salience_detr_torch.data.transforms import NOT_PORTED
 
 
 class CocoIndex:
@@ -74,13 +77,20 @@ def load_image(path: str) -> np.ndarray:
 
 class CocoDetection:
     """Map-style dataset of sample dicts (image, boxes, labels, area,
-    image_id, orig_size).  ``train`` drops the images without a valid
-    annotation."""
+    image_id, orig_size), augmented by ``transforms(sample, rng)`` when
+    given.  ``train`` drops the images without a valid annotation.  Mix
+    transforms (``Mosaic``, ``MixUp``) are wired to draw their extra samples
+    from this dataset without transforms."""
 
-    def __init__(self, img_folder: str, ann_file: str, train: bool = False):
+    def __init__(self, img_folder: str, ann_file: str, transforms: Optional[Callable] = None,
+                 train: bool = False, return_masks: bool = False):
+        if return_masks:
+            raise ValueError(f"return_masks is not ported: it needs {NOT_PORTED['copypaste']}")
         self.img_folder = img_folder
         self.coco = CocoIndex(ann_file)
+        self.transforms = transforms
         self.train = train
+        self._wire_dataset(transforms)
         ids = list(self.coco.img_ids)
         if train:
             ids = [
@@ -94,12 +104,24 @@ class CocoDetection:
             ]
         self.ids = ids
 
+    def _wire_dataset(self, transform):
+        if transform is None:
+            return
+        if hasattr(transform, "set_dataset"):
+            transform.set_dataset(_PlainDataset(self))
+        for child in getattr(transform, "transforms", []):
+            self._wire_dataset(child)
+
     def __len__(self):
         return len(self.ids)
 
-    def __getitem__(self, idx: int) -> dict:
+    def _image_file_name(self, info: dict) -> str:
+        return info["file_name"]
+
+    def get_raw(self, idx: int) -> dict:
+        """The sample without transforms (thread-safe; mix transforms read it)."""
         img_id = self.ids[idx]
-        image = load_image(os.path.join(self.img_folder, self.coco.imgs[img_id]["file_name"]))
+        image = load_image(os.path.join(self.img_folder, self._image_file_name(self.coco.imgs[img_id])))
         h, w = image.shape[:2]
         target = _prepare_target(h, w, self.coco.annotations(img_id))
         return {
@@ -110,3 +132,54 @@ class CocoDetection:
             "image_id": img_id,
             "orig_size": np.asarray([h, w], np.int32),
         }
+
+    def get_with_rng(self, idx: int, rng: random.Random) -> dict:
+        """The sample, augmented with the caller's ``rng`` (the train loader
+        derives it from the seed, the epoch and the index)."""
+        sample = self.get_raw(idx)
+        if self.transforms is not None:
+            sample = self.transforms(sample, rng)
+        return sample
+
+    def __getitem__(self, idx: int) -> dict:
+        return self.get_with_rng(idx, random.Random(random.getrandbits(64)))
+
+
+class _PlainDataset:
+    """The dataset without transforms (what mix transforms draw from)."""
+
+    def __init__(self, ds: CocoDetection):
+        self._ds = ds
+
+    def __len__(self):
+        return len(self._ds)
+
+    def __getitem__(self, idx):
+        return self._ds.get_raw(idx)
+
+
+class Object365Detection(CocoDetection):
+    """Objects365: the file name's last two components under images/train or
+    images/val, and a corrupt image skipped for the next one (up to 16)."""
+
+    def _image_file_name(self, info: dict) -> str:
+        parts = info["file_name"].replace("\\", "/").split("/")
+        name = "/".join(parts[-2:]) if len(parts) >= 2 else parts[-1]
+        split = "images/train" if self.train else "images/val"
+        return os.path.join(split, name)
+
+    def __getitem__(self, idx: int) -> dict:
+        for attempt in range(16):
+            try:
+                return super().__getitem__((idx + attempt) % len(self))
+            except Exception:
+                continue
+        raise RuntimeError(f"could not load any image near index {idx}")
+
+    def get_with_rng(self, idx: int, rng: random.Random) -> dict:
+        for attempt in range(16):
+            try:
+                return super().get_with_rng((idx + attempt) % len(self), rng)
+            except Exception:
+                continue
+        raise RuntimeError(f"could not load any image near index {idx}")

@@ -1,6 +1,8 @@
 """Optimizer of the port (port of salience_detr_tpu/engine/optim.py): AdamW
-with the reference's six parameter groups, the warmup + multi-step schedule,
-and global-norm gradient clipping over the trainable parameters.
+with the reference's parameter groupings (``PARAM_GROUPINGS``: the default
+six groups, ``finetune_backbone_param`` and
+``finetune_backbone_with_no_norm_weight_decay``), the warmup + multi-step
+schedule, and global-norm gradient clipping over the trainable parameters.
 
 The JAX chain is freeze -> clip the global norm -> Adam (eps 1e-8) ->
 decoupled weight decay -> lr multiplier -> schedule.  Frozen parameters have
@@ -57,14 +59,51 @@ def param_group_of(name: str, in_layer_norm: bool) -> str:
     return "other_norm" if is_norm_bias else "other"
 
 
-def named_param_groups(model: nn.Module) -> Dict[str, str]:
+NORM_MODULES = (nn.LayerNorm, nn.GroupNorm, nn.modules.batchnorm._BatchNorm)
+
+
+def backbone_group_of(name: str, module: nn.Module) -> str:
+    """finetune_backbone_param: the backbone at 0.1x lr, everything else at
+    1x, weight decay everywhere."""
+    return "backbone" if name.split(".")[0] == "backbone" else "other"
+
+
+def no_norm_wd_group_of(name: str, module: nn.Module) -> str:
+    """finetune_backbone_with_no_norm_weight_decay: a normalization module's
+    parameters (weight and bias; not the biases of other modules) without
+    weight decay, the backbone at 0.1x lr."""
+    prefix = "backbone" if name.split(".")[0] == "backbone" else "other"
+    return f"{prefix}_norm" if isinstance(module, NORM_MODULES) else prefix
+
+
+# grouping name -> (classifier of (parameter name, its module), lr
+# multipliers, weight decay applies); a train config selects one by
+# ``param_dicts``
+PARAM_GROUPINGS = {
+    "finetune_backbone_and_linear_projection": (
+        lambda name, module: param_group_of(name, isinstance(module, nn.LayerNorm)), LR_MULT, WD_APPLIES,
+    ),
+    "finetune_backbone_param": (
+        backbone_group_of, {"other": 1.0, "backbone": 0.1}, {"other": True, "backbone": True},
+    ),
+    "finetune_backbone_with_no_norm_weight_decay": (
+        no_norm_wd_group_of,
+        {"other": 1.0, "other_norm": 1.0, "backbone": 0.1, "backbone_norm": 0.1},
+        {"other": True, "backbone": True, "other_norm": False, "backbone_norm": False},
+    ),
+}
+
+
+def named_param_groups(model: nn.Module,
+                       grouping: str = "finetune_backbone_and_linear_projection") -> Dict[str, str]:
     """{parameter name: group} for every trainable parameter."""
+    classify = PARAM_GROUPINGS[grouping][0]
     groups = {}
     for mod_name, module in model.named_modules():
         for p_name, param in module.named_parameters(recurse=False):
             if param.requires_grad:
                 name = f"{mod_name}.{p_name}" if mod_name else p_name
-                groups[name] = param_group_of(name, isinstance(module, nn.LayerNorm))
+                groups[name] = classify(name, module)
     return groups
 
 
@@ -96,13 +135,17 @@ def build_optimizer(
     base_lr: float = 1e-4,
     weight_decay: float = 1e-4,
     betas: Tuple[float, float] = (0.9, 0.999),
+    grouping: str = "finetune_backbone_and_linear_projection",
 ) -> torch.optim.AdamW:
     """AdamW over the trainable parameters, one group per (lr multiplier,
-    weight decay); each group carries its ``lr_mult``."""
+    weight decay) of the ``grouping``; each group carries its ``lr_mult``."""
+    if grouping not in PARAM_GROUPINGS:
+        raise ValueError(f"unknown param_dicts {grouping!r}; one of {sorted(PARAM_GROUPINGS)}")
+    _, lr_mult, wd_applies = PARAM_GROUPINGS[grouping]
     params = dict(model.named_parameters())
     buckets: Dict[Tuple[float, float], list] = {}
-    for name, group in named_param_groups(model).items():
-        key = (LR_MULT[group], weight_decay if WD_APPLIES[group] else 0.0)
+    for name, group in named_param_groups(model, grouping).items():
+        key = (lr_mult[group], weight_decay if wd_applies[group] else 0.0)
         buckets.setdefault(key, []).append(params[name])
     groups = [
         {"params": ps, "lr": base_lr * mult, "lr_mult": mult, "weight_decay": wd}

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from salience_detr_torch.data.coco import load_image
+from salience_detr_torch.data.transforms import resize_linear_u8
 from salience_detr_torch.models.detectors.salience_detr import normalize_images
 from salience_detr_torch.models.factory import SalienceDETRConfig, build_salience_detr
 from salience_detr_torch.parallel.train_step import make_eval_step
@@ -59,33 +60,6 @@ def canvas_for(h: int, w: int, cfg: SalienceDETRConfig) -> Tuple[int, int]:
 def resized_size(h: int, w: int, cfg: SalienceDETRConfig) -> Tuple[int, int]:
     r = min(cfg.min_size / min(h, w), cfg.max_size / max(h, w))
     return int(h * r), int(w * r)
-
-
-def _linear_taps(n_in: int, n_out: int):
-    """Source indices and 11-bit fixed-point weights of OpenCV's INTER_LINEAR
-    resampling of ``n_in`` samples to ``n_out``: out = w0 * in[i0] + w1 * in[i1]."""
-    f = ((np.arange(n_out) + 0.5) * (1.0 / (n_out / n_in)) - 0.5).astype(np.float32)
-    i0 = np.floor(f)
-    f -= i0
-    i0 = i0.astype(np.int64)
-    f[(i0 < 0) | (i0 >= n_in - 1)] = 0  # edges repeat the border sample
-    i0 = np.clip(i0, 0, n_in - 1)
-    w0 = np.rint((1 - f) * 2048).astype(np.int32)
-    w1 = np.rint(f * 2048).astype(np.int32)
-    return i0, np.minimum(i0 + 1, n_in - 1), w0, w1
-
-
-def resize_linear_u8(img: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
-    """(h, w, 3) uint8 -> (nh, nw, 3) uint8 in the integer arithmetic of
-    ``cv2.resize(..., INTER_LINEAR)`` on uint8, the resize of the JAX package's
-    eval loader: an exact horizontal pass, then the vertical pass as OpenCV's
-    vectorised path computes it (16-bit high products, rounding shift)."""
-    x0, x1, a0, a1 = (torch.from_numpy(t).to(img.device) for t in _linear_taps(img.shape[1], nw))
-    y0, y1, b0, b1 = (torch.from_numpy(t).to(img.device) for t in _linear_taps(img.shape[0], nh))
-    px = img.to(torch.int32)
-    rows = (a0[:, None] * px[:, x0] + a1[:, None] * px[:, x1]) >> 4
-    out = ((b0[:, None, None] * rows[y0]) >> 16) + ((b1[:, None, None] * rows[y1]) >> 16)
-    return ((out + 2) >> 2).clamp_(0, 255).to(torch.uint8)
 
 
 def letterbox(images: Sequence, cfg: SalienceDETRConfig, device):

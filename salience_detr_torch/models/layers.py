@@ -31,13 +31,34 @@ class FrozenBatchNorm2d(nn.Module):
         return x * w[:, None, None].to(x.dtype) + b[:, None, None].to(x.dtype)
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose backward hands on its gradient in the standard
+    (contiguous NCHW) layout.
+
+    At one image the gradient that reaches the neck's maps is a slice of a
+    (1, S, C) token gradient: channels-last strides with a batch stride of C
+    where the standard one is H*W*C.  PyTorch's CPU ``batch_norm`` backward
+    reads such a gradient wrongly (torch 2.13; ``tools/bn_grad_layout_probe.py``
+    shows it), so the neck's BatchNorm hands it a contiguous copy.  A
+    gradient that is contiguous already passes through as it is."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train mode follows flax's ``nn.BatchNorm``:
     normalise with the batch mean and biased variance (f32 statistics), and
     update the running statistics as ``r = 0.9 r + 0.1 batch`` (flax momentum
     0.9, torch momentum 0.1) with the BIASED batch variance, where
     ``nn.BatchNorm2d`` would use the unbiased one (n / (n - 1) larger).
-    Eval mode is ``nn.BatchNorm2d``'s."""
+    In train mode the gradient reaches ``batch_norm``'s backward contiguous
+    (see ``_ContiguousGrad``).  Eval mode is ``nn.BatchNorm2d``'s."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -46,7 +67,8 @@ class BatchNorm2d(nn.BatchNorm2d):
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        return _ContiguousGrad.apply(y)
 
 
 class ConvNormAct(nn.Sequential):

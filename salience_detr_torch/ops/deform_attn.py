@@ -286,9 +286,12 @@ def ms_deform_attn(
     channels split into 32 lanes of 1, 2 or 8 channels each lying in one
     head (C in {32, 64, 256}); locations and weights are cast to float32
     for the kernels, since autocast does not reach a kernel call, and their
-    gradients come back in their own dtypes.
+    gradients come back in their own dtypes.  A float16 value (fp16
+    autocast) is sampled in float32 and the result cast back to float16.
     """
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    if value.dtype == torch.float16:
+        return _MSDeformAttn.apply(value.float(), locations, weights, shapes).to(torch.float16)
     return _MSDeformAttn.apply(value, locations, weights, shapes)
 
 

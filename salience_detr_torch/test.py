@@ -21,6 +21,7 @@ RGB arrays are read with numpy everywhere (``data/coco.py``).
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 from typing import Dict, Optional
 
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from salience_detr_torch.data.coco import CocoDetection, CocoIndex
-from salience_detr_torch.data.loader import DetectionLoader, DevicePrefetcher
+from salience_detr_torch.data.loader import DetectionLoader, DevicePrefetcher, to_device
 from salience_detr_torch.engine.train import evaluate
 from salience_detr_torch.inference import DEFAULT_CONFIG, load_config
 from salience_detr_torch.models.factory import build_salience_detr, exact_sampling
@@ -116,7 +117,7 @@ def main(argv=None) -> Optional[Dict[str, float]]:
 
     evaluator = CocoEvaluator(dataset.coco)
     logger.info(f"COCO box matching route: {evaluator.route}")
-    loader = DevicePrefetcher(DetectionLoader(dataset, args.batch_size), cfg, device)
+    loader = DevicePrefetcher(DetectionLoader(dataset, args.batch_size), functools.partial(to_device, cfg=cfg), device)
     stats = evaluate(make_eval_step(model, postprocess, cfg.dtype), loader, evaluator, logger=logger)
     if args.save_results:
         n = save_results(evaluator, args.save_results)

@@ -10,6 +10,7 @@ JAX variables through those rules therefore gives a state dict that
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -45,3 +46,47 @@ def state_dict_from_jax(variables_numpy: Dict, cfg: SalienceDETRConfig) -> Dict[
     return {
         k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in state.items()
     }
+
+
+def _load_tolerant(model: torch.nn.Module, updates: Dict[str, torch.Tensor], what: str, logger=None) -> int:
+    """Merge ``updates`` into the model's state dict by name and shape (see
+    ``utils.checkpoint.tolerant_update``); raises when no tensor applies."""
+    from salience_detr_torch.utils.checkpoint import tolerant_update
+
+    merged, applied, mismatches = tolerant_update(model.state_dict(), updates, logger)
+    if applied == 0:
+        raise ValueError(f"{what} applied 0 tensors (of {len(updates)}; e.g. {mismatches[:3]}): wrong model?")
+    model.load_state_dict(merged, strict=True)
+    if logger:
+        logger.info(f"{what}: applied {applied} tensors, skipped {len(mismatches)}")
+    return applied
+
+
+def load_backbone_weights(model: torch.nn.Module, path: str, logger=None) -> int:
+    """An ImageNet ``.pth`` of the backbone (torchvision's bare names, an
+    optional DataParallel ``module.`` prefix) into ``backbone.*``; returns
+    the number of tensors applied."""
+    from salience_detr_torch.utils.checkpoint import load_torch_weights
+
+    state = {
+        "backbone." + (k[len("module."):] if k.startswith("module.") else k): v
+        for k, v in load_torch_weights(path).items()
+    }
+    return _load_tolerant(model, state, f"pretrained backbone {path}", logger)
+
+
+def load_finetune_weights(model: torch.nn.Module, source: str, logger=None) -> int:
+    """A whole detector's weights for fine-tuning: an upstream ``.pth`` or a
+    port checkpoint file, or a checkpoint directory (its newest checkpoint).
+    Tensors whose shape differs (a head with another class count) are skipped
+    and logged; returns the number applied."""
+    from salience_detr_torch.utils.checkpoint import CheckpointManager, load_torch_weights
+
+    if str(source).endswith(".pth"):
+        state = load_torch_weights(source)
+    else:
+        restored = CheckpointManager(source).restore_weights() if os.path.isdir(source) else None
+        if restored is None:
+            raise ValueError(f"finetune_weights: no checkpoint under {source}")
+        state = restored["model"]
+    return _load_tolerant(model, state, f"finetune weights {source}", logger)

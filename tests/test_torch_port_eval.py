@@ -20,6 +20,7 @@
   lane both orientations.
 """
 
+import functools
 import json
 from pathlib import Path
 
@@ -280,7 +281,7 @@ def test_prefetcher_yields_device_batches_and_raises_loader_errors(tmp_path):
     img_dir, ann = write_split(tmp_path, SIZES)
     cfg = SalienceDETRConfig(**TINY_TORCH)
     loader = DetectionLoader(CocoDetection(str(img_dir), str(ann)), 2)
-    got = list(DevicePrefetcher(loader, cfg, "cpu"))
+    got = list(DevicePrefetcher(loader, functools.partial(to_device, cfg=cfg), "cpu"))
     want = [to_device(b, cfg, torch.device("cpu")) for b in loader]
     assert len(got) == len(want) == 3
     for g, w in zip(got, want):
@@ -294,7 +295,7 @@ def test_prefetcher_yields_device_batches_and_raises_loader_errors(tmp_path):
 
     seen = []
     with pytest.raises(ValueError, match="broken image"):
-        for batch in DevicePrefetcher(failing(), cfg, "cpu"):
+        for batch in DevicePrefetcher(failing(), functools.partial(to_device, cfg=cfg), "cpu"):
             seen.append(batch)
     assert len(seen) == 1
 
@@ -313,7 +314,7 @@ def port_run(model, cfg, img_dir, ann, post):
             recorded[int(img_id)] = {k: v[i].numpy() for k, v in dets.items()}
         return dets
 
-    loader = DevicePrefetcher(DetectionLoader(dataset, 2), cfg, "cpu")
+    loader = DevicePrefetcher(DetectionLoader(dataset, 2), functools.partial(to_device, cfg=cfg), "cpu")
     return evaluate(recording, loader, coco_eval.CocoEvaluator(dataset.coco)), recorded
 
 

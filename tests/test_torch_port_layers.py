@@ -1,6 +1,8 @@
 """Port layers vs the JAX package: a ResNet Bottleneck with FrozenBN, the
-salience encoder layer in the flagship's head-shared mode (G=1) and the
-decoder layer in its exact per-head mode (G=H).  Weights go through the
+salience encoder layer in the flagship's head-shared mode (G=1), the
+decoder layer in its exact per-head mode (G=H), and the neck's training
+conv + BatchNorm at one image, its output gradient laid out as the token
+slices give it.  Weights go through the
 weight converter's rules; float32, rtol 1e-3 / atol 1e-5 (the block
 tolerance of tests/test_torch_parity.py)."""
 
@@ -15,7 +17,9 @@ from salience_detr_tpu.models.bricks.salience_transformer import (
     SalienceDecoderLayer as JaxDecoderLayer,
     SalienceEncoderLayer as JaxEncoderLayer,
 )
+from salience_detr_tpu.models.necks.repnet import ConvBNAct as JaxConvBNAct
 from salience_detr_tpu.utils.weight_converter import (
+    _conv_bn_act,
     _resnet_rules,
     flat_to_nested,
     flatten_variables,
@@ -26,6 +30,7 @@ from salience_detr_torch.models.bricks.salience_transformer import (
     SalienceDecoderLayer,
     SalienceEncoderLayer,
 )
+from salience_detr_torch.models.necks.repnet import ConvBNAct
 from tests.torch_port_common import export_subtree, sane_random, t
 
 RTOL, ATOL = 1e-3, 1e-5
@@ -65,6 +70,43 @@ def test_bottleneck_frozen_bn():
     with torch.no_grad():
         got = tmod(t(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "token_slice"])
+def test_neck_conv_bn_gradient_at_one_image(layout):
+    """At one image the gradient reaching a neck map is a slice of a
+    (1, S, C) token gradient (channels-last strides, batch stride C);
+    ``batch_norm``'s CPU backward misreads that layout, so the port's
+    BatchNorm makes it contiguous.  Input and weight gradients equal flax's."""
+    h, w, skip = 3, 4, 5
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(1, h, w, 16)).astype(np.float32) * 2 + 0.5
+    gy = rng.normal(size=(1, h, w, C)).astype(np.float32)
+    jmod = JaxConvBNAct(C, 3)
+    variables = random_tree(jmod, jnp.asarray(x), seed=4)
+
+    def f(params, xx):
+        y, _ = jmod.apply({"params": params, "batch_stats": variables["batch_stats"]}, xx, train=True,
+                          mutable=["batch_stats"])
+        return (y * gy).sum()
+
+    want_p, want_x = jax.grad(f, argnums=(0, 1))(variables["params"], jnp.asarray(x))
+    tmod = ConvBNAct(16, C, 3)
+    tmod.load_state_dict(export_subtree(nest(variables, "m"), _conv_bn_act("m", "m"), "m."), strict=False)
+    tmod.train()
+    xt = t(x).permute(0, 3, 1, 2).contiguous().requires_grad_()
+    y = tmod(xt)
+    g = t(gy).permute(0, 3, 1, 2).contiguous()
+    if layout == "token_slice":
+        tokens = torch.zeros(1, skip + h * w, C)
+        tokens[0, skip:] = t(gy).reshape(h * w, C)
+        g = tokens[:, skip:].transpose(1, 2).reshape(1, C, h, w)
+        assert g.stride() == (C, 1, w * C, C) and torch.equal(g, t(gy).permute(0, 3, 1, 2))
+    y.backward(g)
+    np.testing.assert_allclose(xt.grad.permute(0, 2, 3, 1).numpy(), np.asarray(want_x), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(tmod[0].weight.grad.numpy().transpose(2, 3, 1, 0),
+                               np.asarray(want_p["conv"]["kernel"]), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(tmod[1].bias.grad.numpy(), np.asarray(want_p["bn"]["bias"]), rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

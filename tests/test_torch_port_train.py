@@ -547,9 +547,10 @@ def test_tiny_configs_agree_on_train_fields():
 
 
 def tiny_trainer(steps):
-    from salience_detr_torch.train import Trainer, load_train_config
+    from salience_detr_torch.train import TRAIN_CONFIG, Trainer
+    from salience_detr_torch.utils.config import Config
 
-    tc = dict(load_train_config(), max_gt=6, train_canvas=CANVAS, print_freq=1)
+    tc = Config(str(TRAIN_CONFIG), max_gt=6, train_canvas=CANVAS, print_freq=1).to_dict()
     return Trainer(tiny_configs()[1], "cpu", seed=1, steps_per_epoch=steps, train_cfg=tc)
 
 

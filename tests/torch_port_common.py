@@ -8,6 +8,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from salience_detr_tpu.models.bricks.criterion import Targets
@@ -100,3 +101,51 @@ def build_jax_tiny():
     jcfg, tcfg = tiny_configs()
     model, *_ = build_jax(jcfg)
     return jcfg, tcfg, model
+
+
+def write_coco_split(root, sizes, seed=0, max_boxes=6, crowd_every=0, fmt="png", num_classes=3, counts=None):
+    """A COCO-format split of random uint8 images of ``sizes`` (PNG through
+    cv2, lossless, or ``.npy``) with ``counts[i]`` (by default 0..max_boxes)
+    random boxes per image (every ``crowd_every``-th a crowd box when
+    nonzero), categories 1..num_classes; returns (image dir, annotation
+    path)."""
+    import json
+    from pathlib import Path
+
+    rng = np.random.default_rng(seed)
+    img_dir = Path(root) / "images"
+    img_dir.mkdir(parents=True, exist_ok=True)
+    images, anns = [], []
+    for i, (h, w) in enumerate(sizes):
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        name = f"{i:03d}.{fmt}"
+        if fmt == "npy":
+            np.save(img_dir / name, img)
+        else:
+            import cv2
+
+            assert cv2.imwrite(str(img_dir / name), np.ascontiguousarray(img[:, :, ::-1]))
+        images.append({"id": i + 1, "file_name": name, "height": h, "width": w})
+        for _ in range(int(rng.integers(0, max_boxes + 1)) if counts is None else counts[i]):
+            bw, bh = rng.uniform(0.05, 0.6) * w, rng.uniform(0.05, 0.6) * h
+            x, y = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            crowd = int(bool(crowd_every) and (len(anns) + 1) % crowd_every == 0)
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "category_id": int(rng.integers(1, num_classes + 1)),
+                         "bbox": [float(x), float(y), float(bw), float(bh)], "area": float(bw * bh),
+                         "iscrowd": crowd})
+    ann = Path(root) / "annotations.json"
+    ann.write_text(json.dumps({"images": images, "annotations": anns,
+                               "categories": [{"id": c, "name": f"c{c}"} for c in range(1, num_classes + 1)]}))
+    return img_dir, ann
+
+
+@pytest.fixture(scope="module", autouse=True)
+def two_torch_threads():
+    """Two intra-op threads for a module that imports this fixture: the lane
+    runs 6 test processes on 8 cores, where torch's default of one thread a
+    core oversubscribes the CPU many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
