@@ -127,9 +127,39 @@ non-zero exit and no result line:
 22. serve_q8: the flagship served with MSDA_GATHER_QUANT=int8 (the JAX
    package's switch): per forward 6 quantise, 6 int8 sample, 6 MSDA (the
    decoder) and 1 grid-NMS launch; identical reruns; the timed batch with
-   the switch on and off in turns, and the gap between their detections.
+   the switch on and off in turns, and the gap between their detections;
+23. nms_past_budget (after phase 16, msda_stages): K2 at the 5-scale levels
+   of the 800x1344 canvas (S = 89,250, the rank map in shared memory) and of
+   a 1344x1344 canvas (S = 149,940, past the shared memory: the rank map in
+   global memory), and K9 at N = 1024 (bitmask in shared memory) and 2048
+   (in global memory), exactly against their plain versions, with times;
+24. backbone_slice: phases 5 and 9 for the backbone families, small archs
+   with stochastic depth 0 registered in the port's tables: the forward
+   card-vs-CPU with a ResNeXt, ConvNeXt, Swin v1, Swin v2, FocalNet, ViT and
+   EVA-02 backbone, one train step of the Swin model, and ``DropPath`` on the
+   card (whole rows, 1 / keep, one draw per generator state);
+25. msda_backbone_shapes: K1 and K3 against their plain versions on the
+   inputs of encoder and decoder layer 0 of one train step at init of the
+   R50 5-scale config (exact G=8, S=89,250) and of Swin-L (exact G=8,
+   S=22,323), with times and bounds;
+26. serve_<cfg> for swin_l, convnext_l, focalnet_l, r50_5scale (the configs
+   under configs/salience_detr_torch/) and eva02_b (the flagship with the
+   EVA-02-B backbone, no config file): phase 6 on each (B=4, 800x1344, bf16,
+   seeded weights: 12 MSDA and 1 grid-NMS launch per forward, identical
+   reruns, the median of 3 timed forwards, peak memory);
+27. train_<cfg> for the four shipped configs: phase 10 with a warm-up and 2
+   timed steps (12 MSDA forward and backward, 1 grid-NMS and 1 assignment
+   launch a step; finite losses; every trainable backbone parameter moves,
+   or, where its gradients stay far below Adam's eps (ConvNeXt's blocks
+   under their 1e-6 layer scale at init), has a nonzero Adam first moment
+   and a step below its float32 resolution, the count printed; peak memory);
+28. eval_swin_l: salience_detr_torch.test.main on the Swin-L config with
+   --torch-checkpoint (exact mode) over phase 15's split, from a saved
+   seed-1 state dict that also holds upstream Swin's attention buffers,
+   which the loader drops by name before its strict load; 12 MSDA and 1
+   grid-NMS launch a forward, the stats finite.
 
-The line before the last is {"kernels": [...]}: per kernel its launches in
+Then the total wall time.  The line before the last is {"kernels": [...]}: per kernel its launches in
 the counted train steps (3; K4 launches once a step; K9 in the eval phase's
 first run; the DCN kernels in phase 20's steps, the int8 kernels in phase
 22's 6 forwards), its largest error, its time, its plain version's
@@ -144,6 +174,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import functools
 import json
 import math
@@ -169,8 +200,14 @@ from salience_detr_torch.models.bricks.attention import MultiScaleDeformableAtte
 from salience_detr_torch.models.bricks.criterion import Targets, compute_matching_cost
 from salience_detr_torch.models.bricks.deform_conv import DeformConv2dPack
 from salience_detr_torch.models.bricks.denoising import cdn_draws
+from salience_detr_torch.models.backbones import convnext as convnext_bb
+from salience_detr_torch.models.backbones import focalnet as focalnet_bb
+from salience_detr_torch.models.backbones import resnet as resnet_bb
+from salience_detr_torch.models.backbones import swin as swin_bb
+from salience_detr_torch.models.backbones import vit as vit_bb
 from salience_detr_torch.models.bricks.post_process import PostProcess
 from salience_detr_torch.models.factory import SalienceDETRConfig, build_salience_detr, exact_sampling
+from salience_detr_torch.models.layers import DropPath
 from salience_detr_torch.ops import msda_stages as stages
 from salience_detr_torch.ops import deform_conv as dcn_ops
 from salience_detr_torch.ops.deform_attn import (
@@ -187,7 +224,14 @@ from salience_detr_torch.ops.deform_attn import (
 )
 from salience_detr_torch.ops.boxes import box_iou_pairwise
 from salience_detr_torch.ops.hungarian import batched_assignment, batched_assignment_plain
-from salience_detr_torch.ops.nms import grid_nms_topk, grid_nms_topk_plain, nms_keep_mask, nms_keep_mask_plain
+from salience_detr_torch.ops.nms import (
+    NMS_KEEP_SHARED_MAX_BOXES,
+    grid_nms_rank_in_global,
+    grid_nms_topk,
+    grid_nms_topk_plain,
+    nms_keep_mask,
+    nms_keep_mask_plain,
+)
 from salience_detr_torch.parallel.train_step import make_eval_step
 from salience_detr_torch.timing import card_line, cuda_ms
 from salience_detr_torch.tools import msda_stages as stage_tool
@@ -304,7 +348,7 @@ def corner_counts(locs, levels):
     return in_level, nonzero, per_level
 
 
-def msda_bounds(value, locs, weights):
+def msda_bounds(value, locs, weights, levels=LEVELS):
     """Bounds of K1 and K3 on these inputs.  K1 reads value, locations and
     weights (f32, as the kernel takes them) and writes (B, Q, C) in the value
     dtype; 2 operations per channel of each nonzero-weight corner.  K3 also
@@ -313,7 +357,7 @@ def msda_bounds(value, locs, weights):
     each nonzero-weight corner's scatter."""
     B, S, C = value.shape
     Q, G = locs.shape[1:3]
-    in_level, nonzero, _ = corner_counts(locs, LEVELS)
+    in_level, nonzero, _ = corner_counts(locs, levels)
     small = 4 * (locs.numel() + weights.numel())
     out = B * Q * C * value.element_size()
     forward = bound(nbytes(value) + small + out, 2 * nonzero * (C // G))
@@ -403,11 +447,12 @@ def phase_grid_nms():
             raise AssertionError(f"grid_nms kernel differs from plain in {mismatches} entries on {name}")
 
 
-def phase_slice(name="slice", stage_with_dcn=(False,) * 4):
+def phase_slice(name="slice", stage_with_dcn=(False,) * 4, fields=None):
     """Small random-weight model, float32: card (kernels) vs CPU (plain).
     With DCN stages, their offset and mask convs get the same seeded small
-    normal weights on both devices, so the taps sample off the pixel grid."""
-    cfg = SalienceDETRConfig(**SMALL, stage_with_dcn=stage_with_dcn)
+    normal weights on both devices, so the taps sample off the pixel grid.
+    ``fields`` replace SMALL's (another backbone)."""
+    cfg = SalienceDETRConfig(**{**SMALL, **(fields or {})}, stage_with_dcn=stage_with_dcn)
     cpu = Predictor(cfg, None, "cpu", seed=3)
     gpu = Predictor(cfg, None, "cuda", seed=3)
     if any(stage_with_dcn):
@@ -425,7 +470,8 @@ def phase_slice(name="slice", stage_with_dcn=(False,) * 4):
     ok = same_proposals and all(
         torch.allclose(got[k].cpu(), want[k], rtol=1e-3, atol=1e-3) for k in errs
     )
-    print(f"{name}: tiny float32 card-vs-cpu stage_with_dcn={stage_with_dcn} same_proposals={same_proposals} "
+    print(f"{name}: tiny float32 card-vs-cpu backbone={cfg.backbone} stage_with_dcn={stage_with_dcn} "
+          f"same_proposals={same_proposals} "
           f"max_abs_err={errs} rtol=1e-3 atol=1e-3")
     if not ok:
         raise AssertionError(f"{name}: small-model forward on the card disagrees with the CPU forward")
@@ -495,6 +541,8 @@ def phase_serve(smi, name="serve", cfg=None, label="flagship R50", prepare=None,
     timed = make_requests(TIMED_BATCH, 7)
     inputs = preprocess(timed, cfg, "cuda")
     predictor.forward(*inputs)  # first forward at this canvas and batch size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(3):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -508,7 +556,8 @@ def phase_serve(smi, name="serve", cfg=None, label="flagship R50", prepare=None,
     print(f"{name}: {label} bf16, {len(batches)} batches of 4 requests in {forwards} forwards; "
           f"launches={launches}; identical_rerun={identical}; warmup_s={warmup_s:.2f}; "
           f"B=4 canvas={canvas[0]}x{canvas[1]} forward_ms={[round(x, 3) for x in times]} "
-          f"median_ms={med:.3f} img_s={4000.0 / med:.3f}; card: {smi}")
+          f"median_ms={med:.3f} img_s={4000.0 / med:.3f} peak_mem_gib="
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f}; card: {smi}")
     return launches, predictor, inputs
 
 
@@ -521,20 +570,20 @@ def compare_bwd(got, want):
     return float(err.max()), scale, bad, atol_rel, rtol
 
 
-def backward_checks(value, locs, weights, d_out, label):
+def backward_checks(value, locs, weights, d_out, label, levels=LEVELS):
     """K3 through autograd (counted) against the plain backward and against
     autograd of the plain forward.  Returns the largest error and the
     report's parts; raises on a violation."""
     inputs = [x.clone().requires_grad_() for x in (value, locs, weights)]
     before = native.LAUNCHES["msda_backward"]
-    ms_deform_attn(inputs[0], LEVELS, inputs[1], inputs[2]).backward(d_out)
+    ms_deform_attn(inputs[0], levels, inputs[1], inputs[2]).backward(d_out)
     torch.cuda.synchronize()
     if native.LAUNCHES["msda_backward"] != before + 1:
         raise AssertionError("the MSDA backward kernel did not run")
     got = [x.grad for x in inputs]
-    plain = ms_deform_attn_backward_plain(value, LEVELS, locs, weights, d_out)
+    plain = ms_deform_attn_backward_plain(value, levels, locs, weights, d_out)
     auto = [x.clone().requires_grad_() for x in (value, locs, weights)]
-    ms_deform_attn_plain(auto[0], LEVELS, auto[1], auto[2]).backward(d_out)
+    ms_deform_attn_plain(auto[0], levels, auto[1], auto[2]).backward(d_out)
     torch.cuda.synchronize()
     worst, parts = 0.0, []
     for ref_name, refs in (("plain", plain), ("autograd", [x.grad for x in auto])):
@@ -659,11 +708,12 @@ def phase_hungarian():
             raise AssertionError(f"assignment kernel differs: {mismatches} entries, cost gap {max(gaps)}")
 
 
-def small_train_step(device, counts=(3, 1), stage_with_dcn=(False,) * 4):
-    """One train step of the small model on ``device`` from seed 6; returns
-    (metrics, assignments, clipped gradients, parameters, buffers, calls of
-    the criterion's batched matching)."""
-    cfg = SalienceDETRConfig(**SMALL, denoising_nums=4, stage_with_dcn=stage_with_dcn)
+def small_train_step(device, counts=(3, 1), stage_with_dcn=(False,) * 4, fields=None):
+    """One train step of the small model (``fields`` replacing SMALL's) on
+    ``device`` from seed 6; returns (metrics, assignments, clipped
+    gradients, parameters, buffers, calls of the criterion's batched
+    matching)."""
+    cfg = SalienceDETRConfig(**{**SMALL, **(fields or {})}, denoising_nums=4, stage_with_dcn=stage_with_dcn)
     tc = Config(str(TRAIN_CONFIG), max_gt=6, train_canvas=(96, 128)).to_dict()
     trainer = Trainer(cfg, device, seed=6, steps_per_epoch=1, train_cfg=tc)
     # At init the sampling-offset weights are zero, so most sampling points
@@ -703,11 +753,11 @@ def small_train_step(device, counts=(3, 1), stage_with_dcn=(False,) * 4):
     )
 
 
-def phase_train_slice(name="train_slice", stage_with_dcn=(False,) * 4):
+def phase_train_slice(name="train_slice", stage_with_dcn=(False,) * 4, fields=None):
     """Small random-weight model, float32: a train step on the card (kernels)
     vs the same step on the CPU (plain versions)."""
-    gpu = small_train_step("cuda", stage_with_dcn=stage_with_dcn)
-    cpu = small_train_step("cpu", stage_with_dcn=stage_with_dcn)
+    gpu = small_train_step("cuda", stage_with_dcn=stage_with_dcn, fields=fields)
+    cpu = small_train_step("cpu", stage_with_dcn=stage_with_dcn, fields=fields)
     same_matches = len(gpu[1]) == len(cpu[1]) and all(torch.equal(a, b) for a, b in zip(gpu[1], cpu[1]))
     loss_err = max(abs(gpu[0][k] - v) / max(abs(v), 1e-12) for k, v in cpu[0].items())
     # gradients before the clip (the step clips in place to norm 0.1): per
@@ -722,7 +772,8 @@ def phase_train_slice(name="train_slice", stage_with_dcn=(False,) * 4):
     )
     param_err = max(float((gpu[3][n] - p).abs().max()) for n, p in cpu[3].items())
     buffer_err = max(float((gpu[4][n].float() - b.float()).abs().max()) for n, b in cpu[4].items())
-    print(f"{name}: small float32 train step card-vs-cpu stage_with_dcn={stage_with_dcn} assignments={len(gpu[1])} "
+    print(f"{name}: small float32 train step card-vs-cpu backbone={(fields or SMALL)['backbone']} "
+          f"stage_with_dcn={stage_with_dcn} assignments={len(gpu[1])} "
           f"in {gpu[5]} batched matching call(s) "
           f"same_assignments={same_matches} max_loss_rel_err={loss_err:.3e} (rtol 1e-4) "
           f"grad_err/bound={grad_ratio:.3e} at {worst_grad} (bound 1e-3*max|g|+1e-6) "
@@ -733,20 +784,37 @@ def phase_train_slice(name="train_slice", stage_with_dcn=(False,) * 4):
         raise AssertionError(f"{name}: the small train step on the card disagrees with the CPU step")
 
 
+def adam_step_below_resolution(optimizer, p):
+    """Whether ``p`` had a nonzero gradient (Adam's first moment) and its
+    last AdamW step, lr * m_hat / (sqrt(v_hat) + eps) plus the decoupled
+    decay, is below half the float32 spacing of its value everywhere, so
+    that leaving it unchanged is right."""
+    st = optimizer.state[p]
+    group = next(g for g in optimizer.param_groups if any(q is p for q in g["params"]))
+    t, (b1, b2) = float(st["step"]), group["betas"]
+    m_hat, v_hat = st["exp_avg"] / (1 - b1 ** t), st["exp_avg_sq"] / (1 - b2 ** t)
+    value = p.detach().abs()
+    step = group["lr"] * (m_hat.abs() / (v_hat.sqrt() + group["eps"]) + group["weight_decay"] * value)
+    spacing = torch.nextafter(value, torch.full_like(value, math.inf)) - value
+    return bool(st["exp_avg"].abs().max() > 0) and bool((step < spacing / 2).all())
+
+
 def phase_train(smi, name="train", cfg=None, label="flagship R50", prepare=None, per_step_extra=None,
-                must_move=()):
-    """``cfg`` (the flagship by default) through ``Trainer``; ``prepare``
-    edits the model before the run; every trainable parameter whose name
-    contains one of ``must_move`` has to move."""
+                must_move=(), timed=3, counts=GT_COUNTS, sub_ulp_ok=False):
+    """``cfg`` (the flagship by default) through ``Trainer``: a warm-up step,
+    then ``timed`` counted steps on batches with ``counts`` valid gts per
+    image; ``prepare`` edits the model before the run; every trainable
+    parameter whose name contains one of ``must_move`` has to move (with
+    ``sub_ulp_ok``, or have a nonzero Adam first moment, its steps below the
+    float32 resolution of its value)."""
     cfg = cfg or load_config(DEFAULT_CONFIG)
     # the criterion matches all 7 sets (6 decoder layers, the encoder) in one launch
     per_step = {k: 0 for k in native.LAUNCHES}
     per_step.update(msda=12, msda_backward=12, grid_nms=1, hungarian=1, **(per_step_extra or {}))
-    timed = 3
     trainer = Trainer(cfg, "cuda", seed=0, steps_per_epoch=1 + timed)
     if prepare is not None:
         prepare(trainer.model)
-    batches = list(trainer.batches(1 + timed, seed=0, counts=GT_COUNTS))
+    batches = list(trainer.batches(1 + timed, seed=0, counts=counts))
     before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
     t0 = time.perf_counter()
     train_one_epoch(trainer.step, batches[:1], trainer.generator, 0, trainer.print_freq)
@@ -787,32 +855,44 @@ def phase_train(smi, name="train", cfg=None, label="flagship R50", prepare=None,
                 raise AssertionError(f"trainable parameter {n} with a gradient did not change")
         moved += not same
     named = [(n, p) for n, p in trainer.model.named_parameters() if any(m in n for m in must_move)]
-    stuck = [n for n, p in named if p.requires_grad and torch.equal(p.detach(), before[n])]
+    unmoved = [(n, p) for n, p in named if p.requires_grad and torch.equal(p.detach(), before[n])]
+    # A parameter whose gradients stay far below Adam's eps takes steps below
+    # the float32 resolution of its value and keeps it: at init ConvNeXt's
+    # layer scale (1e-6) shrinks its blocks' gradients so, and LayerNorm
+    # scales at 1.0 do not change in the warm-up's small steps.  With
+    # ``sub_ulp_ok`` such a parameter passes when its last step is shown to
+    # be below that resolution (``adam_step_below_resolution``).
+    stuck = [n for n, p in unmoved if not (sub_ulp_ok and adam_step_below_resolution(trainer.optimizer, p))]
     if stuck:
         raise AssertionError(f"{name}: parameters {stuck[:4]} did not move")
+    sub_ulp = max((float(trainer.optimizer.state[p]["exp_avg"].abs().max()) for _, p in unmoved), default=0.0)
     trainable = sum(p.requires_grad for p in trainer.model.parameters())
     top_grad = max((float(p.grad.norm()), n) for n, p in trainer.model.named_parameters()
                    if p.grad is not None)[1]
     med = statistics.median(times)
-    print(f"{name}: {label} bf16 B=4 canvas={tuple(batches[0]['images'].shape[-2:])} "
-          f"gts={GT_COUNTS} max_gt={trainer.max_gt}; warmup_s={warmup_s:.2f}; "
+    B = len(counts)
+    print(f"{name}: {label} bf16 B={B} canvas={tuple(batches[0]['images'].shape[-2:])} "
+          f"gts={counts} max_gt={trainer.max_gt}; warmup_s={warmup_s:.2f}; "
           f"launches over {timed} steps={launches}; loss={host['loss']:.4f} "
           f"grad_norm={host['grad_norm']:.4f} (largest in {top_grad}) all {len(host)} metrics finite; "
           f"trainable moved {moved}/{trainable} (all {nonzero} with a clipped gradient above 1e-6), "
-          f"frozen unchanged {still}; {len(named)} parameters named {list(must_move)} all moved; step_ms={[round(x, 3) for x in times]} median_ms={med:.3f} "
-          f"img_s={4000.0 / med:.3f} peak_mem_gib={peak_gib:.3f}; card: {smi}")
+          f"frozen unchanged {still}; {len(named)} parameters named {list(must_move)}: moved "
+          f"{len(named) - len(unmoved)}, {len(unmoved)} with a nonzero gradient and AdamW steps below half "
+          f"their float32 spacing (largest Adam first moment {sub_ulp:.3e}); step_ms={[round(x, 3) for x in times]} median_ms={med:.3f} "
+          f"img_s={1000.0 * B / med:.3f} peak_mem_gib={peak_gib:.3f}; card: {smi}")
     return launches
 
 
-def capture_train_inputs():
-    """What one flagship train step at init, as the train phase builds it
-    (``Trainer``, B=4, 800x1344, bf16 autocast), gives its kernels: value,
+def capture_train_inputs(cfg=None, levels=LEVELS):
+    """What one train step at init of ``cfg`` (the flagship by default), as
+    the train phase builds it (``Trainer``, B=4, 800x1344, bf16 autocast),
+    gives its kernels: value,
     locations, weights and d_out of the first encoder layer (G=1, Q=11403)
     and the first decoder layer (G=8, Q=1100), recorded by a wrapper around
     the MSDA modules' call of ``ms_deform_attn``; and the stacked (7 * B,
     900, 100) costs and valid mask that the criterion hands to
     ``batched_assignment``."""
-    cfg = load_config(DEFAULT_CONFIG)
+    cfg = cfg or load_config(DEFAULT_CONFIG)
     trainer = Trainer(cfg, "cuda", seed=0, steps_per_epoch=1)
     batch = next(trainer.batches(1, seed=0, counts=GT_COUNTS))
     calls, real = [], attention.ms_deform_attn
@@ -842,7 +922,7 @@ def capture_train_inputs():
         raise AssertionError(f"{len(calls)} MSDA calls in one train step")
     captured = {"encoder": calls[0], "decoder": calls[cfg.num_encoder_layers]}
     for name, c in captured.items():
-        if c["levels"] != LEVELS or "d_out" not in c:
+        if c["levels"] != levels or "d_out" not in c:
             raise AssertionError(f"captured {name} layer: levels {c['levels']}, keys {sorted(c)}")
     sets = cfg.num_decoder_layers + 1
     if len(assignments) != 1 or tuple(assignments[0][0].shape) != (sets * 4, cfg.num_queries, trainer.max_gt):
@@ -2337,6 +2417,231 @@ def phase_serve_q8(smi):
     return launches
 
 
+# slice 10: the backbone families.  Small archs registered in the port's
+# tables for the card-vs-CPU slices (stochastic depth 0, so that the two
+# devices run the same function), and the configs served and trained at
+# full width and depth
+SMALL_ARCHS = {
+    (resnet_bb, "resnext_smoke"): dict(block="bottleneck", layers=(1, 1, 1, 1), width=4, groups=8),
+    (convnext_bb, "conv_smoke"): dict(depths=(1, 1, 2, 1), dims=(32, 64, 96, 128), sd=0.0),
+    (swin_bb, "swin_smoke"): dict(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(2, 2, 4, 4), window=7, sd=0.0),
+    (swin_bb, "swin_v2_smoke"): dict(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(2, 2, 4, 4), window=7,
+                                     sd=0.0, v2=True),
+    (focalnet_bb, "focalnet_smoke"): dict(embed_dim=32, depths=(1, 1, 2, 1), focal_levels=(3,) * 4,
+                                          focal_windows=(3,) * 4, conv_embed=True, postln=True, layerscale=True,
+                                          norm_mod=True, sd=0.0),
+    (vit_bb, "vit_smoke"): dict(embed_dim=64, depth=2, num_heads=2, window=4, global_idx=(1,), pos_grid=14),
+    (vit_bb, "eva_02_smoke"): dict(embed_dim=64, depth=2, num_heads=2, mlp_dim=96, window=4, window_idx=(0,),
+                                   rope=True, swiglu=True, drop_path=0.0, pos_grid=14),
+}
+CONFIG_DIR = Path(__file__).resolve().parent / "configs" / "salience_detr_torch"
+BACKBONE_CONFIGS = {
+    "swin_l": ("salience_detr_swin_l_800_1333.py", "Swin-L"),
+    "convnext_l": ("salience_detr_convnext_l_800_1333.py", "ConvNeXt-L"),
+    "focalnet_l": ("salience_detr_focalnet_large_lrf_800_1333.py", "FocalNet-L (lrf, 4 focal levels)"),
+    "r50_5scale": ("salience_detr_resnet50_5scale_800_1333.py", "R50 5-scale (strides 4-32, S=89250)"),
+}
+EVA02_BACKBONE = "eva_02_vit_b_4attn_1024"
+# the 5-scale levels of the 800x1344 canvas (S = 89,250, the rank map fits K2's
+# shared memory) and of a 1344x1344 canvas (S = 149,940, it does not)
+FIVE_SCALE_LEVELS = [(200, 336), (100, 168), (50, 84), (25, 42)]
+FIVE_SCALE_SQUARE = [(336, 336), (168, 168), (84, 84), (42, 42)]
+
+
+def backbone_config(name):
+    if name == "eva02_b":  # no shipped config: the flagship with the EVA-02-B backbone
+        return dataclasses.replace(load_config(DEFAULT_CONFIG), backbone=EVA02_BACKBONE), "EVA-02-B (flagship)"
+    path, label = BACKBONE_CONFIGS[name]
+    return load_config(CONFIG_DIR / path), label
+
+
+def phase_msda_backbone_shapes(smi):
+    """K1 and K3 at the shapes this slice's configs give them: the inputs of
+    encoder layer 0 (exact per-head sampling, G=8) and decoder layer 0 (G=8,
+    Q=1100) of one train step at init, of the R50 5-scale config (strides
+    4-32, S=89,250) and of the Swin-L config (strides 8-64, S=22,323):
+    against the plain versions at the tolerances of phases 3 and 7, with
+    times and bounds."""
+    t0 = time.perf_counter()
+    out = {}
+    for name, levels in (("r50_5scale", FIVE_SCALE_LEVELS), ("swin_l", LEVELS)):
+        cfg, label = backbone_config(name)
+        captured = capture_train_inputs(cfg, levels)
+        del captured["assignment"]
+        S = sum(h * w for h, w in levels)
+        for layer in ("encoder", "decoder"):
+            c = captured[layer]
+            value, locs, weights, d_out = c["value"], c["locations"], c["weights"], c["d_out"]
+            G, Q, dtype = locs.shape[2], locs.shape[1], value.dtype
+            if G != cfg.num_heads:
+                raise AssertionError(f"{name} {layer}: G={G}, the config samples per head")
+            got, want = ms_deform_attn(value, levels, locs, weights), ms_deform_attn_plain(value, levels, locs, weights)
+            torch.cuda.synchronize()
+            max_abs, _, bad, atol, rtol = compare(got, want, dtype)
+            if bad:
+                raise AssertionError(f"msda kernel disagrees with plain on {name} {layer}: {bad} elements")
+            bwd_err, _ = backward_checks(value, locs, weights, d_out, f"{name} {layer}", levels)
+            fwd_ms = cuda_ms(lambda: ms_deform_attn(value, levels, locs, weights), 20)
+            fwd_plain = cuda_ms(lambda: ms_deform_attn_plain(value, levels, locs, weights), 3)
+            bwd_ms = cuda_ms(lambda: _backward_cuda(value, levels, locs, weights, d_out), 10)
+            bwd_plain = cuda_ms(lambda: ms_deform_attn_backward_plain(value, levels, locs, weights, d_out), 2)
+            (fb, fby), (bb, bby) = msda_bounds(value, locs, weights, levels)
+            out[f"{name} {layer}"] = (fwd_ms, bwd_ms)
+            print(f"msda_backbone_shapes: {label} {layer} layer 0 of a train step at init, G={G} "
+                  f"B={locs.shape[0]} Q={Q} S={S} value {str(dtype)[6:]}: K1 max_abs_err={max_abs:.3e} "
+                  f"(atol {atol} rtol {rtol}) kernel_ms={fwd_ms:.4f} plain_ms={fwd_plain:.4f} bound_ms={fb:.4f} "
+                  f"({fby}); K3 max_abs_err={bwd_err:.3e} kernel_ms={bwd_ms:.4f} plain_ms={bwd_plain:.4f} "
+                  f"bound_ms={bb:.4f} ({bby}); card: {smi}")
+        del captured
+        torch.cuda.empty_cache()
+    print(f"msda_backbone_shapes: phase_s={time.perf_counter() - t0:.2f}")
+    return out
+
+
+def phase_backbone_slice():
+    """Each backbone family in a small random-weight model, float32, card
+    (kernels) against CPU (plain versions): the forward as phase 5 does
+    (ResNeXt, ConvNeXt, Swin v1, Swin v2, FocalNet, ViT, EVA-02), one train
+    step of the small Swin model as phase 9 does, and ``DropPath`` on the
+    card (whole rows zeroed, the rest scaled by 1 / keep, one draw per
+    generator state)."""
+    t0 = time.perf_counter()
+    for (module, name), arch in SMALL_ARCHS.items():
+        module.ARCH_SETTINGS[name] = arch
+    for _, name in SMALL_ARCHS:
+        phase_slice(f"backbone_slice[{name}]", fields=dict(backbone=name))
+    phase_train_slice("backbone_slice[swin_smoke train step]", fields=dict(backbone="swin_smoke"))
+
+    dev = torch.device("cuda")
+    x = torch.rand(64, 32, 10, 12, device=dev) + 1.0
+    layer = DropPath(0.25).train()
+    layer.generator = torch.Generator(device=dev).manual_seed(5)
+    y = layer(x)
+    layer.generator = torch.Generator(device=dev).manual_seed(5)
+    again = layer(x)
+    ratio = (y / x).reshape(64, -1)
+    dropped = (ratio == 0).all(1)
+    scaled = ((ratio - 1 / 0.75).abs() <= 1e-6).all(1)
+    ok = bool((dropped | scaled).all()) and torch.equal(y, again) and 0 < int(dropped.sum()) < 64 and \
+        torch.equal(layer.eval()(x), x)
+    print(f"backbone_slice: DropPath(0.25) on the card: rows dropped {int(dropped.sum())}/64, the rest scaled by "
+          f"1/keep {int(scaled.sum())}/64, same draw from the same generator state {torch.equal(y, again)}, "
+          f"eval identity; phase_s={time.perf_counter() - t0:.2f}")
+    if not ok:
+        raise AssertionError("backbone_slice: DropPath on the card is not per-row stochastic depth")
+
+
+def phase_backbone_serve(smi, name):
+    """A backbone config through ``Predictor`` as phase 6: per forward 12
+    MSDA and 1 grid-NMS launch, identical reruns, timed forwards and peak
+    memory."""
+    cfg, label = backbone_config(name)
+    t0 = time.perf_counter()
+    launches, predictor, inputs = phase_serve(smi, f"serve_{name}", cfg, label)
+    del predictor, inputs
+    torch.cuda.empty_cache()
+    print(f"serve_{name}: phase_s={time.perf_counter() - t0:.2f}")
+    return launches
+
+
+def phase_backbone_train(smi, name, counts=GT_COUNTS):
+    """A shipped backbone config through ``Trainer`` as phase 10, a warm-up
+    and 2 timed steps: per step 12 MSDA forward and backward, 1 grid-NMS and
+    1 assignment launch; losses finite; every trainable backbone parameter
+    moves; peak memory."""
+    cfg, label = backbone_config(name)
+    t0 = time.perf_counter()
+    launches = phase_train(smi, f"train_{name}", cfg, label, must_move=("backbone.",), timed=2, counts=counts,
+                           sub_ulp_ok=True)
+    torch.cuda.empty_cache()
+    print(f"train_{name}: phase_s={time.perf_counter() - t0:.2f}")
+    return launches
+
+
+def phase_eval_swin(smi):
+    """The evaluation entry point (salience_detr_torch.test.main) on the
+    Swin-L config in exact mode (--torch-checkpoint) over the eval phase's
+    split: a seed-1 Swin-L state dict saved with the attention buffers an
+    upstream Swin checkpoint carries (``relative_position_index``), which
+    the loader drops by name before its strict load.  Per forward 12 MSDA and
+    1 grid-NMS launch; the 12 stats finite."""
+    t0 = time.perf_counter()
+    img_dir, ann = write_eval_split(EVAL_DIR)
+    cfg_path = CONFIG_DIR / BACKBONE_CONFIGS["swin_l"][0]
+    cfg = load_config(cfg_path)
+    model, _ = build_salience_detr(cfg, torch.device("cuda"), torch.Generator().manual_seed(1))
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    buffers = {k: v.cpu() for k, v in model.named_buffers() if k.endswith("relative_position_index")}
+    state.update(buffers)
+    ckpt = EVAL_DIR / "swin_l_seed1.pth"
+    torch.save(state, ckpt)
+    del model, state
+    torch.cuda.empty_cache()
+    forwards = sum(1 for _ in DetectionLoader(CocoDetection(str(img_dir), str(ann)), 4))
+    for k in native.LAUNCHES:
+        native.LAUNCHES[k] = 0
+    t1 = time.perf_counter()
+    stats = eval_entry.main(["--coco-img", str(img_dir), "--coco-ann", str(ann), "--model-config", str(cfg_path),
+                             "--torch-checkpoint", str(ckpt), "--batch-size", "4"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(native.LAUNCHES)
+    expect = {k: 0 for k in native.LAUNCHES}
+    expect.update(msda=12 * forwards, grid_nms=forwards)
+    if launches != expect:
+        raise AssertionError(f"eval_swin_l: launch counts {launches} for {forwards} forwards")
+    check_stats(stats, "eval_swin_l")
+    print(f"eval_swin_l: Swin-L exact mode through salience_detr_torch.test.main --torch-checkpoint "
+          f"({len(buffers)} upstream attention buffers in the file, dropped by name; strict load), "
+          f"{len(EVAL_SIZES)} images in {forwards} forwards: launches={launches}, "
+          f"stats={ {k: round(v, 6) for k, v in stats.items()} }, wall_s={wall:.3f} (model build included); "
+          f"phase_s={time.perf_counter() - t0:.2f}; card: {smi}")
+    return launches
+
+
+def phase_nms_past_budget(smi):
+    """C-18: K2 at the 5-scale levels of the 800x1344 canvas (rank map in
+    shared memory) and of a 1344x1344 canvas (past it: the global-memory
+    rank map), K=3600, B=4, random candidates with a raster clump in image
+    1; K9 at N=1024 (bitmask in shared memory) and N=2048 (in global
+    memory), B=4, spread and crowded boxes.  Each exactly against its plain
+    version, with times."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for label, levels in (("5-scale 800x1344", FIVE_SCALE_LEVELS), ("5-scale 1344x1344", FIVE_SCALE_SQUARE)):
+        S = sum(h * w for h, w in levels)
+        topk = torch.stack([torch.randperm(S, generator=gen, device=dev)[:NMS_K] for _ in range(4)])
+        topk[1] = torch.arange(NMS_K, device=dev)
+        topk = topk.to(torch.int32).contiguous()
+        got = grid_nms_topk(topk, levels, NMS_OUT)
+        want = grid_nms_topk_plain(topk, levels, NMS_OUT)
+        torch.cuda.synchronize()
+        mismatches = int((got != want).sum())
+        ms = cuda_ms(lambda: grid_nms_topk(topk, levels, NMS_OUT), 20)
+        where = "global" if grid_nms_rank_in_global(NMS_K, S) else "shared"
+        print(f"nms_past_budget: grid_nms {label} B=4 K={NMS_K} S={S} 13K+2S+1={13 * NMS_K + 2 * S + 1} B "
+              f"rank map in {where} memory, mismatches={mismatches} kernel_ms={ms:.4f}; card: {smi}")
+        if mismatches:
+            raise AssertionError(f"grid_nms kernel differs from plain in {mismatches} entries at {label}")
+    rng = np.random.default_rng(8)
+    for n in (NMS_KEEP_SHARED_MAX_BOXES, 2048):
+        for extent in (400.0, 60.0):
+            xy = rng.uniform(0, extent * n / 1024, size=(4, n, 2)).astype(np.float32)
+            wh = rng.uniform(5, 60, size=(4, n, 2)).astype(np.float32)
+            boxes = torch.from_numpy(np.concatenate([xy, xy + wh], -1)).to(dev)
+            got = nms_keep_mask(boxes, 0.5)
+            want = nms_keep_mask_plain(boxes, 0.5)
+            torch.cuda.synchronize()
+            mismatches = int((got != want).sum())
+            ms = cuda_ms(lambda: nms_keep_mask(boxes, 0.5), 20)
+            where = "global" if n > NMS_KEEP_SHARED_MAX_BOXES else "shared"
+            print(f"nms_past_budget: nms_keep B=4 N={n} {'crowded' if extent < 100 else 'spread'} bitmask in "
+                  f"{where} memory, kept {int(got.sum())}, mismatches={mismatches} wrapper_ms={ms:.4f}; card: {smi}")
+            if mismatches:
+                raise AssertionError(f"nms_keep kernel differs from plain in {mismatches} entries at N={n}")
+
+
+
 def kernel_entry(name, source, replaces, launches, err, timing):
     ms, plain_ms, bound_ms, bound_by, *library = timing
     return {"name": name, "route": "cuda", "source": f"salience_detr_torch/csrc/{source}",
@@ -2351,6 +2656,7 @@ def main(argv=None):
                              "assignment, keep-mask, DCN and int8 MSDA kernels are timed in turns with "
                              "these on the captured inputs and the phases' other inputs")
     args = parser.parse_args(argv)
+    t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2379,6 +2685,17 @@ def main(argv=None):
     q8_sample_err, q8_t = phase_msda_q8(smi, args.baseline_csrc)
     q8_launches = phase_serve_q8(smi)
     stage_launches, stage_results = phase_msda_stages(smi)
+    phase_nms_past_budget(smi)
+    phase_backbone_slice()
+    phase_msda_backbone_shapes(smi)
+    backbone_launches = {}
+    for name in ("swin_l", "convnext_l", "focalnet_l", "r50_5scale", "eva02_b"):
+        backbone_launches[f"serve_{name}"] = phase_backbone_serve(smi, name)
+    for name in ("swin_l", "convnext_l", "focalnet_l", "r50_5scale"):
+        backbone_launches[f"train_{name}"] = phase_backbone_train(smi, name)
+    backbone_launches["eval_swin_l"] = phase_eval_swin(smi)
+    print("backbone launches " + "; ".join(
+        f"{k} {{{', '.join(f'{n}: {v}' for n, v in l.items() if v)}}}" for k, l in backbone_launches.items()))
     print(f"serve launches {serve_launches}; train launches {train_launches}; "
           f"train_coco launches (run 1, 4 steps) {coco_launches}; "
           f"eval launches (NMS filter on) {eval_launches}; dcn_serve launches {dcn_serve_launches}; "
@@ -2423,6 +2740,7 @@ def main(argv=None):
     ):
         err, timing = stage_results[name]
         kernels.append(kernel_entry(name, source, replaces, stage_launches[name], err, timing))
+    print(f"wall_s_total={time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -36,6 +36,13 @@
 // Splitting the image's levels over separate blocks would balance poorly
 // (level 0 holds three quarters of the tokens) and would need a merge across
 // blocks; the rounds already run all levels at once.
+//
+// Past the shared memory (13K + 2S + 1 bytes: at K = 3600, S above about
+// 92k tokens, e.g. the 5-scale levels of a 1344 x 1344 canvas) the same
+// kernel keeps the 16-bit rank map in a global scratch buffer of B x S
+// (grid_nms_forward_global): the map is written once and read once per
+// candidate's neighbours in the prologue, and everything after it reads
+// shared memory as before.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,15 +64,19 @@ constexpr uint8_t kUndecided = 0, kKept = 1, kSuppressed = 2;
 // topk (B, K) int32 token indices in descending score order, unique, each in
 // [0, S); out (B, num_out) int32.  Dynamic shared memory, 13K + 2S + 1 bytes:
 // better (K x 4 uint16), token (K int32), rank (S uint16), status (K + 1
-// bytes, slot K always "suppressed").
+// bytes, slot K always "suppressed").  With kGlobalRank the rank map is the
+// block's S entries of rank_scratch (B x S uint16) and the shared memory
+// 13K + 1 bytes.
+template <bool kGlobalRank>
 __global__ void __launch_bounds__(kThreads)
-grid_nms_kernel(const int* __restrict__ topk, const LevelTable levels, int* __restrict__ out, int S, int K,
-                int num_out) {
+grid_nms_kernel(const int* __restrict__ topk, const LevelTable levels, int* __restrict__ out,
+                unsigned short* __restrict__ rank_scratch, int S, int K, int num_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   ushort4* better = reinterpret_cast<ushort4*>(smem);
   int* token = reinterpret_cast<int*>(better + K);
-  unsigned short* rank = reinterpret_cast<unsigned short*>(token + K);
-  uint8_t* status = reinterpret_cast<uint8_t*>(rank + S);
+  unsigned short* rank = kGlobalRank ? rank_scratch + static_cast<int64_t>(blockIdx.x) * S
+                                     : reinterpret_cast<unsigned short*>(token + K);
+  uint8_t* status = kGlobalRank ? reinterpret_cast<uint8_t*>(token + K) : reinterpret_cast<uint8_t*>(rank + S);
   __shared__ int decided_in[3];
   __shared__ int warp_sums[kWarps];
 
@@ -203,25 +214,40 @@ grid_nms_kernel(const int* __restrict__ topk, const LevelTable levels, int* __re
   }
 }
 
-}  // namespace
-
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
-// shape the kernel does not take (the Python wrapper rejects those first).
-extern "C" int grid_nms_forward(const void* topk, LevelTable levels, void* out, int B, int K, int num_out,
-                                void* stream) {
+template <bool kGlobalRank>
+int launch(const void* topk, LevelTable levels, void* out, void* rank_scratch, int B, int K, int num_out,
+           void* stream) {
   const int S = level_table_tokens(levels);
-  const size_t smem = 13 * static_cast<size_t>(K) + 2 * static_cast<size_t>(S) + 1;
+  const size_t smem = 13 * static_cast<size_t>(K) + 1 + (kGlobalRank ? 0 : 2 * static_cast<size_t>(S));
   if (levels.num_levels <= 0 || levels.num_levels > kLevelsMax || K <= 0 || K > 65535 || num_out < 0 ||
-      num_out > K || smem > kSmemBudget) {
+      num_out > K || smem > kSmemBudget || (kGlobalRank && rank_scratch == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0 || num_out == 0) return static_cast<int>(cudaSuccess);
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(grid_nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(smem));
+    const cudaError_t err = cudaFuncSetAttribute(grid_nms_kernel<kGlobalRank>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  grid_nms_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(topk), levels, static_cast<int*>(out), S, K, num_out);
+  grid_nms_kernel<kGlobalRank><<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(topk), levels, static_cast<int*>(out), static_cast<unsigned short*>(rank_scratch), S,
+      K, num_out);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
+// shape the kernel does not take (the Python wrapper rejects those first).
+// The rank map in shared memory: 13K + 2S + 1 bytes of it.
+extern "C" int grid_nms_forward(const void* topk, LevelTable levels, void* out, int B, int K, int num_out,
+                                void* stream) {
+  return launch<false>(topk, levels, out, nullptr, B, K, num_out, stream);
+}
+
+// The rank map in rank_scratch, B x S uint16 of global memory the caller
+// allocates (any contents); 13K + 1 bytes of shared memory.
+extern "C" int grid_nms_forward_global(const void* topk, LevelTable levels, void* out, void* rank_scratch, int B,
+                                       int K, int num_out, void* stream) {
+  return launch<true>(topk, levels, out, rank_scratch, B, K, num_out, stream);
 }

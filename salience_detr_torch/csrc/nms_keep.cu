@@ -33,6 +33,13 @@
 //   into its own word (32 predicated loads in flight together), and the
 //   window's keep bits are written as bool.
 // At N = 300 the mask takes 12 KB of shared memory, at N = 1024 128 KB.
+//
+// Above 1024 boxes (nms_keep_forward_global) the bitmask, N x ceil(N/32)
+// words (512 KB an image at N = 2048), lives in a global scratch buffer the
+// caller allocates, and the walk keeps the removed-mask in shared memory,
+// word w owned by lane w % 32: each lane holds ceil(N / 1024) words.  The
+// fill and the walk are those above, the boxes and their areas read from
+// global memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -132,6 +139,69 @@ nms_keep_kernel(const float* __restrict__ boxes, float threshold, uint8_t* __res
   }
 }
 
+// The same keep mask for any N: mask (B, N, ceil(N/32)) unsigned words of
+// global scratch (any contents); dynamic shared memory 4 * ceil(N/32) bytes,
+// the removed-mask.
+__global__ void __launch_bounds__(kThreads)
+nms_keep_global_kernel(const float* __restrict__ boxes, float threshold, uint8_t* __restrict__ keep,
+                       unsigned* __restrict__ mask_scratch, int N) {
+  extern __shared__ unsigned removed[];
+  const int W = (N + 31) / 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float4* box = reinterpret_cast<const float4*>(boxes) + static_cast<int64_t>(blockIdx.x) * N;
+  unsigned* mask = mask_scratch + static_cast<int64_t>(blockIdx.x) * N * W;
+  for (int w = tid; w < W; w += kThreads) removed[w] = 0u;
+
+  for (int i = warp; i < N; i += kWarps) {
+    const float4 a = box[i];
+    const float area_a = box_area(a);
+    unsigned* row = mask + static_cast<int64_t>(i) * W;
+    // the words before i / 32 hold no j > i and are never read
+    for (int w = i >> 5; w < W; ++w) {
+      const int j = 32 * w + lane;
+      bool hit = false;
+      if (j > i && j < N) {
+        const float4 b = box[j];
+        hit = iou_above(a, area_a, b, box_area(b), threshold);
+      }
+      const unsigned bits = __ballot_sync(kFull, hit);
+      if (lane == 0) row[w] = bits;
+    }
+  }
+  __syncthreads();
+  if (warp != 0) return;
+
+  uint8_t* out = keep + static_cast<int64_t>(blockIdx.x) * N;
+  for (int k = 0; k < W; ++k) {
+    const int r = 32 * k + lane;
+    const unsigned own = r < N ? mask[static_cast<int64_t>(r) * W + k] : 0u;
+    unsigned cur = removed[k];
+    const int n = min(32, N - 32 * k);
+    unsigned kept = 0;
+#pragma unroll
+    for (int b = 0; b < 32; ++b) {
+      const unsigned row = __shfl_sync(kFull, own, b);
+      if (!(cur >> b & 1u)) {
+        kept |= 1u << b;
+        cur |= row;
+      }
+    }
+    if (n < 32) kept &= (1u << n) - 1u;
+    // lane owns words k + 1 + lane, + 32, ...: OR in the kept ranks' rows
+    for (int w = k + 1 + lane; w < W; w += 32) {
+      const unsigned* col = mask + static_cast<int64_t>(32 * k) * W + w;
+      unsigned acc = 0;
+#pragma unroll
+      for (int b = 0; b < 32; ++b) {
+        if (kept >> b & 1u) acc |= col[static_cast<int64_t>(b) * W];
+      }
+      removed[w] |= acc;
+    }
+    __syncwarp();
+    if (r < N) out[r] = kept >> lane & 1u;
+  }
+}
+
 }  // namespace
 
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
@@ -148,5 +218,23 @@ extern "C" int nms_keep_forward(const void* boxes, float threshold, void* keep, 
   }
   nms_keep_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(boxes), threshold, static_cast<uint8_t*>(keep), N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Any N: the bitmask in mask_scratch, B x N x ceil(N/32) unsigned words of
+// global memory the caller allocates (any contents).
+extern "C" int nms_keep_forward_global(const void* boxes, float threshold, void* keep, void* mask_scratch, int B,
+                                       int N, void* stream) {
+  if (B < 0 || N < 0 || mask_scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || N == 0) return static_cast<int>(cudaSuccess);
+  const size_t smem = 4 * static_cast<size_t>((N + 31) / 32);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(nms_keep_global_kernel,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  nms_keep_global_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(boxes), threshold, static_cast<uint8_t*>(keep), static_cast<unsigned*>(mask_scratch),
+      N);
   return static_cast<int>(cudaGetLastError());
 }

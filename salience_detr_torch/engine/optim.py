@@ -4,6 +4,11 @@ six groups, ``finetune_backbone_param`` and
 ``finetune_backbone_with_no_norm_weight_decay``), the warmup + multi-step
 schedule, and global-norm gradient clipping over the trainable parameters.
 
+The groupings classify as the JAX ones do, on the JAX variable path that
+the converter's rules give each parameter: the JAX classifiers read flax
+names (Swin v2's ``qkv_bias``, EVA-02's ``ln_1``, FocalNet's ``ln``), which
+the port's upstream names do not carry.
+
 The JAX chain is freeze -> clip the global norm -> Adam (eps 1e-8) ->
 decoupled weight decay -> lr multiplier -> schedule.  Frozen parameters have
 ``requires_grad=False`` here and are in no group; ``torch.optim.AdamW`` with
@@ -37,21 +42,14 @@ WD_APPLIES = {
 }
 
 
-def param_group_of(name: str, in_layer_norm: bool) -> str:
-    """The group of the parameter ``name`` (a ``named_parameters`` name),
-    ``in_layer_norm`` telling whether its module is a LayerNorm.
-
-    The JAX classifier reads flax paths: backbone and deformable-attention
-    projections (sampling_offsets / reference_points) at 0.1x lr, biases and
-    parameters under a path component containing "norm" without weight
-    decay.  On the port's names that is: a leaf ending in "bias" (the merged
-    ``in_proj_bias`` is flax's q/k/v ``bias``), or a LayerNorm's parameter
-    (every flax LayerNorm has "norm" in its name; GroupNorm and BatchNorm
-    live under "gn" / "bn" there and stay in the decayed groups)."""
-    comps = name.split(".")
-    is_backbone = comps[0] == "backbone"
-    is_proj = any(c in ("sampling_offsets", "reference_points") for c in comps)
-    is_norm_bias = comps[-1].endswith("bias") or in_layer_norm
+def param_group_of(path: Tuple[str, ...]) -> str:
+    """The group of the JAX variable at ``path`` (its flax path without the
+    collection): backbone and deformable-attention projections
+    (sampling_offsets / reference_points) at 0.1x lr; a leaf named "bias", or
+    a path component containing "norm", without weight decay."""
+    is_backbone = path[0] == "backbone"
+    is_proj = any(c in ("sampling_offsets", "reference_points") for c in path)
+    is_norm_bias = path[-1] == "bias" or any("norm" in c for c in path)
     if is_backbone and not is_proj:
         return "backbone_norm" if is_norm_bias else "backbone"
     if is_proj and not is_backbone:
@@ -59,30 +57,32 @@ def param_group_of(name: str, in_layer_norm: bool) -> str:
     return "other_norm" if is_norm_bias else "other"
 
 
-NORM_MODULES = (nn.LayerNorm, nn.GroupNorm, nn.modules.batchnorm._BatchNorm)
+def _is_norm_module_comp(c: str) -> bool:
+    """Whether a flax path component names a normalization module (the JAX
+    package's naming: *norm*, bn*, *_bn, fbn, ln, ln_*, *_ln, gn)."""
+    c = c.lower()
+    return ("norm" in c or c.startswith("bn") or c.endswith("_bn") or c in ("fbn", "ln", "gn")
+            or c.startswith("ln_") or c.endswith("_ln"))
 
 
-def backbone_group_of(name: str, module: nn.Module) -> str:
+def backbone_group_of(path: Tuple[str, ...]) -> str:
     """finetune_backbone_param: the backbone at 0.1x lr, everything else at
     1x, weight decay everywhere."""
-    return "backbone" if name.split(".")[0] == "backbone" else "other"
+    return "backbone" if path[0] == "backbone" else "other"
 
 
-def no_norm_wd_group_of(name: str, module: nn.Module) -> str:
+def no_norm_wd_group_of(path: Tuple[str, ...]) -> str:
     """finetune_backbone_with_no_norm_weight_decay: a normalization module's
     parameters (weight and bias; not the biases of other modules) without
     weight decay, the backbone at 0.1x lr."""
-    prefix = "backbone" if name.split(".")[0] == "backbone" else "other"
-    return f"{prefix}_norm" if isinstance(module, NORM_MODULES) else prefix
+    prefix = "backbone" if path[0] == "backbone" else "other"
+    return f"{prefix}_norm" if any(_is_norm_module_comp(c) for c in path[:-1]) else prefix
 
 
-# grouping name -> (classifier of (parameter name, its module), lr
-# multipliers, weight decay applies); a train config selects one by
-# ``param_dicts``
+# grouping name -> (classifier of a JAX variable path, lr multipliers, weight
+# decay applies); a train config selects one by ``param_dicts``
 PARAM_GROUPINGS = {
-    "finetune_backbone_and_linear_projection": (
-        lambda name, module: param_group_of(name, isinstance(module, nn.LayerNorm)), LR_MULT, WD_APPLIES,
-    ),
+    "finetune_backbone_and_linear_projection": (param_group_of, LR_MULT, WD_APPLIES),
     "finetune_backbone_param": (
         backbone_group_of, {"other": 1.0, "backbone": 0.1}, {"other": True, "backbone": True},
     ),
@@ -94,17 +94,27 @@ PARAM_GROUPINGS = {
 }
 
 
+def jax_paths(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
+    """{parameter name: the path of the JAX variable it converts to} through
+    the converter's rules of the model's config (``model.config``); a merged
+    in_proj tensor takes its q part's path (its k and v parts classify the
+    same)."""
+    from salience_detr_torch.weights import converter_rules
+
+    paths = {}
+    for src, dst, _ in converter_rules(model.config):
+        if dst.startswith("params/"):
+            paths.setdefault(src, tuple(dst.split("/")[1:]))
+    return paths
+
+
 def named_param_groups(model: nn.Module,
                        grouping: str = "finetune_backbone_and_linear_projection") -> Dict[str, str]:
-    """{parameter name: group} for every trainable parameter."""
+    """{parameter name: group} for every trainable parameter: the JAX
+    classifier's group of the variable the parameter converts to."""
     classify = PARAM_GROUPINGS[grouping][0]
-    groups = {}
-    for mod_name, module in model.named_modules():
-        for p_name, param in module.named_parameters(recurse=False):
-            if param.requires_grad:
-                name = f"{mod_name}.{p_name}" if mod_name else p_name
-                groups[name] = classify(name, module)
-    return groups
+    paths = jax_paths(model)
+    return {name: classify(paths[name]) for name, p in model.named_parameters() if p.requires_grad}
 
 
 def make_lr_schedule(

@@ -7,7 +7,9 @@ are torchvision's, so ``state_dict()`` keys are upstream's ``backbone.*``.
 ``stage_with_dcn`` swaps conv2 of every block of the marked stages for a
 modulated deformable conv (``DeformConv2dPack``, no bias): at the stride of
 the 3x3 conv in a Bottleneck, always stride 1 in a BasicBlock (whose stride
-is on conv1), as in the JAX package.
+is on conv1), as in the JAX package.  The wide ResNets widen the
+Bottleneck's inner convs (``width`` per group 128); the ResNeXts make its 3x3
+conv a grouped conv (``groups``), which DCN does not take.
 """
 
 from __future__ import annotations
@@ -21,23 +23,33 @@ from torch import nn
 from salience_detr_torch.models.bricks.deform_conv import DeformConv2dPack
 from salience_detr_torch.models.layers import FrozenBatchNorm2d
 
-# name: block type and blocks per stage (the JAX table's plain ResNets; the
-# wide and ResNeXt entries come with the other backbones)
+# name: block type, blocks per stage, width per group and groups of the
+# Bottleneck's 3x3 conv (the JAX package's table)
 ARCH_SETTINGS: Dict[str, Dict] = {
-    "resnet18": dict(block="basic", layers=(2, 2, 2, 2)),
-    "resnet34": dict(block="basic", layers=(3, 4, 6, 3)),
-    "resnet50": dict(block="bottleneck", layers=(3, 4, 6, 3)),
-    "resnet101": dict(block="bottleneck", layers=(3, 4, 23, 3)),
-    "resnet152": dict(block="bottleneck", layers=(3, 8, 36, 3)),
+    "resnet18": dict(block="basic", layers=(2, 2, 2, 2), width=64),
+    "resnet34": dict(block="basic", layers=(3, 4, 6, 3), width=64),
+    "resnet50": dict(block="bottleneck", layers=(3, 4, 6, 3), width=64),
+    "resnet101": dict(block="bottleneck", layers=(3, 4, 23, 3), width=64),
+    "resnet152": dict(block="bottleneck", layers=(3, 8, 36, 3), width=64),
+    "wide_resnet50_2": dict(block="bottleneck", layers=(3, 4, 6, 3), width=128),
+    "wide_resnet101_2": dict(block="bottleneck", layers=(3, 4, 23, 3), width=128),
+    "resnext50_32x4d": dict(block="bottleneck", layers=(3, 4, 6, 3), width=4, groups=32),
+    "resnext101_32x4d": dict(block="bottleneck", layers=(3, 4, 23, 3), width=4, groups=32),
+    "resnext101_32x8d": dict(block="bottleneck", layers=(3, 4, 23, 3), width=8, groups=32),
+    "resnext101_64x4d": dict(block="bottleneck", layers=(3, 4, 23, 3), width=4, groups=64),
 }
 
 
-def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2, bias=False)
+def _conv(cin: int, cout: int, kernel: int, stride: int = 1, groups: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2, groups=groups, bias=False)
 
 
-def _conv3x3(cin: int, cout: int, stride: int, with_dcn: bool) -> nn.Module:
-    return DeformConv2dPack(cin, cout, stride) if with_dcn else _conv(cin, cout, 3, stride)
+def _conv3x3(cin: int, cout: int, stride: int, with_dcn: bool, groups: int = 1) -> nn.Module:
+    if with_dcn:
+        if groups != 1:
+            raise NotImplementedError("DCN + grouped conv is not supported")
+        return DeformConv2dPack(cin, cout, stride)
+    return _conv(cin, cout, 3, stride, groups)
 
 
 def _downsample(cin: int, cout: int, stride: int) -> nn.Sequential:
@@ -67,15 +79,16 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False,
-                 with_dcn: bool = False):
+                 with_dcn: bool = False, base_width: int = 64, groups: int = 1):
         super().__init__()
         out_ch = planes * self.expansion
-        self.conv1 = _conv(inplanes, planes, 1)
-        self.bn1 = FrozenBatchNorm2d(planes)
-        # torchvision puts the stride on the 3x3 conv
-        self.conv2 = _conv3x3(planes, planes, stride, with_dcn)
-        self.bn2 = FrozenBatchNorm2d(planes)
-        self.conv3 = _conv(planes, out_ch, 1)
+        width = int(planes * (base_width / 64.0)) * groups
+        self.conv1 = _conv(inplanes, width, 1)
+        self.bn1 = FrozenBatchNorm2d(width)
+        # torchvision puts the stride (and the ResNeXt groups) on the 3x3 conv
+        self.conv2 = _conv3x3(width, width, stride, with_dcn, groups)
+        self.bn2 = FrozenBatchNorm2d(width)
+        self.conv3 = _conv(width, out_ch, 1)
         self.bn3 = FrozenBatchNorm2d(out_ch)
         self.downsample = _downsample(inplanes, out_ch, stride) if downsample else None
 
@@ -88,6 +101,9 @@ class Bottleneck(nn.Module):
 
 
 class ResNetBackbone(nn.Module):
+    # where a bare ImageNet file's names go under ``backbone.``
+    weights_prefix = ""
+
     def __init__(self, arch: str = "resnet50", return_indices: Tuple[int, ...] = (1, 2, 3),
                  stage_with_dcn: Tuple[bool, ...] = (False, False, False, False)):
         super().__init__()
@@ -104,7 +120,8 @@ class ResNetBackbone(nn.Module):
             for blk in range(cfg["layers"][stage]):
                 stride = 2 if (stage > 0 and blk == 0) else 1
                 downsample = blk == 0 and (stage > 0 or block is Bottleneck)
-                blocks.append(block(inplanes, planes, stride, downsample, stage_with_dcn[stage]))
+                extra = dict(base_width=cfg["width"], groups=cfg.get("groups", 1)) if block is Bottleneck else {}
+                blocks.append(block(inplanes, planes, stride, downsample, stage_with_dcn[stage], **extra))
                 inplanes = planes * block.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
 

@@ -1,11 +1,15 @@
 """Model factory (port of salience_detr_tpu/models/factory.py).
 
 ``SalienceDETRConfig`` holds the fields the eval and train paths read, with
-torch dtypes; ``build_salience_detr`` composes the detector, initializes it
-from an explicit ``torch.Generator`` with the JAX package's initializers (so
-that a random-weight model at full width samples sane locations), freezes the
-configured backbone stages, and moves it to the given device in eval mode;
-``build_criteria`` makes the matching and salience criteria.
+torch dtypes; ``build_backbone`` dispatches on the backbone name as the JAX
+factory does (ResNet, wide ResNet and ResNeXt; ConvNeXt; Swin v1 and v2;
+FocalNet; ViT and EVA-02); ``build_salience_detr`` composes the detector,
+initializes it from an explicit ``torch.Generator`` with the JAX package's
+initializers (so that a random-weight model at full width samples sane
+locations), freezes the configured stages of a ResNet backbone (the JAX
+freezing predicate names ResNet modules only), and moves it to the given
+device in eval mode; ``build_criteria`` makes the matching and salience
+criteria.
 """
 
 from __future__ import annotations
@@ -18,7 +22,11 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from salience_detr_torch.models.backbones.resnet import ARCH_SETTINGS, ResNetBackbone, freeze_stages
+from salience_detr_torch.models.backbones.convnext import ConvNeXtBackbone
+from salience_detr_torch.models.backbones.focalnet import FocalNetBackbone
+from salience_detr_torch.models.backbones.resnet import ResNetBackbone, freeze_stages
+from salience_detr_torch.models.backbones.swin import SwinTransformerBackbone
+from salience_detr_torch.models.backbones.vit import VisionTransformerBackbone
 from salience_detr_torch.models.bricks.attention import (
     MultiheadAttention,
     MultiScaleDeformableAttention,
@@ -54,7 +62,7 @@ class SalienceDETRConfig:
     # / sampling_groups / decoder_sampling_groups map onto these two.
     encoder_sampling_groups: Optional[int] = None
     decoder_sampling_groups: Optional[int] = None
-    # backbone
+    # backbone: an arch of one of the families' ARCH_SETTINGS
     backbone: str = "resnet50"
     backbone_return_indices: Tuple[int, ...] = (1, 2, 3)
     backbone_freeze_indices: Tuple[int, ...] = (0,)
@@ -99,14 +107,33 @@ def _prior_bias(prior_prob: float = 0.01) -> float:
     return -math.log((1 - prior_prob) / prior_prob)
 
 
+def build_backbone(cfg: SalienceDETRConfig) -> nn.Module:
+    """The backbone of ``cfg.backbone``, dispatched by name as the JAX
+    factory does; the ViT's pyramid gives ``embed_dim`` channels."""
+    name, idx = cfg.backbone, cfg.backbone_return_indices
+    if name.startswith(("resnet", "resnext", "wide_resnet")):
+        return ResNetBackbone(name, idx, cfg.stage_with_dcn)
+    if name.startswith("conv"):
+        return ConvNeXtBackbone(name, idx)
+    if name.startswith("swin"):
+        return SwinTransformerBackbone(name, idx)
+    if name.startswith("focalnet"):
+        return FocalNetBackbone(name, idx)
+    if name.startswith(("vit", "eva")):
+        return VisionTransformerBackbone(name, idx, cfg.embed_dim)
+    raise ValueError(f"unknown backbone {name}")
+
+
 @torch.no_grad()
 def init_weights(model: SalienceDETR, generator: torch.Generator) -> None:
-    """The JAX package's initializers, drawn from ``generator``."""
+    """The JAX package's initializers, drawn from ``generator``; a backbone
+    other than a ResNet initializes itself (``init_weights``)."""
     g = generator
+    own_init = not isinstance(model.backbone, ResNetBackbone)
     dcn_convs = {id(c) for m in model.modules() if isinstance(m, DeformConv2dPack)
                  for c in (m.conv_offset, m.conv_mask)}
     for name, m in model.named_modules():
-        if id(m) in dcn_convs:
+        if id(m) in dcn_convs or (own_init and name.startswith("backbone.")):
             continue  # a DeformConv2dPack's own convs: with the pack below
         if isinstance(m, DeformConv2dPack):
             # flax: zero offset and mask convs (every tap on its pixel, mask
@@ -154,6 +181,8 @@ def init_weights(model: SalienceDETR, generator: torch.Generator) -> None:
     bg = t.encoder.background_embedding
     nn.init.uniform_(bg.row_embed.weight, 0.0, 1.0, generator=g)
     nn.init.uniform_(bg.col_embed.weight, 0.0, 1.0, generator=g)
+    if own_init:
+        model.backbone.init_weights(g)
 
 
 def build_salience_detr(
@@ -163,9 +192,7 @@ def build_salience_detr(
 ):
     """Returns (model, postprocess); the model is in eval mode on ``device``,
     initialized from ``generator`` (seed 0 when None)."""
-    if cfg.backbone not in ARCH_SETTINGS:
-        raise ValueError(f"the port has no backbone {cfg.backbone!r} yet")
-    backbone = ResNetBackbone(cfg.backbone, cfg.backbone_return_indices, cfg.stage_with_dcn)
+    backbone = build_backbone(cfg)
     neck = ChannelMapper(backbone.num_channels, cfg.embed_dim, cfg.num_feature_levels)
     transformer = SalienceTransformer(
         num_classes=cfg.num_classes,
@@ -185,8 +212,12 @@ def build_salience_detr(
         decoder_sampling_groups=cfg.decoder_groups(),
     )
     model = SalienceDETR(backbone, neck, transformer, cfg.num_classes, cfg.denoising_nums)
+    # the config travels with the model: the optimizer's parameter groups
+    # read the converter's rules of it
+    model.config = cfg
     init_weights(model, generator if generator is not None else torch.Generator().manual_seed(0))
-    freeze_stages(backbone, cfg.backbone_freeze_indices)
+    if isinstance(backbone, ResNetBackbone):
+        freeze_stages(backbone, cfg.backbone_freeze_indices)
     return model.to(device).eval(), PostProcess(cfg.select_box_nums_for_evaluation)
 
 

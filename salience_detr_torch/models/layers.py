@@ -9,6 +9,8 @@ uses its running statistics in eval mode and trains as flax does.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -119,3 +121,129 @@ class GlobalContextSE(nn.Module):
         ctx = self.conv_mask(x).reshape(b, 1, h * w).softmax(dim=2)  # (B, 1, HW)
         context = torch.einsum("bcs,bos->bc", x.reshape(b, c, h * w), ctx)
         return self.se_module(context.reshape(b, c, 1, 1)) * x
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth ("row" mode, torchvision's
+    ``StochasticDepth(p, "row")``): in train mode with ``p > 0`` each sample
+    of the batch keeps its branch with probability 1 - p, drawn as a
+    (B, 1, ..., 1) Bernoulli mask from ``self.generator`` (set for a step by
+    :func:`set_drop_path_generator`; nothing else is drawn from), and the
+    kept rows are scaled by 1 / (1 - p).  The identity in eval mode or at
+    p = 0."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        self.p = float(p)
+        self.generator = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p <= 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("DropPath in train mode needs a generator (set_drop_path_generator)")
+        keep = 1.0 - self.p
+        mask = torch.empty((x.shape[0],) + (1,) * (x.dim() - 1), device=x.device, dtype=torch.float32)
+        mask.bernoulli_(keep, generator=self.generator)
+        return x * mask.to(x.dtype) / keep
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
+
+
+def set_drop_path_generator(model: nn.Module, generator) -> None:
+    """Give every ``DropPath`` of ``model`` the generator of the next step."""
+    for m in model.modules():
+        if isinstance(m, DropPath):
+            m.generator = generator
+
+
+def linear_drop_rates(sd: float, depths) -> list:
+    """ConvNeXt, Swin and FocalNet: block k of the whole backbone (counted
+    over all stages) drops with sd * k / (total - 1)."""
+    total = sum(depths)
+    return [sd * k / max(total - 1, 1) for k in range(total)]
+
+
+class Permute(nn.Module):
+    """``x.permute(*dims)`` as a module: it keeps torchvision's sequential
+    indices (and so the state-dict keys) of the blocks that permute."""
+
+    def __init__(self, *dims: int):
+        super().__init__()
+        self.dims = dims
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.permute(*self.dims)
+
+
+class LayerNorm2d(nn.LayerNorm):
+    """LayerNorm over the channels of an NCHW map (torchvision's
+    ``LayerNorm2d``): normalise each pixel's C values."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+class SamePadConv2d(nn.Conv2d):
+    """A conv with TensorFlow's "SAME" padding, computed from the input size:
+    flax's default for ``nn.Conv``, which the JAX backbones' patch and
+    downsampling convs use (a kernel-k stride-k conv gives ceil(H / k) rows,
+    the padding split low = total // 2, high = the rest)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pads = []
+        for size, k, s in zip(x.shape[-2:], self.kernel_size, self.stride):
+            out = -(-size // s)
+            total = max((out - 1) * s + k - size, 0)
+            pads.append((total // 2, total - total // 2))
+        (top, bottom), (left, right) = pads
+        if top or bottom or left or right:
+            x = F.pad(x, (left, right, top, bottom))
+        return F.conv2d(x, self.weight, self.bias, self.stride, 0, self.dilation, self.groups)
+
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator, fan_in: int = None) -> torch.Tensor:
+    """flax's default kernel init (``lecun_normal``): a normal truncated at
+    two standard deviations with variance 1 / fan_in (fan_in of a torch
+    Linear or Conv2d weight: its row size)."""
+    fan_in = fan_in or weight[0].numel()
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+@torch.no_grad()
+def flax_default_init_(module: nn.Module, generator: torch.Generator) -> None:
+    """flax's defaults on every conv, transposed conv and Linear under
+    ``module`` (lecun-normal kernels, zero biases) and unit LayerNorms."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)):
+            # flax's fan in: the kernel's input rows (a transposed conv's
+            # weight is (in, out, kh, kw) here, (kh, kw, in, out) in flax)
+            fan_in = m.weight.shape[0] * m.weight[0, 0].numel() if isinstance(m, nn.ConvTranspose2d) else None
+            lecun_normal_(m.weight, generator, fan_in)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.LayerNorm):
+            m.reset_parameters()
+
+
+def trunc_normal_002_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """flax ``truncated_normal(0.02)``: std 0.02, cut at two of them."""
+    return nn.init.trunc_normal_(t, 0.0, 0.02, -0.04, 0.04, generator=generator)
+
+
+def attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor = None,
+                  scale: float = None) -> torch.Tensor:
+    """Softmax attention as the JAX backbones compute it: q, k, v (N, H, L,
+    d); logits q k^T (times ``scale``) plus ``bias`` in float32, whatever the
+    compute dtype (flax ``preferred_element_type=float32``), the softmax in
+    float32, the probabilities in v's dtype times v.  Returns (N, H, L, d)."""
+    with torch.autocast(q.device.type, enabled=False):
+        logits = torch.matmul(q.float(), k.float().transpose(-2, -1))
+        if scale is not None:
+            logits = logits * scale
+        if bias is not None:
+            logits = logits + bias.float()
+        probs = torch.softmax(logits, dim=-1)
+    return torch.matmul(probs.to(v.dtype), v)

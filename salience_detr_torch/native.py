@@ -158,10 +158,14 @@ def load() -> ctypes.CDLL:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.grid_nms_forward.argtypes = [ptr, LevelTable, ptr, i32, i32, i32, ptr]
         lib.grid_nms_forward.restype = i32
+        lib.grid_nms_forward_global.argtypes = [ptr, LevelTable, ptr, ptr, i32, i32, i32, ptr]
+        lib.grid_nms_forward_global.restype = i32
         lib.assignment_forward.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
         lib.assignment_forward.restype = i32
         lib.nms_keep_forward.argtypes = [ptr, ctypes.c_float, ptr, i32, i32, ptr]
         lib.nms_keep_forward.restype = i32
+        lib.nms_keep_forward_global.argtypes = [ptr, ctypes.c_float, ptr, ptr, i32, i32, ptr]
+        lib.nms_keep_forward_global.restype = i32
         lib.deform_conv_forward.argtypes = [ptr, i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
         lib.deform_conv_forward.restype = i32
         lib.deform_conv_backward_workspace.argtypes = [i32, i32, i32, i32, i32]

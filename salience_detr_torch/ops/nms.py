@@ -12,7 +12,9 @@ survivors in rank order, then the best-ranked suppressed candidates.
 * :func:`grid_nms_topk` is the wrapper of the CUDA kernel
   ``csrc/grid_nms.cu`` (the same fixpoint in parallel rounds on the card, one
   block per image): a CPU tensor goes to the plain version, a CUDA tensor
-  launches the kernel or raises.
+  launches the kernel or raises.  Levels whose rank map does not fit the
+  kernel's shared memory beside the candidates (13K + 2S + 1 bytes) go to
+  the kernel's variant that keeps the map in a global scratch buffer.
 
 Greedy NMS over score-ordered boxes (``nms_keep_mask``), the post-process
 filter: a box is kept iff no better-ranked kept box has an IoU above the
@@ -21,7 +23,9 @@ threshold with it.
 * :func:`nms_keep_mask_plain` is the JAX package's dense conflict-matrix
   fixpoint, batched;
 * :func:`nms_keep_mask` is the wrapper of ``csrc/nms_keep.cu`` (a bitmask and
-  a serial walk, one block per image), dispatching as ``grid_nms_topk`` does.
+  a serial walk, one block per image), dispatching as ``grid_nms_topk`` does;
+  above ``NMS_KEEP_SHARED_MAX_BOXES`` boxes the kernel's variant with the
+  bitmask in a global scratch buffer takes any count.
 """
 
 from __future__ import annotations
@@ -41,9 +45,16 @@ SMEM_BUDGET_BYTES = 226 * 1024
 MAX_CANDIDATES = 65535
 # relaxation steps of the plain fixpoints between convergence checks
 UNROLL = 8
-# boxes per image the keep-mask kernel takes: its walking warp holds one
-# 32-bit removed-mask word per lane
-NMS_KEEP_MAX_BOXES = 1024
+# boxes per image the keep-mask kernel takes with its bitmask in shared
+# memory (its walking warp holds one 32-bit removed-mask word per lane);
+# more go to the variant with the bitmask in global memory
+NMS_KEEP_SHARED_MAX_BOXES = 1024
+
+
+def grid_nms_rank_in_global(K: int, S: int) -> bool:
+    """Whether the grid-NMS kernel keeps its rank map in global memory: when
+    13K + 2S + 1 bytes exceed its shared memory."""
+    return 13 * K + 2 * S + 1 > SMEM_BUDGET_BYTES
 
 
 def _shift2d(arr: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:
@@ -117,7 +128,8 @@ def grid_nms_topk(
 ) -> torch.Tensor:
     """Wrapper of the grid-NMS kernel (csrc/grid_nms.cu); same contract as
     :func:`grid_nms_topk_plain`.  On CUDA, ``topk_index`` must be a
-    contiguous (B, K) int32 tensor of unique indices in [0, S)."""
+    contiguous (B, K) int32 tensor of unique indices in [0, S), with 13K + 1
+    <= ``SMEM_BUDGET_BYTES`` (K up to 17,801)."""
     if topk_index.device.type == "cpu":
         return grid_nms_topk_plain(topk_index, spatial_shapes, num_out)
     if topk_index.device.type != "cuda":
@@ -129,18 +141,23 @@ def grid_nms_topk(
         )
     B, K = topk_index.shape
     S = sum(h * w for h, w in spatial_shapes)
-    if not 0 <= num_out <= K <= MAX_CANDIDATES or 13 * K + 2 * S + 1 > SMEM_BUDGET_BYTES:
+    if not 0 <= num_out <= K <= MAX_CANDIDATES or 13 * K + 1 > SMEM_BUDGET_BYTES:
         raise ValueError(
-            f"grid_nms_topk: need 0 <= num_out <= K <= {MAX_CANDIDATES} and 13K + 2S + 1 <= "
+            f"grid_nms_topk: need 0 <= num_out <= K <= {MAX_CANDIDATES} and 13K + 1 <= "
             f"{SMEM_BUDGET_BYTES}; got num_out={num_out}, K={K}, S={S}"
         )
     out = torch.empty((B, num_out), dtype=torch.int32, device=topk_index.device)
     lib = native.load()
+    levels = native.level_table(spatial_shapes)
+    stream = native.stream_of(topk_index)
     with torch.cuda.device(topk_index.device):
-        err = lib.grid_nms_forward(
-            topk_index.data_ptr(), native.level_table(spatial_shapes), out.data_ptr(),
-            B, K, num_out, native.stream_of(topk_index),
-        )
+        if grid_nms_rank_in_global(K, S):
+            # the 16-bit rank map, B x S (the kernel writes it before reading)
+            ranks = torch.empty((B, S), dtype=torch.int16, device=topk_index.device)
+            err = lib.grid_nms_forward_global(topk_index.data_ptr(), levels, out.data_ptr(), ranks.data_ptr(),
+                                              B, K, num_out, stream)
+        else:
+            err = lib.grid_nms_forward(topk_index.data_ptr(), levels, out.data_ptr(), B, K, num_out, stream)
     native.check(err, "grid_nms_forward")
     native.LAUNCHES["grid_nms"] += 1
     return out
@@ -172,7 +189,9 @@ def nms_keep_mask_plain(boxes: torch.Tensor, iou_threshold: float) -> torch.Tens
 def nms_keep_mask(boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
     """Wrapper of the keep-mask kernel (csrc/nms_keep.cu); same contract as
     :func:`nms_keep_mask_plain`.  On CUDA, ``boxes`` must be a contiguous
-    (B, N, 4) float32 tensor with N <= ``NMS_KEEP_MAX_BOXES``."""
+    (B, N, 4) float32 tensor; above ``NMS_KEEP_SHARED_MAX_BOXES`` boxes the
+    kernel keeps its N x ceil(N/32)-word bitmask in a scratch buffer of
+    global memory."""
     if boxes.device.type == "cpu":
         return nms_keep_mask_plain(boxes, iou_threshold)
     if boxes.device.type != "cuda":
@@ -183,16 +202,18 @@ def nms_keep_mask(boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
             f"{boxes.dtype} {tuple(boxes.shape)}"
         )
     B, N, _ = boxes.shape
-    if N > NMS_KEEP_MAX_BOXES:
-        raise ValueError(f"nms_keep_mask: the kernel takes at most {NMS_KEEP_MAX_BOXES} boxes per image, got {N}")
     keep = torch.empty((B, N), dtype=torch.bool, device=boxes.device)
     if B == 0 or N == 0:
         return keep
     lib = native.load()
+    threshold, stream = float(np.float32(iou_threshold)), native.stream_of(boxes)
     with torch.cuda.device(boxes.device):
-        err = lib.nms_keep_forward(
-            boxes.data_ptr(), float(np.float32(iou_threshold)), keep.data_ptr(), B, N, native.stream_of(boxes)
-        )
+        if N > NMS_KEEP_SHARED_MAX_BOXES:
+            mask = torch.empty((B, N, (N + 31) // 32), dtype=torch.int32, device=boxes.device)
+            err = lib.nms_keep_forward_global(boxes.data_ptr(), threshold, keep.data_ptr(), mask.data_ptr(), B, N,
+                                              stream)
+        else:
+            err = lib.nms_keep_forward(boxes.data_ptr(), threshold, keep.data_ptr(), B, N, stream)
     native.check(err, "nms_keep_forward")
     native.LAUNCHES["nms_keep"] += 1
     return keep

@@ -31,6 +31,7 @@ from salience_detr_torch.engine.optim import clip_grad_global_norm_, set_lr
 from salience_detr_torch.models.bricks.criterion import Targets
 from salience_detr_torch.models.bricks.denoising import CDNDraws, cdn_draws
 from salience_detr_torch.models.detectors.salience_detr import compute_loss
+from salience_detr_torch.models.layers import set_drop_path_generator
 
 
 def forward_and_loss(model, batch: Dict[str, Any], draws: CDNDraws, criterion,
@@ -75,7 +76,8 @@ def split_batch(batch: Dict[str, Any], parts: int) -> List[Dict[str, Any]]:
 class TrainStep:
     """``step(batch, generator=None, draws=None) -> metrics``: the CDN draws
     come from ``generator`` (a ``torch.Generator`` on the batch's device),
-    one set per micro-batch, unless given (one ``CDNDraws`` per micro-batch).
+    one set per micro-batch, unless given (one ``CDNDraws`` per micro-batch);
+    so do the backbone's stochastic-depth masks (``DropPath``).
     ``steps_done`` is the schedule's step; a resumed run sets it.  The model
     is put in train mode."""
 
@@ -94,6 +96,7 @@ class TrainStep:
                  draws: Union[CDNDraws, Sequence[CDNDraws], None] = None) -> Dict[str, torch.Tensor]:
         model, A = self.model, self.accumulate_steps
         model.train()
+        set_drop_path_generator(model, generator)
         micro = split_batch(batch, A) if A > 1 else [batch]
         if draws is None:
             dn = model.denoising_generator

@@ -76,9 +76,12 @@ def rescore_result_file(coco: CocoIndex, result_file: str) -> Dict[str, float]:
 
 
 def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """A saved state dict, or the ``"model"`` entry of a training checkpoint."""
+    """A saved state dict, or the ``"model"`` entry of a training checkpoint,
+    without upstream Swin's attention buffers (which the port computes)."""
+    from salience_detr_torch.weights import drop_unmapped_buffers
+
     state = torch.load(path, map_location="cpu", weights_only=True)
-    return state.get("model", state)
+    return drop_unmapped_buffers(state.get("model", state))
 
 
 def save_results(evaluator: CocoEvaluator, path: str) -> int:

@@ -10,6 +10,7 @@ JAX variables through those rules therefore gives a state dict that
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Dict, List, Tuple
 
@@ -17,23 +18,31 @@ import numpy as np
 import torch
 
 from salience_detr_torch import weight_rules
-from salience_detr_torch.models.backbones.resnet import ARCH_SETTINGS
 from salience_detr_torch.models.factory import SalienceDETRConfig
+
+# buffers of upstream's Swin attention that the JAX package computes and no
+# rule maps (torchvision registers them as persistent buffers)
+UNMAPPED_BUFFERS = ("attn.relative_position_index", "attn.relative_coords_table")
 
 
 def converter_rules(cfg: SalienceDETRConfig) -> List[Tuple[str, str, str]]:
-    """(torch_name, flax_path, transform) rules for a ResNet-backbone config;
-    these equal the JAX converter's ``salience_detr_rules(backbone,
-    stage_with_dcn)``."""
-    arch = ARCH_SETTINGS[cfg.backbone]
-    return weight_rules._resnet_rules(
-        arch["layers"], arch["block"] == "bottleneck", tuple(cfg.stage_with_dcn)
-    ) + weight_rules.salience_detr_head_rules(
+    """(torch_name, flax_path, transform) rules of a config; these equal the
+    JAX converter's ``salience_detr_rules(backbone, stage_with_dcn)`` with
+    the config's layer and level counts."""
+    return weight_rules.salience_detr_rules(
+        cfg.backbone, tuple(cfg.stage_with_dcn),
         num_encoder_layers=cfg.num_encoder_layers,
         num_decoder_layers=cfg.num_decoder_layers,
         num_levels=cfg.num_feature_levels,
         num_channel_mapper_convs=cfg.num_feature_levels,
     )
+
+
+def drop_unmapped_buffers(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """An upstream state dict without the Swin attention buffers that the
+    port computes (``UNMAPPED_BUFFERS``, by name), so that it loads
+    strictly."""
+    return {k: v for k, v in state.items() if not k.endswith(UNMAPPED_BUFFERS)}
 
 
 def state_dict_from_jax(variables_numpy: Dict, cfg: SalienceDETRConfig) -> Dict[str, torch.Tensor]:
@@ -63,15 +72,23 @@ def _load_tolerant(model: torch.nn.Module, updates: Dict[str, torch.Tensor], wha
 
 
 def load_backbone_weights(model: torch.nn.Module, path: str, logger=None) -> int:
-    """An ImageNet ``.pth`` of the backbone (torchvision's bare names, an
-    optional DataParallel ``module.`` prefix) into ``backbone.*``; returns
-    the number of tensors applied."""
+    """An ImageNet ``.pth`` of the backbone (the family's bare upstream names:
+    torchvision's ResNet, ConvNeXt, Swin and ViT, the official FocalNet; an
+    optional DataParallel ``module.`` prefix) into the detector's backbone
+    under its family's wrapper prefix (``backbone.`` for the ResNets and
+    ConvNeXt, ``backbone.0.`` for Swin, FocalNet and ViT, whose detector
+    wraps the network); returns the number of tensors applied.  Swin's
+    attention buffers are dropped by name, and a ViT position table with a
+    class-token slot loses it."""
     from salience_detr_torch.utils.checkpoint import load_torch_weights
 
-    state = {
-        "backbone." + (k[len("module."):] if k.startswith("module.") else k): v
-        for k, v in load_torch_weights(path).items()
-    }
+    prefix = "backbone." + model.backbone.weights_prefix
+    state = {}
+    for k, v in drop_unmapped_buffers(load_torch_weights(path)).items():
+        k = prefix + (k[len("module."):] if k.startswith("module.") else k)
+        if k.endswith("encoder.pos_embedding") and int(math.isqrt(v.shape[1] - 1)) ** 2 == v.shape[1] - 1:
+            v = v[:, 1:]
+        state[k] = v
     return _load_tolerant(model, state, f"pretrained backbone {path}", logger)
 
 
@@ -83,7 +100,7 @@ def load_finetune_weights(model: torch.nn.Module, source: str, logger=None) -> i
     from salience_detr_torch.utils.checkpoint import CheckpointManager, load_torch_weights
 
     if str(source).endswith(".pth"):
-        state = load_torch_weights(source)
+        state = drop_unmapped_buffers(load_torch_weights(source))
     else:
         restored = CheckpointManager(source).restore_weights() if os.path.isdir(source) else None
         if restored is None:

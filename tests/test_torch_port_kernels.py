@@ -19,7 +19,8 @@ from salience_detr_torch.ops.deform_attn import (
 from salience_detr_torch.ops import msda_stages as st
 from salience_detr_torch.ops.hungarian import batched_assignment, batched_assignment_plain
 from salience_detr_torch.ops.nms import (
-    NMS_KEEP_MAX_BOXES,
+    NMS_KEEP_SHARED_MAX_BOXES,
+    grid_nms_rank_in_global,
     grid_nms_topk,
     grid_nms_topk_plain,
     nms_keep_mask,
@@ -87,9 +88,15 @@ def test_msda_kernel_matches_plain(cuda, dtype, atol, rtol, G, H, C):
 
 @pytest.mark.gpu
 def test_msda_kernel_rejects_what_it_cannot_take(cuda):
+    """float64 and malformed inputs raise; a float16 value (fp16 autocast)
+    is sampled in float32 and comes back float16."""
     value, locs, w = msda_inputs(cuda, torch.float32)
     with pytest.raises(TypeError):
-        ms_deform_attn(value.half(), LEVELS, locs, w)
+        ms_deform_attn(value.double(), LEVELS, locs, w)
+    half = ms_deform_attn(value.half(), LEVELS, locs, w)
+    assert half.dtype == torch.float16
+    torch.testing.assert_close(half.float(), ms_deform_attn_plain(value.half().float(), LEVELS, locs, w),
+                               rtol=1e-3, atol=1e-3)
     with pytest.raises(ValueError):
         ms_deform_attn(value[:, :, :96].contiguous(), LEVELS, locs, w[:, :, :3])  # C=96
     with pytest.raises(ValueError):
@@ -157,14 +164,17 @@ NMS_KEEP_CASES = nms_keep_cases()
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", sorted(NMS_KEEP_CASES) + ["max_boxes", "max_boxes_clustered"])
+@pytest.mark.parametrize("name", sorted(NMS_KEEP_CASES) + ["max_boxes", "max_boxes_clustered", "global_2048",
+                                                            "global_2048_clustered"])
 def test_nms_keep_kernel_bit_exact(cuda, name):
     """Bit-exact against the plain fixpoint (run on the CPU), also at the
-    kernel's limit of 1024 boxes, spread out and crowded."""
-    if name.startswith("max_boxes"):
+    shared-memory variant's limit of 1024 boxes and at 2048 (the bitmask in
+    global memory), spread out and crowded."""
+    if name.startswith(("max_boxes", "global_2048")):
         rng = np.random.default_rng(1)
-        extent = 400.0 if name == "max_boxes" else 60.0
-        boxes, thr = random_boxes(rng, 3, NMS_KEEP_MAX_BOXES, extent), 0.5
+        extent = 60.0 if name.endswith("clustered") else 400.0
+        n = NMS_KEEP_SHARED_MAX_BOXES if name.startswith("max_boxes") else 2048
+        boxes, thr = random_boxes(rng, 3, n, extent * n / NMS_KEEP_SHARED_MAX_BOXES), 0.5
     else:
         boxes, thr = NMS_KEEP_CASES[name]
     before = native.LAUNCHES["nms_keep"]
@@ -178,9 +188,10 @@ def test_nms_keep_kernel_bit_exact(cuda, name):
 
 @pytest.mark.gpu
 def test_nms_keep_kernel_rejects_what_it_cannot_take(cuda):
-    boxes = torch.from_numpy(random_boxes(np.random.default_rng(2), 1, NMS_KEEP_MAX_BOXES + 1)).to(cuda)
-    with pytest.raises(ValueError, match="at most 1024"):
-        nms_keep_mask(boxes, 0.5)
+    """Wrong dtypes and layouts raise; a count past the shared-memory
+    variant's 1024 boxes no longer does (the global-memory variant)."""
+    boxes = torch.from_numpy(random_boxes(np.random.default_rng(2), 1, NMS_KEEP_SHARED_MAX_BOXES + 1)).to(cuda)
+    torch.testing.assert_close(nms_keep_mask(boxes, 0.5).cpu(), nms_keep_mask_plain(boxes.cpu(), 0.5), rtol=0, atol=0)
     with pytest.raises(TypeError):
         nms_keep_mask(boxes[:, :8].double(), 0.5)
     with pytest.raises(TypeError):
@@ -236,6 +247,26 @@ def test_grid_nms_kernel_bit_exact_on_chain_orders(cuda, case, num_out):
     got = grid_nms_topk(topk.to(cuda).contiguous(), NMS_LEVELS, num_out)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.cpu(), grid_nms_topk_plain(topk, NMS_LEVELS, num_out), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "raster"])
+def test_grid_nms_kernel_past_shared_memory(cuda, case):
+    """The 5-scale levels of a 1344 x 1344 canvas (S = 149,940): the rank map
+    no longer fits beside K = 3600 candidates in shared memory, and the
+    kernel's global-memory variant is bit-exact with the plain version."""
+    levels = [(336, 336), (168, 168), (84, 84), (42, 42)]
+    S_big = sum(h * w for h, w in levels)
+    assert grid_nms_rank_in_global(3600, S_big) and not grid_nms_rank_in_global(3600, 89250)
+    gen = torch.Generator().manual_seed(4)
+    topk = torch.stack([torch.randperm(S_big, generator=gen)[:3600] for _ in range(3)]).to(torch.int32)
+    if case == "raster":
+        topk[1] = torch.arange(3600, dtype=torch.int32)
+    before = native.LAUNCHES["grid_nms"]
+    got = grid_nms_topk(topk.to(cuda).contiguous(), levels, 900)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["grid_nms"] == before + 1
+    torch.testing.assert_close(got.cpu(), grid_nms_topk_plain(topk, levels, 900), rtol=0, atol=0)
 
 
 @pytest.mark.gpu

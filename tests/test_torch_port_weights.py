@@ -130,7 +130,8 @@ def test_bridge_loads_no_file_of_the_jax_package(tmp_path):
     """A fresh process imports every module of the port (the data, utils and
     engine modules and the evaluation entry point among them), exports JAX
     variables (saved by this process as numpy) through the bridge and loads
-    them strictly into the tiny model, builds the evaluator's native
+    them strictly into the tiny model, builds every backbone family's rules
+    and model (on the meta device), builds the evaluator's native
     library, and evaluates a COCO-format split through the entry point and
     re-scores its predictions; it has loaded no module from
     salience_detr_tpu/ and not JAX, and opened no file there."""
@@ -175,6 +176,12 @@ with np.load({str(tmp_path / "vars.npz")!r}) as npz:
 cfg = SalienceDETRConfig(**{TINY_TORCH!r})
 model, _ = build_salience_detr(cfg, torch.device("cpu"))
 model.load_state_dict(state_dict_from_jax(tree, cfg), strict=True)
+from salience_detr_torch import weight_rules
+for arch in ("resnext50_32x4d", "conv_l", "swin_l", "swin_v2_t", "focalnet_large_lrf_fl4", "vit_b",
+             "eva_02_vit_b_4attn_1024"):  # every backbone family's rules and its model
+    weight_rules.salience_detr_rules(arch)
+    with torch.device("meta"):
+        build_salience_detr(SalienceDETRConfig(**dict({TINY_TORCH!r}, backbone=arch)), torch.device("meta"))
 from salience_detr_torch import native
 from salience_detr_torch import test as port_test
 native.cocoeval_lib()

@@ -2,10 +2,11 @@
 """Where the time of the PyTorch port's eval forward and train step goes, on
 one CUDA card.
 
-    python tools/profile_torch_slice.py [--model-config F] [--no-train] [--out FILE.json]
+    python tools/profile_torch_slice.py [--model-config F] [--backbone NAME] [--no-train] [--out FILE.json]
 
-Builds the model of ``--model-config`` (the flagship R50 by default; random
-weights from seed 0, bf16 autocast),
+Builds the model of ``--model-config`` (the flagship R50 by default; with
+``--backbone``, that config with another backbone arch; random weights from
+seed 0, bf16 autocast),
 serves one batch of 4 landscape requests padded to the 800x1344 canvas, and
 reports for that forward (top-level keys) and, under "train", for the train
 step of ``salience_detr_torch.train.Trainer`` on synthetic B=4 800x1344
@@ -21,7 +22,8 @@ batches (steps in place of forwards, plus the peak device memory):
   the device window inside the profiler is not the window without it;
 * the device idle share: 1 - device ms / wall ms, at the median wall time
   and at the fastest and slowest of the 5 (the host's speed varies);
-* device ms per forward by category of kernel name, and the top kernels.
+* device ms per forward by category of kernel name, and the top kernels;
+* the peak device memory of the profiled forwards (and steps).
 
 ``--no-train`` skips the train step; ``MSDA_GATHER_QUANT=int8`` in the
 environment profiles the int8 encoder sampling of the eval forward.  Prints
@@ -32,6 +34,7 @@ device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -130,6 +133,7 @@ def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--out", default=None)
     p.add_argument("--model-config", default=str(DEFAULT_CONFIG))
+    p.add_argument("--backbone", default=None, help="another backbone arch for the config")
     p.add_argument("--no-train", action="store_true")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -140,6 +144,8 @@ def main(argv=None):
     ).stdout.strip().splitlines()[0]
 
     cfg = load_config(args.model_config)
+    if args.backbone:
+        cfg = dataclasses.replace(cfg, backbone=args.backbone)
     predictor = Predictor(cfg, None, "cuda", seed=SEED)
     rng = np.random.default_rng(SEED)
     sizes = [(480, 640), (800, 1200), (600, 600), (720, 1280)]
@@ -151,10 +157,13 @@ def main(argv=None):
     for _ in range(2):
         predictor.forward(*inputs)
     torch.cuda.synchronize()
-    report = {"card": card, "config": Path(args.model_config).name, "batch": BATCH,
+    torch.cuda.reset_peak_memory_stats()
+    report = {"card": card, "config": Path(args.model_config).name, "backbone": cfg.backbone, "batch": BATCH,
               "canvas": list(inputs[0].shape[-2:]), "msda_gather_quant": os.environ.get("MSDA_GATHER_QUANT", "none")}
     report.update(measure(lambda: predictor.forward(*inputs), ITERS))
+    report["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
     del predictor
+    torch.cuda.empty_cache()
     if args.no_train:
         return finish(report, args.out)
 
