@@ -92,16 +92,25 @@ non-zero exit and no result line:
    and each of the seven pipelines against K1 within the shootout's check
    bound (rtol 0.05, atol 0.02).  The serve and train phases' counters show
    no stage-kernel launch;
-17. deform_conv (after phase 15): the DCNv2 sampling kernels (B6) at each
-   distinct DCN layer shape of the R50-DCN config (B=4, 800x1344 canvas;
-   stages 2-4, stride 2 and 1) on offsets spanning a few pixels (some taps
-   outside the image) and masks in (0, 1): the forward against its plain
-   version in float32 (TF32 off) and bfloat16, the backward against the plain
+17. deform_conv (after phase 15): the DCNv2 kernels (B6) at each distinct
+   DCN layer shape of the R50-DCN config (B=4, 800x1344 canvas; stages 2-4,
+   stride 2 and 1) on offsets spanning a few pixels (some taps outside the
+   image) and masks in (0, 1): the columns kernel against its plain version
+   in float32 (TF32 off) and bfloat16, the backward against the plain
    backward and autograd of the plain forward; times, bounds and
-   F.grid_sample's times (the library yardstick), and the totals over the 13
-   layers.  With ``--baseline-csrc``, each directory's DCN kernels timed in
+   F.grid_sample's times (the library yardstick); then the 16-bit layer
+   (``deform_conv_fused:``, a (9, C, C) kernel): ``deform_conv2d``'s route
+   (the fused kernel alone at F = 128, the columns kernel alone at F = 256
+   and 512) in bf16 and f16, and the fused kernel at every shape against the
+   plain layer and, beside the parent's path (the columns kernel, then
+   torch.matmul), against the f32 product of the same columns; the kernel in
+   turns with that path (parent, fused, fused, parent), with the path's two
+   parts, the plain time and the bound at the bf16 tensor-core rate; the
+   totals over the 13 layers of the kernel, of the parent's path and of the
+   route.  With ``--baseline-csrc``, each directory's DCN kernels timed in
    turns with these (``dcn_ab:``; the backward as whole calls, each
-   baseline's gradients held against the plain backward);
+   baseline's gradients held against the plain backward; the fused kernel
+   against the baseline's columns kernel + torch.matmul);
 17b. dcn_captured: the backward on the inputs of the 13 DCN layers of one
    R50-DCN train step (offset and mask convs at seeded small normals), and
    on the same with offsets of std 8 px: against the plain backward and
@@ -111,19 +120,27 @@ non-zero exit and no result line:
    of tools/dcn_halo/, ...) in turns as whole calls;
 18. dcn_slice: phases 5 and 9 on the small model with DCN stages 2-4, its
    offset and mask convs at seeded small normals (``offsets_off_grid``) on
-   both devices;
+   both devices; then its train step on the card under float16 autocast:
+   finite losses; of its 6 DCN layers the two at F = 128 take the fused
+   kernel and the four at F = 256, 512 the columns kernel, then 6 columns
+   (the recompute) and 6 gather launches in backward; every DCN parameter
+   moves;
 19. dcn_serve: R50-DCN (configs/salience_detr_torch/
    salience_detr_resnet50_dcn_800_1333.py) served as in phase 6, its offset
-   and mask convs at seeded small normals: per forward 13 DCN forward, 12
-   MSDA and 1 grid-NMS launch; identical reruns; timed forwards;
-20. dcn_train: R50-DCN trained as in phase 10: per step also 13 DCN forward
-   and 13 DCN backward launches; every DCN parameter moves;
+   and mask convs at seeded small normals: per forward 4 fused DCN launches
+   (stage 2, F = 128) and 9 columns launches (stages 3-4), 12 MSDA and 1
+   grid-NMS launch; identical reruns; timed forwards;
+20. dcn_train: R50-DCN trained as in phase 10: per step also 4 fused DCN
+   forward, 9 + 13 columns (stages 3-4's forward and every layer's recompute
+   in backward) and 13 DCN backward launches; every DCN parameter moves;
+   peak memory;
 21. msda_q8: the int8 head-shared MSDA kernels (B8, quantise and sample) at
    the encoder's flagship shape (B=4, Q=11403, G=1, bf16) on uniform inputs
    and on a served forward's captured encoder-layer-0 inputs: the int8 table
-   and scale exactly equal to the plain quantisation's, the sampler against
-   its plain version, the result against K1 within the quantisation bound;
-   times and bounds.  With ``--baseline-csrc``, ``q8_ab:`` lines;
+   and scale exactly equal to the plain quantisation's, the sampler bitwise
+   equal to its plain version, the result against K1 within the quantisation
+   bound; times, K1's time and bounds.  With ``--baseline-csrc``, ``q8_ab:``
+   lines (the samplers in turns);
 22. serve_q8: the flagship served with MSDA_GATHER_QUANT=int8 (the JAX
    package's switch): per forward 6 quantise, 6 int8 sample, 6 MSDA (the
    decoder) and 1 grid-NMS launch; identical reruns; the timed batch with
@@ -164,7 +181,8 @@ the counted train steps (3; K4 launches once a step; K9 in the eval phase's
 first run; the DCN kernels in phase 20's steps, the int8 kernels in phase
 22's 6 forwards), its largest error, its time, its plain version's
 time, its bound (``bound_ms``: bytes over 3.35 TB/s or f32 operations over
-67 TFLOP/s, whichever is larger, ``bound_by`` which) and the time of one
+67 TFLOP/s, whichever is larger, ``bound_by`` which; the fused DCN layer's
+operations over the 989 TFLOP/s of bf16 tensor cores) and the time of one
 PyTorch call of the same function (``library_ms``, null where there is
 none).  The last line is {"ok": true, "device": {...}}.  Exits non-zero
 without a CUDA device.
@@ -267,6 +285,7 @@ NMS_K, NMS_OUT = 3600, 900  # the flagship's top-4N candidates and N proposals
 # whichever is larger
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
 F32_OPS_PER_MS = 67e12 / 1e3
+BF16_TENSOR_OPS_PER_MS = 989e12 / 1e3  # dense bf16 and f16 tensor-core rate
 STAGE_KERNELS = ("gather_sum", "weighted_reduce", "corner_collapse_blocked", "corner_collapse_packed")
 NO_STAGE_LAUNCHES = {k: 0 for k in STAGE_KERNELS}
 # f32 operations of one pair's IoU test: 4 max/min, 2 differences and their
@@ -712,7 +731,7 @@ def small_train_step(device, counts=(3, 1), stage_with_dcn=(False,) * 4, fields=
     """One train step of the small model (``fields`` replacing SMALL's) on
     ``device`` from seed 6; returns (metrics, assignments, clipped
     gradients, parameters, buffers, calls of the criterion's batched
-    matching)."""
+    matching, parameters before the step)."""
     cfg = SalienceDETRConfig(**{**SMALL, **(fields or {})}, denoising_nums=4, stage_with_dcn=stage_with_dcn)
     tc = Config(str(TRAIN_CONFIG), max_gt=6, train_canvas=(96, 128)).to_dict()
     trainer = Trainer(cfg, device, seed=6, steps_per_epoch=1, train_cfg=tc)
@@ -741,8 +760,9 @@ def small_train_step(device, counts=(3, 1), stage_with_dcn=(False,) * 4, fields=
         return calls[-1]
 
     trainer.criterion.match_sets = recording_match_sets
-    metrics = trainer.step(batch, draws=draws)
     model = trainer.model
+    before = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    metrics = trainer.step(batch, draws=draws)
     return (
         {k: float(v) for k, v in metrics.items()},
         [m.cpu() for m in matches],
@@ -750,6 +770,7 @@ def small_train_step(device, counts=(3, 1), stage_with_dcn=(False,) * 4, fields=
         {n: p.detach().cpu() for n, p in model.named_parameters()},
         {n: b.cpu() for n, b in model.named_buffers()},
         len(calls),
+        before,
     )
 
 
@@ -2019,6 +2040,110 @@ def dcn_bins(offsets, H, W, stride):
     return float(counts.float().mean()), int(counts.max()), float((counts > 128).float().mean()), far
 
 
+def fused_bound(x, offsets, mask, weight_16, out):
+    """(bound_ms, bound_by) of the fused DCN layer: its bytes (x, offsets
+    and mask in f32 as the kernel takes them, the kernel and the output in
+    x's dtype) over 3.35 TB/s, or its 2 * M * K * N operations over the bf16
+    tensor-core rate, whichever is larger."""
+    M, F = out[..., 0].numel(), out.shape[-1]
+    K = weight_16.shape[0]
+    by_bytes = (nbytes(x, weight_16, out) + 4 * (offsets.numel() + mask.numel())) / HBM_BYTES_PER_MS
+    by_ops = 2 * M * K * F / BF16_TENSOR_OPS_PER_MS
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def dcn_fused_checks(x32, offsets, mask, stride, gen, bases, smi):
+    """The 16-bit layer (a (9, C, C) kernel) on bf16 and f16 x:
+    ``deform_conv2d`` takes the fused kernel alone where
+    ``uses_fused_kernel`` says so (F = 128) and the columns kernel alone
+    elsewhere; the fused kernel (``_fused_cuda``, at every shape) against
+    ``deform_conv2d_plain`` on the card, and its error and the parent's path's
+    (the columns kernel, then ``torch.matmul``) against the float32 product
+    of the same columns, side by side.  Tolerance: within
+    one ulp of x's dtype plus 1e-3 of the largest output of the plain layer
+    (the final rounding of f32 sums taken in other orders), and no farther
+    from the f32 product than 1.01 times the parent path's own error (both
+    are the final rounding, half an ulp; the f32 sums differ by about 1e-6).
+    Then, in bf16, the fused layer and the parent's path in turns (parent,
+    fused, fused, parent; with ``--baseline-csrc`` the parent's path takes
+    each directory's columns kernel), the path's two parts, the plain layer
+    and the bound.  Returns (fused ms, parent path ms, columns ms, matmul ms,
+    plain ms, bound ms, route ms, bound by, largest error); the route's ms is
+    the fused kernel's where the route takes it, else the parent path's (the
+    same calls)."""
+    B, H, W, C = x32.shape
+    weight = torch.randn(9, C, C, generator=gen, device=x32.device) / math.sqrt(9 * C)
+    worst, parts = 0.0, []
+    for dtype, ulp in ((torch.bfloat16, 2.0 ** -7), (torch.float16, 2.0 ** -10)):
+        x = x32.to(dtype)
+        fused_route = dcn_ops.uses_fused_kernel(dtype, C)
+        before = native.LAUNCHES["deform_conv_fused"], native.LAUNCHES["deform_conv"]
+        route = dcn_ops.deform_conv2d(x, offsets, mask, weight, stride)
+        torch.cuda.synchronize()
+        if (native.LAUNCHES["deform_conv_fused"], native.LAUNCHES["deform_conv"]) != (
+                before[0] + fused_route, before[1] + (not fused_route)):
+            raise AssertionError(f"deform_conv2d at F={C} {dtype} did not take the "
+                                 f"{'fused' if fused_route else 'columns'} kernel alone")
+        got = dcn_ops._fused_cuda(x, offsets, mask, weight, stride)
+        plain = dcn_ops.deform_conv2d_plain(x, offsets, mask, weight, stride).float()
+        w16 = weight.reshape(9 * C, C).to(dtype)
+        cols = dcn_ops._forward_cuda(x, offsets, mask, stride)
+        parent = torch.matmul(cols.reshape(-1, 9 * C), w16).reshape(got.shape).float()
+        ref = torch.matmul(cols.float().reshape(-1, 9 * C), w16.float()).reshape(got.shape)
+        if not torch.equal(route.float(), got.float() if fused_route else parent):
+            raise AssertionError(f"deform_conv2d at F={C} {dtype} differs from the kernel it took")
+        del cols, route
+        err = (got.float() - plain).abs()
+        top = float(plain.abs().max())
+        bad = int((err > ulp * plain.abs() + 1e-3 * top).sum())
+        fused_ref, parent_ref = float((got.float() - ref).abs().max()), float((parent - ref).abs().max())
+        if bad or fused_ref > 1.01 * parent_ref + 1e-6:
+            raise AssertionError(f"fused DCN at C={C} stride={stride} {dtype}: {bad} elements off the plain layer, "
+                                 f"error vs the f32 product {fused_ref:.3e} against the parent path's {parent_ref:.3e}")
+        worst = max(worst, float(err.max()))
+        parts.append(f"{str(dtype)[6:]} max_abs_err vs plain {float(err.max()):.3e} (one ulp + 1e-3 max |out| = "
+                     f"{ulp:.2e} rel + {1e-3 * top:.2e}); vs the f32 product fused {fused_ref:.3e} parent path "
+                     f"{parent_ref:.3e}")
+        del got, plain, parent, ref
+    x = x32.to(torch.bfloat16)
+    w16 = weight.reshape(9 * C, C).to(torch.bfloat16)
+    new = native.load()
+    forward, cols = dcn_forward_launcher(x, offsets, mask, stride)
+
+    def parent_path(lib):
+        forward(lib)
+        return torch.matmul(cols.reshape(-1, 9 * C), w16)
+
+    def fused():
+        return dcn_ops._fused_cuda(x, offsets, mask, weight, stride)
+
+    turns = [cuda_ms(f, 10) for f in (lambda: parent_path(new), fused, fused, lambda: parent_path(new))]
+    fused_ms, parent_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    cols_ms = steady_ms(lambda: forward(new), 10)
+    matmul_ms = steady_ms(lambda: torch.matmul(cols.reshape(-1, 9 * C), w16), 10)
+    plain_ms = cuda_ms(lambda: dcn_ops.deform_conv2d_plain(x, offsets, mask, weight, stride), 3)
+    out = fused()
+    fb, fby = fused_bound(x, offsets, mask, w16, out)
+    route_fused = dcn_ops.uses_fused_kernel(x.dtype, C)
+    route_ms = fused_ms if route_fused else parent_ms
+    ab = []
+    for base_dir, base in bases:
+        if hasattr(base, "deform_conv_forward"):
+            t = [cuda_ms(f, 10) for f in (lambda: parent_path(base), fused, fused, lambda: parent_path(base))]
+            ab.append(f"baseline={base_dir} parent path (its columns kernel + torch.matmul) / fused / fused / parent "
+                      f"path ms {[round(v, 4) for v in t]}")
+    print(f"deform_conv_fused: C=F={C} x {B}x{H}x{W} stride={stride}; {'; '.join(parts)}; bf16 in turns parent path "
+          f"(columns kernel + torch.matmul) / fused / fused / parent path ms {[round(v, 4) for v in turns]}: fused "
+          f"{fused_ms:.4f} parent path {parent_ms:.4f} (columns {cols_ms:.4f} + matmul {matmul_ms:.4f}); plain_ms="
+          f"{plain_ms:.4f} bound_ms={fb:.4f} ({'bf16 tensor ops' if fby == 'operations' else fby}), share "
+          f"{fb / fused_ms:.3f}; route (deform_conv2d) {'fused' if route_fused else 'columns + matmul'} "
+          f"{route_ms:.4f}; card: {smi}")
+    for line in ab:
+        print(f"dcn_ab: fused C={C} {H}x{W} stride={stride} bf16 {line}; card: {smi}")
+    del cols, out
+    return fused_ms, parent_ms, cols_ms, matmul_ms, plain_ms, fb, route_ms, fby, worst
+
+
 def phase_deform_conv(smi, baselines=()):
     """B6 at each distinct DCN layer shape of R50-DCN (B=4, 800x1344 canvas):
     x normal, offsets normal with std 2 px (taps off the pixel grid, some
@@ -2040,9 +2165,10 @@ def phase_deform_conv(smi, baselines=()):
     bases = [(d, baseline_library(d)) for d in baselines]
     bases = [(d, lib) for d, lib in bases
              if any(hasattr(lib, e) for e in ("deform_conv_forward",) + DCN_BACKWARD_ENTRIES)]
-    fwd_err = bwd_err = 0.0
+    fwd_err = bwd_err = fused_err = 0.0
     totals = np.zeros(8)
-    hot = None
+    fused_totals = np.zeros(7)
+    hot = fused_hot = None
     for C, H, W, stride, count in DCN_LAYERS:
         B, Ho, Wo = 4, dcn_ops.output_size(H, stride), dcn_ops.output_size(W, stride)
         x32 = torch.randn(B, H, W, C, generator=gen, device=dev)
@@ -2105,12 +2231,24 @@ def phase_deform_conv(smi, baselines=()):
                              f"{[round(v, 4) for v in in_turns(backward, base, new, 10)]} bound {bb:.4f}, "
                              f"baseline max_abs_err vs plain {err:.3e}")
             print(f"dcn_ab: C={C} {H}x{W} stride={stride} bf16 baseline={base_dir}: {'; '.join(parts)}; card: {smi}")
-        del x32, x, offsets, mask, d_cols
+        del x, d_cols
+        f = dcn_fused_checks(x32, offsets, mask, stride, gen, bases, smi)
+        fused_totals += count * np.array(f[:7])
+        fused_err = max(fused_err, f[8])
+        if (C, H, W, stride) == DCN_HOT:
+            fused_hot = (f[0], f[4], f[5], f[7], None)
+        del x32, offsets, mask
+    print(f"deform_conv_fused: the 13 layers of one R50-DCN forward, bf16: fused kernel_ms={fused_totals[0]:.4f}; "
+          f"parent path (columns kernel + torch.matmul, in turns) ms={fused_totals[1]:.4f} (columns "
+          f"{fused_totals[2]:.4f} + matmul {fused_totals[3]:.4f}); plain_ms={fused_totals[4]:.4f} bound_ms="
+          f"{fused_totals[5]:.4f}, share {fused_totals[5] / fused_totals[0]:.3f}; route (deform_conv2d: fused at "
+          f"F = 128, columns + matmul above) ms={fused_totals[6]:.4f} against the parent path's "
+          f"{fused_totals[1]:.4f}; card: {smi}")
     print(f"deform_conv: the 13 layers of one R50-DCN forward/step, bf16: forward kernel_ms={totals[0]:.4f} "
           f"plain_ms={totals[1]:.4f} bound_ms={totals[2]:.4f} library_ms={totals[3]:.4f}; backward "
           f"kernel_ms={totals[4]:.4f} plain_ms={totals[5]:.4f} bound_ms={totals[6]:.4f} library_ms={totals[7]:.4f}; "
           f"phase_s={time.perf_counter() - t0:.2f}; card: {smi}")
-    return fwd_err, bwd_err, hot
+    return fwd_err, bwd_err, hot, fused_err, fused_hot
 
 
 def capture_dcn_train_inputs():
@@ -2118,24 +2256,26 @@ def capture_dcn_train_inputs():
     autocast), its offset and mask convs at seeded small normals
     (``offsets_off_grid``), gives the DCN sampling: x, offsets, mask, stride
     and d_cols of each of its 13 layers, recorded by a wrapper around the
-    DCN modules' call of ``deform_conv_sample``."""
+    DCN modules' call of ``deform_conv2d`` that runs the layer as the
+    columns and their product."""
     trainer = Trainer(load_config(DCN_CONFIG), "cuda", seed=0, steps_per_epoch=1)
     offsets_off_grid(trainer.model)
     batch = next(trainer.batches(1, seed=0, counts=GT_COUNTS))
-    calls, real = [], dcn_module.deform_conv_sample
+    calls, real = [], dcn_module.deform_conv2d
 
-    def recording(x, offsets, mask, stride):
-        out = real(x, offsets, mask, stride)
+    def recording(x, offsets, mask, weight, stride):
+        # the layer as the columns and their product, so that d_cols exists
+        cols = dcn_ops.deform_conv_sample(x, offsets, mask, stride)
         call = {"x": x.detach(), "offsets": offsets.detach(), "mask": mask.detach(), "stride": stride}
-        out.register_hook(lambda grad: call.__setitem__("d_cols", grad.detach()))
+        cols.register_hook(lambda grad: call.__setitem__("d_cols", grad.detach()))
         calls.append(call)
-        return out
+        return dcn_ops._product(cols, weight)
 
-    dcn_module.deform_conv_sample = recording
+    dcn_module.deform_conv2d = recording
     try:
         trainer.step(batch, trainer.generator)
     finally:
-        dcn_module.deform_conv_sample = real
+        dcn_module.deform_conv2d = real
     torch.cuda.synchronize()
     if len(calls) != 13 or any("d_cols" not in c for c in calls):
         raise AssertionError(f"{len(calls)} DCN calls in one R50-DCN train step, "
@@ -2204,21 +2344,44 @@ def phase_dcn_captured(smi, baselines):
 
 def phase_dcn_slice():
     """The small model with DCN stages 2-4, card (kernels) against CPU (plain
-    versions): the forward, then one train step, as phases 5 and 9."""
+    versions): the forward, then one train step, as phases 5 and 9; then the
+    train step on the card once more under float16 autocast: finite losses;
+    of its 6 DCN layers (F = 128, 128, 256, 256, 512, 512) 2 fused and 4
+    columns launches in forward, 6 columns (the recompute) and 6 gather
+    launches in backward; every DCN parameter moves."""
     before = native.LAUNCHES["deform_conv"], native.LAUNCHES["deform_conv_backward"]
     phase_slice("dcn_slice", DCN_STAGES)
     phase_train_slice("dcn_slice", DCN_STAGES)
     if (native.LAUNCHES["deform_conv"], native.LAUNCHES["deform_conv_backward"]) <= before:
         raise AssertionError("dcn_slice: the DCN kernels did not run on the card")
+    # the same train step under float16 autocast (the train CLI's
+    # --mixed-precision fp16): the forward (fused at F = 128, columns above),
+    # the columns' recompute and the gather backward in float16
+    counts = dict(native.LAUNCHES)
+    metrics, _, grads, after, _, _, before_step = small_train_step(
+        "cuda", stage_with_dcn=DCN_STAGES, fields={"dtype": torch.float16})
+    torch.cuda.synchronize()
+    launches = {k: native.LAUNCHES[k] - counts[k] for k in ("deform_conv_fused", "deform_conv", "deform_conv_backward")}
+    dcn = [n for n in after if n.startswith("backbone.") and any(p in n for p in DCN_PARTS)]
+    unmoved = [n for n in dcn if torch.equal(after[n], before_step[n])]
+    finite = all(np.isfinite(v) for v in metrics.values())
+    print(f"dcn_slice: small train step under float16 autocast: loss={metrics['loss']:.4f} all {len(metrics)} metrics "
+          f"finite={finite}; launches {launches}; DCN parameters {len(dcn)}, moved {len(dcn) - len(unmoved)}, "
+          f"with a gradient {sum(n in grads for n in dcn)}")
+    want = {"deform_conv_fused": 2, "deform_conv": 4 + 6, "deform_conv_backward": 6}
+    if not finite or unmoved or len(dcn) != 30 or launches != want:
+        raise AssertionError(f"dcn_slice: the float16 DCN train step failed: unmoved {unmoved[:4]}, "
+                             f"launches {launches}")
 
 
 def phase_dcn_serve(smi):
     """R50-DCN through ``Predictor`` with its offset and mask convs at seeded
-    small normals: per forward 13 DCN forward launches beside the 12 MSDA and
-    1 grid-NMS; then how far one layer's taps moved off the pixel grid."""
+    small normals: per forward 4 fused DCN launches (stage 2, F = 128) and 9
+    columns launches (stages 3-4, F = 256 and 512) beside the 12 MSDA and 1
+    grid-NMS; then how far one layer's taps moved off the pixel grid."""
     cfg = load_config(DCN_CONFIG)
     launches, predictor, inputs = phase_serve(smi, "dcn_serve", cfg, "R50-DCN (DCNv2 in stages 2-4)",
-                                              offsets_off_grid, {"deform_conv": 13})
+                                              offsets_off_grid, {"deform_conv_fused": 4, "deform_conv": 9})
     model = predictor.model
     if sum(isinstance(m, DeformConv2dPack) for m in model.modules()) != 13:
         raise AssertionError("the R50-DCN config does not hold 13 DCN layers")
@@ -2235,12 +2398,15 @@ def phase_dcn_serve(smi):
 
 
 def phase_dcn_train(smi):
-    """R50-DCN through ``Trainer``: per step 13 DCN forward and 13 DCN
-    backward launches beside the flagship's (no DCN layer's input is frozen:
-    the first one follows layer2.0.conv1, which trains), and every DCN
-    parameter moves."""
+    """R50-DCN through ``Trainer``: per step 4 fused DCN forward launches
+    (stage 2), 9 + 13 columns launches (stages 3-4's forward, then every
+    layer's recompute in backward) and 13 DCN backward launches beside the
+    flagship's (no DCN layer's input is frozen: the first
+    one follows layer2.0.conv1, which trains), and every DCN parameter
+    moves."""
     return phase_train(smi, "dcn_train", load_config(DCN_CONFIG), "R50-DCN (DCNv2 in stages 2-4)",
-                       offsets_off_grid, {"deform_conv": 13, "deform_conv_backward": 13}, DCN_PARTS)
+                       offsets_off_grid, {"deform_conv_fused": 4, "deform_conv": 9 + 13, "deform_conv_backward": 13},
+                       DCN_PARTS)
 
 
 def capture_serve_encoder():
@@ -2300,7 +2466,7 @@ def phase_msda_q8(smi, baselines=()):
     """B8 at the encoder's flagship shape (B=4, Q=11403, G=1, bf16) on uniform
     inputs and on a served forward's captured encoder-layer-0 inputs: the
     int8 table and scale exactly equal to the plain quantisation's, the
-    sampler against its plain version on that table, the whole against K1
+    sampler bitwise equal to its plain version on that table, the whole against K1
     on the same inputs within the quantisation and rounding bound (per
     channel scale * (1/2 + 127 * 2**-8) * the head's attention sum: half a
     step, and the bf16 roundings of the corner weights and corner sums),
@@ -2308,7 +2474,8 @@ def phase_msda_q8(smi, baselines=()):
     error and the captured inputs' (ms, plain ms, bound, bound by) of both
     kernels.
     With ``--baseline-csrc``, each directory's int8 kernels are timed launch
-    only in turns with these (``q8_ab:``)."""
+    only in turns with these (``q8_ab:``; the sampler's output of each
+    baseline compared with this one's)."""
     t0 = time.perf_counter()
     new = native.load()
     bases = [(d, baseline_library(d)) for d in baselines]
@@ -2337,8 +2504,9 @@ def phase_msda_q8(smi, baselines=()):
         torch.cuda.synchronize()
         max_abs, _, bad, atol, rtol = compare(got, want, value.dtype)
         not_equal = int((got != want).sum())
-        if bad:
-            raise AssertionError(f"msda_q8 sampler disagrees with plain on {name}: {bad} elements")
+        if bad or not_equal:
+            raise AssertionError(f"msda_q8 sampler differs from plain on {name}: {not_equal} elements "
+                                 f"({bad} beyond atol {atol} rtol {rtol})")
         s_err = max(s_err, max_abs)
         k1 = ms_deform_attn(value, LEVELS, locs6, weights).float()
         attn_sum = weights.float().sum((-2, -1)).repeat_interleave(C // H, dim=-1)  # (B, Q, C)
@@ -2677,7 +2845,7 @@ def main(argv=None):
     keep_t = phase_nms_keep(smi, args.baseline_csrc)
     eval_launches = phase_eval(smi)
     coco_launches = phase_train_coco(smi)
-    dcn_fwd_err, dcn_bwd_err, dcn_t = phase_deform_conv(smi, args.baseline_csrc)
+    dcn_fwd_err, dcn_bwd_err, dcn_t, fused_err, fused_t = phase_deform_conv(smi, args.baseline_csrc)
     phase_dcn_captured(smi, args.baseline_csrc)
     phase_dcn_slice()
     dcn_serve_launches = phase_dcn_serve(smi)
@@ -2723,6 +2891,14 @@ def main(argv=None):
                      dcn_train_launches["deform_conv"], dcn_fwd_err, dcn_t[0]),
         kernel_entry("deform_conv_backward", "deform_conv.cu", "salience_detr_tpu/models/bricks/deform_conv.py:20",
                      dcn_train_launches["deform_conv_backward"], dcn_bwd_err, dcn_t[1]),
+        # the 16-bit DCN layer at F <= 128 (sampling, mask and the einsum of
+        # :102-105) on the tensor cores, timed at DCN_HOT; bound at the bf16
+        # tensor-core rate; no PyTorch call computes it (the
+        # deform_conv_forward entry is also stages 3-4's forward and every
+        # layer's recompute in backward)
+        kernel_entry("deform_conv_fused", "deform_conv_gemm.cu",
+                     "salience_detr_tpu/models/bricks/deform_conv.py:20, :102",
+                     dcn_train_launches["deform_conv_fused"], fused_err, fused_t),
         # B8 on the int8 serve path (phase serve_q8), timed on a served
         # forward's encoder layer 0; no PyTorch call computes it.  The
         # quantisation is held bit-exact (phase msda_q8 raises otherwise)

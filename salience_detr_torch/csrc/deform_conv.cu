@@ -1,4 +1,7 @@
 // Modulated deformable convolution sampling (DCNv2), forward and backward.
+// The forward here writes the columns: the float32 route of the layer
+// (then torch.matmul) and the recompute of its backward; the 16-bit forward
+// fuses the sampling with its kernel product (deform_conv_gemm.cu).
 //
 // Replaces salience_detr_tpu/models/bricks/deform_conv.py::_bilinear_sample_map
 // (with the mask multiply of DeformConv2dPack, :92-95) and its autodiff.
@@ -12,7 +15,8 @@
 // nor written.  Forward: cols[b, ho, wo, k, :] = mask * sum over corners of
 // (wx * wy) * x[corner, :], summed in f32 corner by corner in the order (0,
 // 0), (0, 1), (1, 0), (1, 1) without fused multiply-adds, rounded once to x's
-// dtype (the plain version's arithmetic, operation for operation).  Backward,
+// dtype: float32, bfloat16 or float16 (the plain version's arithmetic,
+// operation for operation).  Backward,
 // with g = d_cols * mask: d_x[corner] += (wx * wy) * g; d_mask = <d_cols,
 // sample>; d_offsets (dy, dx) = sum over corners of <g, x[corner]> times d
 // (wx * wy) / d (py, px) = (+-wx, +-wy).
@@ -51,6 +55,7 @@
 // L2 for all but the first corner of a tap), x once per pixel.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -639,7 +644,9 @@ inline bool keys_fit(int B, int H, int W, int stride) {
 
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
 // shape the kernel does not take (the Python wrapper rejects those first).
-extern "C" int deform_conv_forward(const void* x, int x_is_bf16, const void* offsets,
+// x_dtype: kFloat32, kBFloat16 or kFloat16 (msda_common.cuh), the dtype of x
+// and cols.
+extern "C" int deform_conv_forward(const void* x, int x_dtype, const void* offsets,
                                    const void* mask, void* cols, int B, int H, int W, int C,
                                    int stride, void* stream) {
   if (!dims_ok(B, H, W, C, stride)) return static_cast<int>(cudaErrorInvalidValue);
@@ -648,10 +655,13 @@ extern "C" int deform_conv_forward(const void* x, int x_is_bf16, const void* off
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* off = static_cast<const float*>(offsets);
   const float* msk = static_cast<const float*>(mask);
-  if (x_is_bf16) {
-    return dispatch_forward<__nv_bfloat16>(x, off, msk, cols, B, H, W, C, Ho, Wo, stride, s);
+  switch (x_dtype) {
+    case kFloat32: return dispatch_forward<float>(x, off, msk, cols, B, H, W, C, Ho, Wo, stride, s);
+    case kBFloat16:
+      return dispatch_forward<__nv_bfloat16>(x, off, msk, cols, B, H, W, C, Ho, Wo, stride, s);
+    case kFloat16: return dispatch_forward<__half>(x, off, msk, cols, B, H, W, C, Ho, Wo, stride, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return dispatch_forward<float>(x, off, msk, cols, B, H, W, C, Ho, Wo, stride, s);
 }
 
 // Bytes of the workspace deform_conv_backward_gather needs at this shape, or
@@ -661,16 +671,18 @@ extern "C" int64_t deform_conv_backward_workspace(int B, int H, int W, int C, in
   return plan_workspace(nullptr, B, H, W, C, stride).bytes;
 }
 
-// d_x (B, H, W, C) in x's dtype, every element written (null: x needs no
+// x, d_cols and d_x in x_dtype (as deform_conv_forward's); d_x (B, H, W, C)
+// in x's dtype, every element written (null: x needs no
 // gradient, nothing is written there); d_offsets and d_mask f32, written;
 // workspace: deform_conv_backward_workspace bytes, 16-byte aligned, any
 // contents.  Seven launches on the stream: zeroing the counts, count,
 // two scan passes, place, gather, combine.
-extern "C" int deform_conv_backward_gather(const void* x, int x_is_bf16, const void* offsets,
+extern "C" int deform_conv_backward_gather(const void* x, int x_dtype, const void* offsets,
                                            const void* mask, const void* d_cols, void* d_x,
                                            void* d_offsets, void* d_mask, void* workspace, int B,
                                            int H, int W, int C, int stride, void* stream) {
-  if (!dims_ok(B, H, W, C, stride) || !keys_fit(B, H, W, stride)) {
+  if (!dims_ok(B, H, W, C, stride) || !keys_fit(B, H, W, stride) || x_dtype < kFloat32 ||
+      x_dtype > kFloat16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int Ho = (H - 1) / stride + 1, Wo = (W - 1) / stride + 1;
@@ -689,8 +701,9 @@ extern "C" int deform_conv_backward_gather(const void* x, int x_is_bf16, const v
   dcn_scan_offsets_kernel<<<w.nscan, kScanThreads, 0, s>>>(w.counts, w.npix, w.sums, w.offs);
   dcn_place_kernel<<<item_blocks, kItemThreads, 0, s>>>(off, msk, w.offs, w.rank, w.keys, B, H, W,
                                                          Ho, Wo, stride);
-  const int gathered = x_is_bf16 ? dispatch_gather<__nv_bfloat16>(w, x, d_cols, d_x, C, s)
-                                 : dispatch_gather<float>(w, x, d_cols, d_x, C, s);
+  const int gathered = x_dtype == kBFloat16 ? dispatch_gather<__nv_bfloat16>(w, x, d_cols, d_x, C, s)
+                       : x_dtype == kFloat16  ? dispatch_gather<__half>(w, x, d_cols, d_x, C, s)
+                                              : dispatch_gather<float>(w, x, d_cols, d_x, C, s);
   if (gathered != 0) return gathered;
   dcn_combine_kernel<<<item_blocks, kItemThreads, 0, s>>>(
       off, msk, w.dots, w.nkeys, w.chunks, static_cast<float*>(d_offsets),

@@ -1,9 +1,11 @@
 // Shared by the MSDA forward (msda.cu) and backward (msda_backward.cu)
-// kernels and the stage kernels: the pixel coordinate, the shape contract
-// and the f32 <-> storage conversions of one lane's channel chunk.
+// kernels, the stage kernels and the DCN kernels: the pixel coordinate, the
+// shape contract and the f32 <-> storage conversions (f32, bf16, f16) of one
+// lane's channel chunk.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -14,8 +16,13 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 
+// the element-type code of the DCN entry points (deform_conv.cu,
+// deform_conv_gemm.cu): x and the tensors in its dtype
+constexpr int kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2;
+
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float v);
@@ -24,6 +31,10 @@ __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 // CPL consecutive elements at p -> f32 registers, in loads as wide as the

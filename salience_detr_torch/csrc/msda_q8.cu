@@ -27,10 +27,17 @@
 // that fits the 50 MB L2.  The quantisation reads the value once for the
 // absmax and once for the table.
 //
-// What this simple design does about it: K1's G = 1 layout, one warp per (b,
-// q) with the lanes over channels (8 int8 channels, one 8-byte load, per lane
-// at C = 256), each corner row one coalesced 256 B request serving all
-// heads; the int8 -> f32 conversion is a byte permute and a subtraction.
+// What the sampler's design does about it (the second design; the first,
+// one warp per (b, q) with an 8-byte load of 8 channels a lane, spent as many
+// load instructions per corner as K1 for half the bytes, and four
+// instructions per corner channel): a half-warp per (b, q) at C = 256, 16
+// int8 channels a lane in one 16-byte load, so each corner row is one 256 B
+// request serving all heads and a warp serves two queries (narrower heads
+// take 8, 4, 2 or 1 channels a lane, so that a lane stays in one head); a
+// point's four corner loads are issued without branches; in bf16 output a
+// corner channel costs a byte permute, a subtraction and one fused
+// multiply-add (exact: see corner_add).  The int8 -> f32 conversion is the
+// permute and the subtraction.
 // Both quantisation passes run blocks over tiles of rows with a thread per 8
 // channels (16 B loads in bf16, 8 B int8 stores; the channels' scales in
 // registers): the absmax pass reduces its tile in shared memory and ends in
@@ -125,15 +132,22 @@ __device__ __forceinline__ void bytes_to_float(unsigned word, float* v) {
 // CPL consecutive int8 at p (aligned to CPL bytes) -> f32
 template <int CPL>
 __device__ __forceinline__ void load_q8(const int8_t* __restrict__ p, float (&v)[CPL]) {
-  if constexpr (CPL == 8) {
+  if constexpr (CPL == 16) {
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+    bytes_to_float(raw.x, v);
+    bytes_to_float(raw.y, v + 4);
+    bytes_to_float(raw.z, v + 8);
+    bytes_to_float(raw.w, v + 12);
+  } else if constexpr (CPL == 8) {
     const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
     bytes_to_float(raw.x, v);
     bytes_to_float(raw.y, v + 4);
   } else if constexpr (CPL == 4) {
     bytes_to_float(__ldg(reinterpret_cast<const unsigned*>(p)), v);
   } else {
+    static_assert(CPL == 2 || CPL == 1, "a lane holds 16, 8, 4, 2 or 1 int8 channels");
 #pragma unroll
-    for (int i = 0; i < CPL; ++i) v[i] = static_cast<float>(p[i]);
+    for (int i = 0; i < CPL; ++i) v[i] = static_cast<float>(__ldg(p + i));
   }
 }
 
@@ -143,19 +157,45 @@ __device__ __forceinline__ float round_to(float v) {
   return to_float(from_float<T>(v));
 }
 
-template <typename T, int CPL>
+// s + w * v for a corner weight w (rounded to T) and an int8 value v.  In
+// bf16 w has 8 significant bits and v 7, so w * v is exact in f32 (also
+// below the normal range: it is a multiple of 2^-133) and one fused
+// multiply-add rounds exactly as the plain version's multiply, then add
+// (tests/test_torch_port_msda_q8_fma.py checks every such product).  An
+// f32 w is not short enough: there the multiply and the add stay apart.
+template <typename T>
+__device__ __forceinline__ float corner_add(float s, float w, float v) {
+  if constexpr (sizeof(T) == 2) {
+    return fmaf(w, v, s);
+  } else {
+    return __fadd_rn(s, __fmul_rn(w, v));
+  }
+}
+
+// LPQ lanes serve one (b, q), each CPL = C / LPQ channels inside one head
+// (one load of CPL bytes per corner); a warp serves 32 / LPQ queries.  A
+// point's 4 corners are taken without branches: a corner outside its level
+// reads the level's clamped row with weight 0, which adds +-0 to the sum and
+// changes nothing (the sum is never -0, and the table holds no NaN or inf),
+// so the loads of a point are in flight together.  The head's attention
+// weight times the bf16-rounded corner sum stays a separate multiply and add:
+// that product of two bf16 values can fall below the f32 normal range,
+// where a fused multiply-add would round otherwise.
+template <typename T, int CPL, int LPQ>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 msda_q8_sample_kernel(const int8_t* __restrict__ table, const float* __restrict__ scale,
                       const LevelTable levels, const float* __restrict__ loc,
                       const float* __restrict__ attn, T* __restrict__ out, int B, int S, int Q,
                       int H, int P) {
-  const int64_t bq = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / 32;
-  if (bq >= static_cast<int64_t>(B) * Q) return;
+  constexpr int kQueriesPerWarp = 32 / LPQ;
+  constexpr int C = CPL * LPQ;
   const int lane = threadIdx.x & 31;
-  const int C = 32 * CPL;
+  const int64_t bq = (static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / 32) *
+                         kQueriesPerWarp + lane / LPQ;
+  if (bq >= static_cast<int64_t>(B) * Q) return;
   const int L = levels.num_levels;
   const int b = static_cast<int>(bq / Q);
-  const int c0 = lane * CPL;
+  const int c0 = (lane % LPQ) * CPL;
   const int h = c0 / (C / H);
   const float* loc_q = loc + bq * L * P * 2;
   const float* attn_q = attn + (bq * H + h) * L * P;
@@ -176,24 +216,28 @@ msda_q8_sample_kernel(const int8_t* __restrict__ table, const float* __restrict_
       const float x0f = floorf(x), y0f = floorf(y);
       const float fx = __fsub_rn(x, x0f), fy = __fsub_rn(y, y0f);
       const int x0 = static_cast<int>(x0f), y0 = static_cast<int>(y0f);
-      float s[CPL];
-#pragma unroll
-      for (int i = 0; i < CPL; ++i) s[i] = 0.f;
+      float w[4], v[4][CPL];
 #pragma unroll
       for (int dy = 0; dy < 2; ++dy) {
         const int cy = y0 + dy;
-        if (cy < 0 || cy >= lh) continue;
         const float wy = dy ? fy : __fsub_rn(1.f, fy);
 #pragma unroll
         for (int dx = 0; dx < 2; ++dx) {
           const int cx = x0 + dx;
-          if (cx < 0 || cx >= lw) continue;
-          const float w = round_to<T>(__fmul_rn(dx ? fx : __fsub_rn(1.f, fx), wy));
-          float v[CPL];
-          load_q8<CPL>(table_b + static_cast<int64_t>(ls + cy * lw + cx) * C, v);
-#pragma unroll
-          for (int i = 0; i < CPL; ++i) s[i] = __fadd_rn(s[i], __fmul_rn(w, v[i]));
+          const bool valid = cy >= 0 && cy < lh && cx >= 0 && cx < lw;
+          const float wc = round_to<T>(__fmul_rn(dx ? fx : __fsub_rn(1.f, fx), wy));
+          w[2 * dy + dx] = valid ? wc : 0.f;
+          const int row = ls + min(max(cy, 0), lh - 1) * lw + min(max(cx, 0), lw - 1);
+          load_q8<CPL>(table_b + static_cast<int64_t>(row) * C, v[2 * dy + dx]);
         }
+      }
+      float s[CPL];
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) s[i] = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+#pragma unroll
+        for (int i = 0; i < CPL; ++i) s[i] = corner_add<T>(s[i], w[c], v[c][i]);
       }
 #pragma unroll
       for (int i = 0; i < CPL; ++i) acc[i] = __fadd_rn(acc[i], __fmul_rn(a, round_to<T>(s[i])));
@@ -218,30 +262,57 @@ int quantize(const void* value, void* absmax, void* table, void* scale, int64_t 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int CPL>
+template <typename T, int CPL, int LPQ>
 void launch_sample(const void* table, const void* scale, const LevelTable& levels, const void* loc,
                    const void* attn, void* out, int B, int S, int Q, int H, int P,
                    cudaStream_t s) {
-  const int64_t warps = static_cast<int64_t>(B) * Q;
-  const unsigned blocks = static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  msda_q8_sample_kernel<T, CPL><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
+  const int64_t per_block = static_cast<int64_t>(kWarpsPerBlock) * (32 / LPQ);
+  const unsigned blocks = static_cast<unsigned>((static_cast<int64_t>(B) * Q + per_block - 1) / per_block);
+  msda_q8_sample_kernel<T, CPL, LPQ><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
       static_cast<const int8_t*>(table), static_cast<const float*>(scale), levels,
       static_cast<const float*>(loc), static_cast<const float*>(attn), static_cast<T*>(out), B, S,
       Q, H, P);
+}
+
+template <typename T, int CPL>
+int dispatch_lanes(const void* table, const void* scale, const LevelTable& levels, const void* loc,
+                   const void* attn, void* out, int B, int S, int Q, int C, int H, int P,
+                   cudaStream_t s) {
+  switch (C / CPL) {
+    case 1: launch_sample<T, CPL, 1>(table, scale, levels, loc, attn, out, B, S, Q, H, P, s); break;
+    case 2: launch_sample<T, CPL, 2>(table, scale, levels, loc, attn, out, B, S, Q, H, P, s); break;
+    case 4: launch_sample<T, CPL, 4>(table, scale, levels, loc, attn, out, B, S, Q, H, P, s); break;
+    case 8: launch_sample<T, CPL, 8>(table, scale, levels, loc, attn, out, B, S, Q, H, P, s); break;
+    case 16: launch_sample<T, CPL, 16>(table, scale, levels, loc, attn, out, B, S, Q, H, P, s); break;
+    case 32: launch_sample<T, CPL, 32>(table, scale, levels, loc, attn, out, B, S, Q, H, P, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// channels a lane holds: the largest of 16, 8, 4, 2, 1 that divides a
+// head's slice C / H; 0 where the layout does not fit (C / CPL lanes must
+// divide 32)
+inline int sample_lane_channels(int C, int H) {
+  if (C <= 0 || H <= 0 || C % H) return 0;
+  int cpl = 16;
+  while ((C / H) % cpl) cpl /= 2;
+  if (C / cpl > 32 || 32 % (C / cpl)) return 0;
+  return cpl;
 }
 
 template <typename T>
 int dispatch_sample(const void* table, const void* scale, const LevelTable& levels,
                     const void* loc, const void* attn, void* out, int B, int S, int Q, int C,
                     int H, int P, cudaStream_t s) {
-  switch (C / 32) {
-    case 1: launch_sample<T, 1>(table, scale, levels, loc, attn, out, B, S, Q, H, P, s); break;
-    case 2: launch_sample<T, 2>(table, scale, levels, loc, attn, out, B, S, Q, H, P, s); break;
-    case 4: launch_sample<T, 4>(table, scale, levels, loc, attn, out, B, S, Q, H, P, s); break;
-    case 8: launch_sample<T, 8>(table, scale, levels, loc, attn, out, B, S, Q, H, P, s); break;
+  switch (sample_lane_channels(C, H)) {
+    case 16: return dispatch_lanes<T, 16>(table, scale, levels, loc, attn, out, B, S, Q, C, H, P, s);
+    case 8: return dispatch_lanes<T, 8>(table, scale, levels, loc, attn, out, B, S, Q, C, H, P, s);
+    case 4: return dispatch_lanes<T, 4>(table, scale, levels, loc, attn, out, B, S, Q, C, H, P, s);
+    case 2: return dispatch_lanes<T, 2>(table, scale, levels, loc, attn, out, B, S, Q, C, H, P, s);
+    case 1: return dispatch_lanes<T, 1>(table, scale, levels, loc, attn, out, B, S, Q, C, H, P, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -264,7 +335,10 @@ extern "C" int msda_q8_quantize(const void* value, int value_is_bf16, void* absm
 extern "C" int msda_q8_sample(const void* table, const void* scale, LevelTable levels,
                               const void* loc, const void* attn, void* out, int out_is_bf16,
                               int B, int S, int Q, int C, int H, int P, void* stream) {
-  if (!shapes_ok(levels, S, C, H, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  if (sample_lane_channels(C, H) == 0 || levels.num_levels <= 0 || levels.num_levels > kLevelsMax ||
+      level_table_tokens(levels) != S) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (static_cast<int64_t>(B) * Q == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_is_bf16) {

@@ -36,8 +36,10 @@ MAX_LEVELS = 16  # kLevelsMax in csrc/levels.cuh
 
 LAUNCHES = {
     "msda": 0, "msda_backward": 0, "grid_nms": 0, "hungarian": 0, "nms_keep": 0,
-    # DCNv2 sampling (ops/deform_conv.py) and the int8 head-shared MSDA
-    "deform_conv": 0, "deform_conv_backward": 0, "msda_q8_quantize": 0, "msda_q8_sample": 0,
+    # DCNv2 (ops/deform_conv.py: the columns, their backward, the fused 16-bit
+    # forward) and the int8 head-shared MSDA
+    "deform_conv": 0, "deform_conv_backward": 0, "deform_conv_fused": 0,
+    "msda_q8_quantize": 0, "msda_q8_sample": 0,
     # the stage kernels of the MSDA shootout (ops/msda_stages.py)
     "gather_sum": 0, "weighted_reduce": 0, "corner_collapse_blocked": 0,
     "corner_collapse_packed": 0,
@@ -168,6 +170,9 @@ def load() -> ctypes.CDLL:
         lib.nms_keep_forward_global.restype = i32
         lib.deform_conv_forward.argtypes = [ptr, i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
         lib.deform_conv_forward.restype = i32
+        lib.deform_conv_fused_forward.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+                                                  i32, ptr]
+        lib.deform_conv_fused_forward.restype = i32
         lib.deform_conv_backward_workspace.argtypes = [i32, i32, i32, i32, i32]
         lib.deform_conv_backward_workspace.restype = i64
         lib.deform_conv_backward_gather.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,

@@ -435,8 +435,10 @@ def q8_sample(
     dtype: torch.dtype,
 ) -> torch.Tensor:
     """:func:`q8_sample_plain` on CPU tensors; on CUDA the sampling kernel,
-    or raise.  The kernel takes C in (32, 64, 128, 256) with each lane's
-    C / 32 channels inside one head."""
+    or raise.  The kernel holds CPL int8 channels a lane, the largest of 16,
+    8, 4, 2, 1 that divides a head's C / H channels, and C / CPL lanes a
+    query must divide 32: for C a power of two from 32 to 512, any H that
+    divides 32 (the parent design's set, C = 32 to 256, and C = 512)."""
     if table.device.type == "cpu":
         return q8_sample_plain(table, scale, spatial_shapes, locations, weights, dtype)
     if table.device.type != "cuda":
@@ -445,9 +447,12 @@ def q8_sample(
     if table.dtype != torch.int8 or not table.is_contiguous() or dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q8_sample: want a contiguous int8 table and a float32/bfloat16 output, got "
                         f"{table.dtype} -> {dtype}")
-    if C % 32 or C // 32 not in (1, 2, 4, 8) or (C // H) % (C // 32):
-        raise ValueError(f"q8_sample: kernel takes C in (32, 64, 128, 256) with C/H divisible by C/32; "
-                         f"got C={C}, H={H}")
+    cpl = 16
+    while C % H == 0 and (C // H) % cpl:
+        cpl //= 2
+    if C % H or C // cpl > 32 or 32 % (C // cpl):
+        raise ValueError(f"q8_sample: kernel takes H dividing C and C / CPL lanes a query dividing 32, CPL "
+                         f"the largest of 16, 8, 4, 2, 1 channels that divides C / H; got C={C}, H={H}")
     if scale.shape != (C,) or any(t.device != table.device for t in (scale, locations, weights)):
         raise ValueError("q8_sample: scale must be (C,) and all inputs on one device")
     loc = locations.to(torch.float32).contiguous()

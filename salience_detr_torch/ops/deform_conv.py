@@ -1,29 +1,35 @@
-"""Modulated deformable convolution sampling, DCNv2 (port of the sampling of
+"""Modulated deformable convolution, DCNv2 (port of
 salience_detr_tpu/models/bricks/deform_conv.py: ``_bilinear_sample_map``
-times the modulation mask).
+times the modulation mask, then the einsum with the kernel).
 
 A 3x3 modulated deformable convolution is a sampling step, which gathers the
 input at 9 deformed taps per output pixel and scales each by its mask, then
-one GEMM of the sampled columns with the (9 * Cin, F) kernel.  This module
-holds the sampling; the GEMM is a plain ``torch.matmul`` in
-``models/bricks/deform_conv.py``, as the JAX package leaves its einsum to XLA.
+one GEMM of the sampled columns with the (9 * Cin, F) kernel.
 
-* :func:`deform_conv_sample_plain` is the plain PyTorch forward, the spec of
-  the forward kernel in ``csrc/deform_conv.cu``, and
-  :func:`deform_conv_sample_backward_plain` the plain backward, the spec of
-  the backward kernel there; both run on any device;
-* :func:`deform_conv_sample` is the differentiable wrapper of the two kernels
-  (a ``torch.autograd.Function``): on CPU tensors its forward and backward are
-  the plain versions, on CUDA tensors they launch the kernels or raise.
+* :func:`deform_conv_sample_plain` is the plain PyTorch sampling, the spec of
+  the columns kernel in ``csrc/deform_conv.cu``, and
+  :func:`deform_conv_sample_backward_plain` its plain backward, the spec of
+  the gather backward there; both run on any device;
+* :func:`deform_conv_sample` is the differentiable wrapper of those two
+  kernels (a ``torch.autograd.Function``): on CPU tensors its forward and
+  backward are the plain versions, on CUDA tensors they launch the kernels
+  or raise;
+* :func:`deform_conv2d_plain` is the whole layer in plain PyTorch (the
+  sampling, then ``torch.matmul`` in x's dtype), the spec of the fused
+  kernel in ``csrc/deform_conv_gemm.cu``, and :func:`deform_conv2d` its
+  differentiable wrapper, the layer's route (see its docstring): the fused
+  kernel for 16-bit layers of F <= 128, the columns kernel and
+  ``torch.matmul`` for the others.
 
 Layouts are the JAX package's: x (B, H, W, Cin) channels-last; offsets (B,
 Ho, Wo, 18) with (dy, dx) interleaved per tap; mask (B, Ho, Wo, 9); columns
-(B, Ho, Wo, 9, Cin).  Taps run row-major over (ky, kx) in {-1, 0, 1}^2 and
-sample at pixel ``(ho * stride + ky + dy, wo * stride + kx + dx)`` (pixel
-units, no half-pixel shift), with 4 bilinear corners and zero padding: a
-corner outside the image has weight 0 and is never read (nor written by the
-backward).  The sample is summed in float32, multiplied by the mask and
-rounded once to x's dtype.
+(B, Ho, Wo, 9, Cin); the kernel (9, Cin, F); the output (B, Ho, Wo, F).
+Taps run row-major over (ky, kx) in {-1, 0, 1}^2 and sample at pixel
+``(ho * stride + ky + dy, wo * stride + kx + dx)`` (pixel units, no
+half-pixel shift), with 4 bilinear corners and zero padding: a corner outside
+the image has weight 0 and is never read (nor written by the backward).  The
+sample is summed in float32, multiplied by the mask and rounded once to x's
+dtype (float32, bfloat16 or float16 on the card).
 """
 
 from __future__ import annotations
@@ -146,13 +152,34 @@ def deform_conv_sample_backward_plain(
     )
 
 
+def deform_conv2d_plain(
+    x: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor, stride: int
+) -> torch.Tensor:
+    """x (B, H, W, Cin), offsets (B, Ho, Wo, 18), mask (B, Ho, Wo, 9), weight
+    (9, Cin, F) -> (B, Ho, Wo, F) in x's dtype: the columns of
+    :func:`deform_conv_sample_plain` times the kernel cast to x's dtype, one
+    ``torch.matmul`` (the JAX einsum's operands in the compute dtype)."""
+    return _product(deform_conv_sample_plain(x, offsets, mask, stride), weight)
+
+
+def _kernel_matrix(weight: torch.Tensor, C: int) -> torch.Tensor:
+    if weight.dim() != 3 or tuple(weight.shape[:2]) != (TAPS, C):
+        raise ValueError(f"deform_conv2d: want a (9, {C}, F) kernel, got {tuple(weight.shape)}")
+    return weight.reshape(TAPS * C, weight.shape[2])
+
+
+# the C entry points' element-type codes (kFloat32, kBFloat16, kFloat16 in
+# csrc/msda_common.cuh)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
 def _check_kernel_inputs(x, offsets, mask, stride):
     if x.device.type != "cuda":
         raise RuntimeError(f"deform_conv_sample: no kernel for device {x.device}")
     dims = _check_shapes(x, offsets, mask, stride)
     C = dims[3]
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"deform_conv_sample: x dtype {x.dtype} is not float32/bfloat16")
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"deform_conv_sample: x dtype {x.dtype} is not float32/bfloat16/float16")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("deform_conv_sample: x must be contiguous (channels last) and 16-byte aligned")
     if C not in (32, 64, 128) and C % 256:
@@ -170,7 +197,7 @@ def _forward_cuda(x, offsets, mask, stride):
     lib = native.load()
     with torch.cuda.device(x.device):
         err = lib.deform_conv_forward(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), off.data_ptr(), msk.data_ptr(),
+            x.data_ptr(), DTYPE_CODES[x.dtype], off.data_ptr(), msk.data_ptr(),
             cols.data_ptr(), B, H, W, C, stride, native.stream_of(x),
         )
     native.check(err, "deform_conv_forward")
@@ -205,7 +232,7 @@ def _backward_cuda(x, offsets, mask, stride, d_cols, need_x=True):
     d_mask = torch.empty((B, Ho, Wo, TAPS), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.deform_conv_backward_gather(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), off.data_ptr(), msk.data_ptr(),
+            x.data_ptr(), DTYPE_CODES[x.dtype], off.data_ptr(), msk.data_ptr(),
             grad.data_ptr(), d_x.data_ptr() if need_x else None, d_off.data_ptr(), d_mask.data_ptr(),
             workspace.data_ptr(), B, H, W, C, stride, native.stream_of(x),
         )
@@ -241,9 +268,125 @@ def deform_conv_sample(
     """Differentiable modulated deformable sampling through the kernels
     (``csrc/deform_conv.cu``); same contract as :func:`deform_conv_sample_plain`.
 
-    On CUDA, x must be a contiguous float32 or bfloat16 tensor with C in
+    On CUDA, x must be a contiguous float32, bfloat16 or float16 tensor with C in
     (32, 64, 128) or a multiple of 256 (32 lanes of 1, 2, 4 or 8 channels);
     offsets and mask are cast to float32 for the kernels, since autocast does
     not reach a kernel call, and their gradients come back in their dtypes.
     """
     return _DeformConvSample.apply(x, offsets, mask, int(stride))
+
+
+# the widest F the 16-bit route gives the fused kernel: one 128-channel tile
+# covers it, so each pixel's taps are sampled once (above it, the kernel
+# samples them F / 128 times and loses to the columns kernel + cuBLAS)
+FUSED_MAX_F = 128
+
+
+def uses_fused_kernel(dtype: torch.dtype, features: int) -> bool:
+    """Whether :func:`deform_conv2d` on CUDA runs a layer of x's ``dtype``
+    and ``features`` output channels through the fused kernel: 16-bit x and
+    F a multiple of 8 up to :data:`FUSED_MAX_F`."""
+    return dtype in (torch.bfloat16, torch.float16) and features <= FUSED_MAX_F and features % 8 == 0
+
+
+def _fused_cuda(x, offsets, mask, weight, stride):
+    """The fused kernel (``deform_conv_fused_forward``): the sampling and the
+    product on the tensor cores in x's 16-bit dtype, no columns written.  It
+    takes any F a multiple of 8 (one launch of F / 128 channel tiles);
+    :func:`deform_conv2d` gives it F up to :data:`FUSED_MAX_F` only."""
+    B, H, W, C, Ho, Wo = _check_kernel_inputs(x, offsets, mask, stride)
+    w = _kernel_matrix(weight, C).to(x.dtype).contiguous()
+    F = w.shape[1]
+    if x.dtype not in (torch.bfloat16, torch.float16):
+        raise TypeError(f"deform_conv2d: the fused kernel takes bfloat16/float16 x, got {x.dtype}")
+    if C % 32 or F % 8 or w.data_ptr() % 16 or w.device != x.device:
+        raise ValueError(f"deform_conv2d: the fused kernel takes Cin a multiple of 32 and F of 8 on x's "
+                         f"device; got Cin={C}, F={F}")
+    off = offsets.to(torch.float32).contiguous()
+    msk = mask.to(torch.float32).contiguous()
+    out = torch.empty((B, Ho, Wo, F), dtype=x.dtype, device=x.device)
+    lib = native.load()
+    with torch.cuda.device(x.device):
+        err = lib.deform_conv_fused_forward(
+            x.data_ptr(), DTYPE_CODES[x.dtype], off.data_ptr(), msk.data_ptr(), w.data_ptr(),
+            out.data_ptr(), B, H, W, C, F, stride, native.stream_of(x),
+        )
+    native.check(err, "deform_conv_fused_forward")
+    native.LAUNCHES["deform_conv_fused"] += 1
+    return out
+
+
+def _product(cols, weight):
+    """cols (B, Ho, Wo, 9, C) @ the kernel in cols' dtype -> (B, Ho, Wo, F)."""
+    B, Ho, Wo, _, C = cols.shape
+    w = _kernel_matrix(weight, C).to(cols.dtype)
+    return torch.matmul(cols.reshape(B * Ho * Wo, TAPS * C), w).reshape(B, Ho, Wo, -1)
+
+
+class _DeformConv2d(torch.autograd.Function):
+    """The layer's forward by dtype and F (see :func:`deform_conv2d`); the
+    backward recomputes the columns (no columns are saved), takes d_cols =
+    d_out @ W^T and dW = cols^T @ d_out by ``torch.matmul`` in x's dtype, then
+    the sampling's backward (the gather kernel on CUDA, the plain backward on
+    the CPU)."""
+
+    @staticmethod
+    def forward(ctx, x, offsets, mask, weight, stride):
+        ctx.stride = stride
+        ctx.save_for_backward(x, offsets, mask, weight)
+        # the product runs in x's dtype, whatever autocast the caller runs under
+        with torch.autocast(x.device.type, enabled=False):
+            if x.device.type == "cpu":
+                return deform_conv2d_plain(x, offsets, mask, weight, stride)
+            if uses_fused_kernel(x.dtype, weight.shape[-1]):
+                return _fused_cuda(x, offsets, mask, weight, stride)
+            return _product(_forward_cuda(x, offsets, mask, stride), weight)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        x, offsets, mask, weight = ctx.saved_tensors
+        cpu = x.device.type == "cpu"
+        cols = (deform_conv_sample_plain if cpu else _forward_cuda)(x, offsets, mask, ctx.stride)
+        B, Ho, Wo, _, C = cols.shape
+        w = _kernel_matrix(weight, C).to(x.dtype)
+        g = d_out.reshape(B * Ho * Wo, -1).to(x.dtype)
+        d_w = None
+        if ctx.needs_input_grad[3]:
+            d_w = torch.matmul(cols.reshape(B * Ho * Wo, TAPS * C).t(), g).reshape(weight.shape).to(weight.dtype)
+        del cols
+        d_cols = torch.matmul(g, w.t()).reshape(B, Ho, Wo, TAPS, C)
+        backward = deform_conv_sample_backward_plain if cpu else _backward_cuda
+        d_x, d_off, d_mask = backward(x, offsets, mask, ctx.stride, d_cols, need_x=ctx.needs_input_grad[0])
+        grads = (d_x, d_off, d_mask)
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), d_w, None)
+
+
+def deform_conv2d(
+    x: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor, stride: int
+) -> torch.Tensor:
+    """The differentiable DCNv2 layer; same contract as
+    :func:`deform_conv2d_plain`, the output in x's dtype.
+
+    The forward's route is chosen by the tensors' device, x's dtype and the
+    kernel's F alone (:func:`uses_fused_kernel`), never on a failure:
+
+    * CPU tensors: :func:`deform_conv2d_plain`;
+    * CUDA, x bfloat16 or float16 (serving and training under autocast) and
+      F a multiple of 8 up to :data:`FUSED_MAX_F`: the fused kernel
+      (``csrc/deform_conv_gemm.cu``, counted as ``deform_conv_fused``), the
+      sampling and the product on the tensor cores;
+    * CUDA, any other layer (x float32, or F above 128 or not a multiple of
+      8): the columns kernel (counted as ``deform_conv``), then
+      ``torch.matmul`` in x's dtype.  At F = 256 and 512 (R50-DCN's stages
+      3-4) this is faster than the fused kernel on an H100.
+
+    Both CUDA routes take Cin in (32, 64, 128) or a multiple of 256, the
+    columns kernel's set, which the backward's recompute also needs.
+
+    The backward recomputes the columns (one ``deform_conv`` launch on
+    CUDA), takes the two products by ``torch.matmul`` and runs the gather
+    backward (``deform_conv_backward``).  The kernel is cast to x's dtype;
+    its gradient comes back in its own dtype, as do those of offsets and
+    mask.
+    """
+    return _DeformConv2d.apply(x, offsets, mask, weight, int(stride))

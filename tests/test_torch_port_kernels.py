@@ -46,12 +46,13 @@ def test_library_path_tracks_the_sources():
     assert path.parent.parent == native.BUILD_ROOT
     assert {p.name for p in native.CSRC_DIR.glob("*.cu")} == {
         "msda.cu", "msda_backward.cu", "grid_nms.cu", "hungarian.cu", "nms_keep.cu",
-        "gather_sum.cu", "weighted_reduce.cu", "corner_collapse.cu", "deform_conv.cu", "msda_q8.cu",
+        "gather_sum.cu", "weighted_reduce.cu", "corner_collapse.cu", "deform_conv.cu", "deform_conv_gemm.cu",
+        "msda_q8.cu",
     }
     assert set(native.LAUNCHES) == {
         "msda", "msda_backward", "grid_nms", "hungarian", "nms_keep",
         "gather_sum", "weighted_reduce", "corner_collapse_blocked", "corner_collapse_packed",
-        "deform_conv", "deform_conv_backward", "msda_q8_quantize", "msda_q8_sample",
+        "deform_conv", "deform_conv_backward", "deform_conv_fused", "msda_q8_quantize", "msda_q8_sample",
     }
 
 
@@ -730,11 +731,21 @@ def test_deform_conv_backward_gather_long_lists(cuda):
 
 @pytest.mark.gpu
 def test_deform_conv_kernels_reject_what_they_cannot_take(cuda):
-    from salience_detr_torch.ops.deform_conv import deform_conv_sample
+    """The columns kernel's C set, dtypes and layout; the layer's two CUDA
+    routes take the same Cin set (C = 96 is a multiple of 32 but not in it),
+    so that a layer whose forward runs can also run its backward's
+    recompute."""
+    from salience_detr_torch.ops.deform_conv import deform_conv2d, deform_conv_sample
 
     x, offsets, mask = dcn_inputs(cuda, torch.bfloat16, 1, 64)
+    x96 = torch.cat([x, x[..., :32]], -1).contiguous()
+    before = dict(native.LAUNCHES)
+    for F in (96, 256):  # the fused route and the columns route
+        with pytest.raises(ValueError):
+            deform_conv2d(x96, offsets, mask, torch.zeros(9, 96, F, device=cuda), 1)
+    assert native.LAUNCHES == before
     with pytest.raises(TypeError):
-        deform_conv_sample(x.half(), offsets, mask, 1)
+        deform_conv_sample(x.double(), offsets, mask, 1)
     with pytest.raises(ValueError):
         deform_conv_sample(x[..., :48].contiguous(), offsets, mask, 1)  # C=48
     with pytest.raises(ValueError):
@@ -745,11 +756,13 @@ def test_deform_conv_kernels_reject_what_they_cannot_take(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,C", [(8, 256), (4, 32), (4, 128)])
+@pytest.mark.parametrize("H,C", [(8, 256), (4, 32), (4, 128), (1, 256), (16, 256), (32, 256), (2, 64), (8, 64),
+                                 (8, 512), (1, 16), (32, 128), (8, 32), (32, 64), (32, 32)])
 def test_msda_q8_kernels_match_plain(cuda, dtype, H, C):
     """The int8 table and scale bit-exact with the plain quantisation; the
     sampler bit-exact with the plain sampling on the same table (the same
-    IEEE operations in the same order), at borders and in a 1-wide level."""
+    IEEE operations in the same order), at borders and in a 1-wide level;
+    every lane width (16, 8, 4, 2 and 1 int8 channels) among the cases."""
     from salience_detr_torch.ops.deform_attn import (
         ms_deform_attn_q8,
         ms_deform_attn_q8_plain,
@@ -777,3 +790,229 @@ def test_msda_q8_kernels_match_plain(cuda, dtype, H, C):
     assert torch.equal(ms_deform_attn_q8(value, levels, locs, w), ms_deform_attn_q8_plain(value, levels, locs, w))
     assert native.LAUNCHES["msda_q8_quantize"] == before["msda_q8_quantize"] + 2
     assert native.LAUNCHES["msda_q8_sample"] == before["msda_q8_sample"] + 2
+
+
+@pytest.mark.gpu
+def test_msda_q8_sampler_rejects_what_it_cannot_take(cuda):
+    """H must divide C, and C / CPL lanes a query must divide 32 (CPL the
+    largest of 16, 8, 4, 2, 1 dividing C / H)."""
+    from salience_detr_torch.ops.deform_attn import q8_sample
+
+    levels = [(4, 5), (2, 3)]
+    for H, C in ((64, 256), (3, 48), (8, 1024)):
+        table = torch.zeros(1, 26, C, dtype=torch.int8, device=cuda)
+        locs = torch.rand(1, 3, 2, 4, 2, device=cuda)
+        w = torch.rand(1, 3, H, 2, 4, device=cuda)
+        with pytest.raises(ValueError):
+            q8_sample(table, torch.ones(C, device=cuda), levels, locs, w, torch.bfloat16)
+
+
+# ---------------------------------------------------------------- the DCN layer: fused 16-bit forward
+
+
+def dcn_layer_inputs(device, dtype, stride, C, F, B=2, H=13, W=17, seed=20):
+    """dcn_inputs and a kernel (9, C, F) ~ N(0, 1 / (9 C)) in float32."""
+    x, offsets, mask = dcn_inputs(device, dtype, stride, C, B, H, W, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    weight = (torch.randn(9, C, F, generator=g) / (9 * C) ** 0.5).to(device)
+    return x, offsets, mask, weight
+
+
+def fused_errors(got, x, offsets, mask, weight, stride):
+    """The fused output against deform_conv2d_plain on the card (the same
+    columns, cuBLAS's product in x's dtype) and both against the float32
+    product of the same columns: (max |fused - plain|, max |fused - ref|,
+    max |plain - ref|, max |ref|)."""
+    from salience_detr_torch.ops.deform_conv import deform_conv2d_plain, deform_conv_sample_plain
+
+    plain = deform_conv2d_plain(x, offsets, mask, weight, stride)
+    cols = deform_conv_sample_plain(x, offsets, mask, stride)
+    w = weight.reshape(-1, weight.shape[-1]).to(x.dtype).float()
+    ref = torch.matmul(cols.float().reshape(-1, w.shape[0]), w).reshape(got.shape)
+    return (float((got.float() - plain.float()).abs().max()), float((got.float() - ref).abs().max()),
+            float((plain.float() - ref).abs().max()), float(ref.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("C,F", [(32, 32), (64, 64), (128, 128), (256, 256), (64, 200), (32, 8), (512, 512),
+                                 (64, 320), (32, 12)])
+def test_deform_conv_fused_matches_plain(cuda, dtype, stride, C, F):
+    """The fused kernel at any F a multiple of 8, and the layer's route.
+
+    The kernel (one launch, no columns launch): M = 2 * 13 * 17 (stride 1)
+    or 2 * 7 * 9 pixels, not a multiple of the 64-pixel tile, and F = 200, 8
+    or 320 not a multiple of the 128-channel tile; std-2 px offsets put taps
+    outside the image.  The output within one ulp of x's dtype (2^-7 bf16,
+    2^-10 f16, relative) plus 1e-3 of the largest output of the plain layer,
+    and no farther from the float32 product of the same columns than the
+    plain layer's own rounding allows (the final rounding of both, half an
+    ulp, plus the sums' orders).  F = 12 is no multiple of 8: the kernel
+    raises ValueError.
+
+    The route (``deform_conv2d``): F <= 128 and a multiple of 8 the fused
+    kernel alone, its output equal to the kernel's; any other F the columns
+    kernel and torch.matmul, equal to deform_conv2d_plain on the card."""
+    from salience_detr_torch.ops.deform_conv import (
+        _fused_cuda,
+        deform_conv2d,
+        deform_conv2d_plain,
+        uses_fused_kernel,
+    )
+
+    x, offsets, mask, weight = dcn_layer_inputs(cuda, dtype, stride, C, F)
+    fused = uses_fused_kernel(dtype, F)
+    assert fused == (F <= 128 and F % 8 == 0)
+    before = dict(native.LAUNCHES)
+    route = deform_conv2d(x, offsets, mask, weight, stride)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["deform_conv_fused"] == before["deform_conv_fused"] + fused
+    assert native.LAUNCHES["deform_conv"] == before["deform_conv"] + (not fused)
+    assert route.dtype == dtype and route.shape == (*offsets.shape[:3], F)
+    plain = deform_conv2d_plain(x, offsets, mask, weight, stride)
+    if F % 8:
+        with pytest.raises(ValueError):
+            _fused_cuda(x, offsets, mask, weight, stride)
+        assert torch.equal(route, plain)
+        return
+    before = dict(native.LAUNCHES)
+    got = _fused_cuda(x, offsets, mask, weight, stride)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["deform_conv_fused"] == before["deform_conv_fused"] + 1
+    assert native.LAUNCHES["deform_conv"] == before["deform_conv"]
+    assert torch.equal(route, got if fused else plain)
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -10
+    err = (got.float() - plain.float()).abs()
+    assert bool((err <= ulp * plain.float().abs() + 1e-3 * float(plain.float().abs().max())).all())
+    _, to_ref, plain_to_ref, top = fused_errors(got, x, offsets, mask, weight, stride)
+    assert to_ref <= max(plain_to_ref, ulp / 2 * top) * 1.01 + 1e-6
+    out = _fused_cuda(x, torch.full_like(offsets, -500.0), mask, weight, stride)
+    assert not bool(out.any())  # every tap outside the image
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_deform_conv2d_16bit_backward(cuda, dtype, stride):
+    """The backward of the fused route: one columns launch (the recompute)
+    and one gather launch; gradients against autograd of
+    deform_conv2d_plain (the MSDA backward's 16-bit tolerances for d_x, the
+    products' bf16/f16 rounding for the rest: max |d| <= 1e-2 max |ref|)."""
+    from salience_detr_torch.ops.deform_conv import deform_conv2d, deform_conv2d_plain
+
+    x, offsets, mask, weight = dcn_layer_inputs(cuda, dtype, stride, 64, 96, H=15, W=19)
+    inputs = [t.clone().requires_grad_() for t in (x, offsets, mask, weight)]
+    out = deform_conv2d(*inputs, stride)
+    d_out = torch.randn(out.shape, generator=torch.Generator().manual_seed(22)).to(cuda, dtype)
+    before = dict(native.LAUNCHES)
+    out.backward(d_out)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["deform_conv"] == before["deform_conv"] + 1
+    assert native.LAUNCHES["deform_conv_backward"] == before["deform_conv_backward"] + 1
+    assert native.LAUNCHES["deform_conv_fused"] == before["deform_conv_fused"]
+    auto = [t.clone().requires_grad_() for t in (x, offsets, mask, weight)]
+    deform_conv2d_plain(*auto, stride).backward(d_out)
+    for name, a, b in zip(("d_x", "d_offsets", "d_mask", "d_weight"), inputs, auto):
+        assert a.grad.dtype == b.grad.dtype, name
+        err = float((a.grad.float() - b.grad.float()).abs().max())
+        assert err <= 1e-2 * float(b.grad.float().abs().max()) + 1e-5, (name, err)
+
+
+@pytest.mark.gpu
+def test_deform_conv2d_float32_route(cuda):
+    """float32 x: the columns kernel and torch.matmul (TF32 off), no fused
+    launch; forward and gradients against the plain layer at the f32
+    tolerances."""
+    from salience_detr_torch.ops.deform_conv import deform_conv2d, deform_conv2d_plain
+
+    x, offsets, mask, weight = dcn_layer_inputs(cuda, torch.float32, 2, 64, 64)
+    inputs = [t.clone().requires_grad_() for t in (x, offsets, mask, weight)]
+    before = dict(native.LAUNCHES)
+    out = deform_conv2d(*inputs, 2)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["deform_conv"] == before["deform_conv"] + 1
+    assert native.LAUNCHES["deform_conv_fused"] == before["deform_conv_fused"]
+    auto = [t.clone().requires_grad_() for t in (x, offsets, mask, weight)]
+    want = deform_conv2d_plain(*auto, 2)
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-4)
+    d_out = torch.randn(out.shape, generator=torch.Generator().manual_seed(23)).to(cuda)
+    out.backward(d_out)
+    want.backward(d_out)
+    assert native.LAUNCHES["deform_conv"] == before["deform_conv"] + 2
+    assert native.LAUNCHES["deform_conv_backward"] == before["deform_conv_backward"] + 1
+    for name, a, b in zip(("d_x", "d_offsets", "d_mask", "d_weight"), inputs, auto):
+        err = float((a.grad - b.grad).abs().max())
+        assert err <= 1e-5 * float(b.grad.abs().max()) + 1e-6, (name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stride,C", [(1, 32), (2, 128), (1, 256)])
+def test_deform_conv_kernels_float16(cuda, stride, C):
+    """The columns kernel and the gather backward in float16: the columns
+    bit-equal to the plain version's (one rounding of the same f32 sums), the
+    gradients within the 16-bit tolerances of the plain backward and
+    autograd of the plain forward."""
+    from salience_detr_torch.ops.deform_conv import (
+        _backward_cuda,
+        deform_conv_sample,
+        deform_conv_sample_plain,
+    )
+
+    x, offsets, mask = dcn_inputs(cuda, torch.float16, stride, C, H=19, W=23)
+    got = deform_conv_sample(x, offsets, mask, stride)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float16 and torch.equal(got, deform_conv_sample_plain(x, offsets, mask, stride))
+    d_cols = torch.randn(got.shape, generator=torch.Generator().manual_seed(24)).to(cuda, torch.float16)
+    grads = _backward_cuda(x, offsets, mask, stride, d_cols)
+    torch.cuda.synchronize()
+    assert grads[0].dtype == torch.float16
+    assert_dcn_grads_close(grads, dcn_backward_refs(x, offsets, mask, stride, d_cols))
+
+
+@pytest.mark.gpu
+def test_tiny_r50_dcn_train_step_in_float16(cuda):
+    """A small DCN model (stages 2-4 deformable, F = 128, 256, 512) trains
+    one step under float16 autocast through the DCN kernels: finite losses;
+    the two F = 128 layers one fused launch each, the four others one
+    columns launch each, every layer one columns launch (the recompute) and
+    one gather launch in backward; every DCN parameter with a nonzero
+    gradient moves."""
+    from salience_detr_torch.models.bricks.deform_conv import DeformConv2dPack
+    from salience_detr_torch.models.factory import SalienceDETRConfig
+    from salience_detr_torch.train import TRAIN_CONFIG, Trainer
+    from salience_detr_torch.utils.config import Config
+
+    cfg = SalienceDETRConfig(
+        backbone="resnet18", embed_dim=32, num_classes=5, num_queries=24, num_encoder_layers=2,
+        num_decoder_layers=2, num_heads=4, dim_feedforward=64, topk_sa=12, layer_filter_ratio=(1.0, 0.5),
+        max_num_embedding=16, encoder_sampling_groups=1, min_size=96, max_size=128,
+        select_box_nums_for_evaluation=20, denoising_nums=4, stage_with_dcn=(False, True, True, True),
+        dtype=torch.float16)
+    tc = Config(str(TRAIN_CONFIG), max_gt=6, train_canvas=(96, 128)).to_dict()
+    trainer = Trainer(cfg, "cuda", seed=6, steps_per_epoch=1, train_cfg=tc)
+    layers = [m for m in trainer.model.modules() if isinstance(m, DeformConv2dPack)]
+    g = torch.Generator().manual_seed(20)
+    with torch.no_grad():  # move the taps off the pixel grid (zero offset convs at init)
+        for m in layers:
+            for p in (m.conv_offset.weight, m.conv_mask.weight):
+                p.copy_(torch.randn(p.shape, generator=g).to(p.device) * 0.05)
+    before = {n: p.detach().clone() for n, p in trainer.model.named_parameters() if ".conv2." in n}
+    batch = next(trainer.batches(1, seed=6, counts=(3, 1)))
+    counts = dict(native.LAUNCHES)
+    metrics = trainer.step(batch, trainer.generator)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(v).all()) for v in metrics.values()), metrics
+    n = len(layers)
+    assert n == 6 and sorted(m.deform_conv2d.weight.shape[0] for m in layers) == [128, 128, 256, 256, 512, 512]
+    want = {"deform_conv_fused": 2, "deform_conv": (n - 2) + n, "deform_conv_backward": n}
+    assert {key: native.LAUNCHES[key] - counts[key] for key in want} == want
+    params = dict(trainer.model.named_parameters())
+    dcn = [k for k in before
+           if k.startswith("backbone.") and any(s in k for s in ("conv_offset", "conv_mask", "deform_conv2d"))]
+    assert len(dcn) == 5 * n
+    for k in dcn:
+        if params[k].grad is not None and float(params[k].grad.abs().max()) > 0:
+            assert not torch.equal(params[k].detach(), before[k]), k
+    assert all(params[k].grad is not None and float(params[k].grad.abs().max()) > 0
+               for k in dcn if "deform_conv2d" in k)

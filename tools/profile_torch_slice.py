@@ -61,6 +61,7 @@ CATEGORIES = [
     # B6 backward: the gather's seven kernels (and the earlier design's name)
     ("deform_conv_backward", r"deform_conv_backward_kernel|dcn_(zero|count|scan_sums|scan_offsets|place|gather|"
                              r"combine)_kernel"),
+    ("deform_conv_fused", r"deform_conv_fused_kernel"),
     ("deform_conv", r"deform_conv_forward_kernel"),
     ("msda", r"msda_forward_kernel"),
     ("msda_backward", r"msda_backward_kernel"),
