@@ -95,8 +95,8 @@ non-zero exit and no result line:
 17. deform_conv (after phase 15): the DCNv2 kernels (B6) at each distinct
    DCN layer shape of the R50-DCN config (B=4, 800x1344 canvas; stages 2-4,
    stride 2 and 1) on offsets spanning a few pixels (some taps outside the
-   image) and masks in (0, 1): the columns kernel against its plain version
-   in float32 (TF32 off) and bfloat16, the backward against the plain
+   image) and masks in (0, 1): the columns kernel bitwise equal to its plain
+   version in float32 (TF32 off) and bfloat16, the backward against the plain
    backward and autograd of the plain forward; times, bounds and
    F.grid_sample's times (the library yardstick); then the 16-bit layer
    (``deform_conv_fused:``, a (9, C, C) kernel): ``deform_conv2d``'s route
@@ -108,7 +108,8 @@ non-zero exit and no result line:
    parts, the plain time and the bound at the bf16 tensor-core rate; the
    totals over the 13 layers of the kernel, of the parent's path and of the
    route.  With ``--baseline-csrc``, each directory's DCN kernels timed in
-   turns with these (``dcn_ab:``; the backward as whole calls, each
+   turns with these (``dcn_ab:``; the columns kernel launch only, its output
+   held equal, with its share of the bound; the backward as whole calls, each
    baseline's gradients held against the plain backward; the fused kernel
    against the baseline's columns kernel + torch.matmul);
 17b. dcn_captured: the backward on the inputs of the 13 DCN layers of one
@@ -140,7 +141,8 @@ non-zero exit and no result line:
    and scale exactly equal to the plain quantisation's, the sampler bitwise
    equal to its plain version, the result against K1 within the quantisation
    bound; times, K1's time and bounds.  With ``--baseline-csrc``, ``q8_ab:``
-   lines (the samplers in turns);
+   lines (the quantise kernels in turns, their tables and scales held equal,
+   with their shares of the bound; the samplers in turns);
 22. serve_q8: the flagship served with MSDA_GATHER_QUANT=int8 (the JAX
    package's switch): per forward 6 quantise, 6 int8 sample, 6 MSDA (the
    decoder) and 1 grid-NMS launch; identical reruns; the timed batch with
@@ -1220,11 +1222,14 @@ def assignment_launchers(cost, valid, sets):
 
 
 def same_output(run, out, base, new):
+    """Whether ``run`` through ``base`` and through ``new`` leaves the same
+    values in ``out`` (a tensor or a tuple of them)."""
+    outs = out if isinstance(out, tuple) else (out,)
     run(base)
-    first = out.clone()
+    first = [o.clone() for o in outs]
     run(new)
     torch.cuda.synchronize()
-    return torch.equal(first, out)
+    return all(torch.equal(a, b) for a, b in zip(first, outs))
 
 
 def phase_nms_assignment_captured(smi, baselines, assignment):
@@ -2147,8 +2152,9 @@ def dcn_fused_checks(x32, offsets, mask, stride, gen, bases, smi):
 def phase_deform_conv(smi, baselines=()):
     """B6 at each distinct DCN layer shape of R50-DCN (B=4, 800x1344 canvas):
     x normal, offsets normal with std 2 px (taps off the pixel grid, some
-    outside the image), masks uniform in (0, 1).  The forward kernel against
-    its plain version in f32 (TF32 off) and bf16; the backward kernel against
+    outside the image), masks uniform in (0, 1).  The forward kernel bitwise
+    equal to its plain version in f32 (TF32 off) and bf16 (any element off
+    fails the phase); the backward kernel against
     the plain backward and autograd of the plain forward; times of both (bf16,
     with the wrapper; the kernels' and F.grid_sample's by ``steady_ms``),
     their plain versions and F.grid_sample, bounds, and
@@ -2156,7 +2162,8 @@ def phase_deform_conv(smi, baselines=()):
     errors and (ms, plain ms, bound ms, bound by, library ms) of each kernel
     at DCN_HOT.  With ``--baseline-csrc``, each directory's DCN kernels are
     timed in turns with these at every shape (``dcn_ab:``): the forward
-    launch only, the backward as whole calls (``dcn_backward_call``), the
+    launch only (its columns held equal to this one's; each kernel's share of
+    the bound), the backward as whole calls (``dcn_backward_call``), the
     baseline's gradients held against the plain backward first."""
     t0 = time.perf_counter()
     dev = torch.device("cuda")
@@ -2182,9 +2189,9 @@ def phase_deform_conv(smi, baselines=()):
             torch.cuda.synchronize()
             max_abs, _, bad, atol, rtol = compare(got, want, dtype)
             exact = int((got != want).sum())
-            if bad:
-                raise AssertionError(f"deform_conv forward disagrees with plain at C={C} stride={stride} {dtype}: "
-                                     f"{bad} elements")
+            if bad or exact:
+                raise AssertionError(f"deform_conv forward differs from plain at C={C} stride={stride} {dtype}: "
+                                     f"{exact} elements ({bad} beyond atol {atol} rtol {rtol})")
             fwd_err = max(fwd_err, max_abs)
             del got, want
             d_cols = torch.randn(B, Ho, Wo, 9, C, generator=gen, device=dev).to(dtype)
@@ -2214,16 +2221,18 @@ def phase_deform_conv(smi, baselines=()):
             hot = ((fwd_ms, fwd_plain, fb, fby, lib_ms), (bwd_ms, bwd_plain, bb, bby, lib_bwd_ms))
         print(f"deform_conv: C={C} x {B}x{H}x{W} stride={stride} -> {Ho}x{Wo}, {count} layer(s) of R50-DCN; "
               f"in-image corners {in_image:.4f}; {'; '.join(parts)}; bf16 forward kernel_ms={fwd_ms:.4f} "
-              f"plain_ms={fwd_plain:.4f} bound_ms={fb:.4f} ({fby}) library_ms={lib_ms:.4f} (grid_sample f32, "
-              f"max_abs_err vs plain without mask {lib_err:.3e}; bf16 grid {lib_bf16_ms:.4f}); backward "
+              f"plain_ms={fwd_plain:.4f} bound_ms={fb:.4f} ({fby}), share {fb / fwd_ms:.3f} library_ms={lib_ms:.4f} "
+              f"(grid_sample f32, max_abs_err vs plain without mask {lib_err:.3e}; bf16 grid {lib_bf16_ms:.4f}); backward "
               f"kernel_ms={bwd_ms:.4f} plain_ms={bwd_plain:.4f} bound_ms={bb:.4f} ({bby}) library_ms={lib_bwd_ms:.4f} "
               f"(grid_sample autograd f32; bf16 {lib_bwd_bf16_ms:.4f}); card: {smi}")
         for base_dir, base in bases:
             parts = []
             if hasattr(base, "deform_conv_forward"):
                 forward, cols = dcn_forward_launcher(x, offsets, mask, stride)
-                parts.append(f"forward ms base/new/new/base {[round(v, 4) for v in in_turns(forward, base, new, 20)]} "
-                             f"same_output={same_output(forward, cols, base, new)} bound {fb:.4f}")
+                turns = in_turns(forward, base, new, 20)
+                parts.append(f"forward ms base/new/new/base {[round(v, 4) for v in turns]} "
+                             f"same_output={same_output(forward, cols, base, new)} bound {fb:.4f}, share base "
+                             f"{2 * fb / (turns[0] + turns[3]):.3f} new {2 * fb / (turns[1] + turns[2]):.3f}")
             if any(hasattr(base, e) for e in DCN_BACKWARD_ENTRIES):
                 backward = dcn_backward_call(x, offsets, mask, stride, d_cols)
                 err = check_dcn_grads(backward(base), x, offsets, mask, stride, d_cols, f"baseline {base_dir}")
@@ -2459,7 +2468,7 @@ def q8_launchers(value, locs5, weights):
                                         attn32.data_ptr(), out.data_ptr(), bf16, B, S, Q, C, H, P, stream),
                      "msda_q8_sample")
 
-    return quantize, sample, table, out
+    return quantize, sample, (table, scale), out
 
 
 def phase_msda_q8(smi, baselines=()):
@@ -2474,8 +2483,9 @@ def phase_msda_q8(smi, baselines=()):
     error and the captured inputs' (ms, plain ms, bound, bound by) of both
     kernels.
     With ``--baseline-csrc``, each directory's int8 kernels are timed launch
-    only in turns with these (``q8_ab:``; the sampler's output of each
-    baseline compared with this one's)."""
+    only in turns with these (``q8_ab:``; each baseline's table and scale,
+    and its sampler's output, compared with this one's; the quantise's share
+    of its bound)."""
     t0 = time.perf_counter()
     new = native.load()
     bases = [(d, baseline_library(d)) for d in baselines]
@@ -2538,9 +2548,11 @@ def phase_msda_q8(smi, baselines=()):
             timing = ((q_ms, q_plain, *q_bound), (s_ms, s_plain, *s_bound))
         for base_dir, base in bases:
             quantize, sample, q_out, s_out = q8_launchers(value, locs5, weights)
+            turns = in_turns(quantize, base, new, 20)
             print(f"q8_ab: {name} baseline={base_dir}: quantise ms base/new/new/base "
-                  f"{[round(v, 4) for v in in_turns(quantize, base, new, 20)]} same_output="
-                  f"{same_output(quantize, q_out, base, new)}; sample ms base/new/new/base "
+                  f"{[round(v, 4) for v in turns]} same_output={same_output(quantize, q_out, base, new)} "
+                  f"bound {q_bound[0]:.4f}, share base {2 * q_bound[0] / (turns[0] + turns[3]):.3f} new "
+                  f"{2 * q_bound[0] / (turns[1] + turns[2]):.3f}; sample ms base/new/new/base "
                   f"{[round(v, 4) for v in in_turns(sample, base, new, 20)]} same_output="
                   f"{same_output(sample, s_out, base, new)}; card: {smi}")
         del table, scale, want_table, want_scale, got, want, k1

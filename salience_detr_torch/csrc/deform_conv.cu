@@ -11,13 +11,15 @@
 // (B, Ho, Wo, 18) f32 with (dy, dx) interleaved per tap, mask (B, Ho, Wo, 9)
 // f32.  Tap k = 3 * (ky + 1) + (kx + 1) of output pixel (ho, wo) samples at
 // py = (ho * stride + ky) + dy, px = (wo * stride + kx) + dx in pixel units;
-// its 4 bilinear corners outside the image have weight 0 and are neither read
-// nor written.  Forward: cols[b, ho, wo, k, :] = mask * sum over corners of
-// (wx * wy) * x[corner, :], summed in f32 corner by corner in the order (0,
-// 0), (0, 1), (1, 0), (1, 1) without fused multiply-adds, rounded once to x's
-// dtype: float32, bfloat16 or float16 (the plain version's arithmetic,
-// operation for operation).  Backward,
-// with g = d_cols * mask: d_x[corner] += (wx * wy) * g; d_mask = <d_cols,
+// its 4 bilinear corners outside the image have weight 0.  Forward:
+// cols[b, ho, wo, k, :] = mask * sum over corners of (wx * wy) * x[corner,
+// :], summed in f32 corner by corner in the order (0, 0), (0, 1), (1, 0),
+// (1, 1) without fused multiply-adds, rounded once to x's dtype: float32,
+// bfloat16 or float16.  A corner outside the image is weighed 0 against x
+// at its address clamped into the image, as the plain version (and the JAX
+// package) does, so that the forward equals the plain version bit for bit
+// for any x (0 * inf is NaN in both).  Backward, with g = d_cols * mask:
+// d_x[corner] += (wx * wy) * g over the in-image corners; d_mask = <d_cols,
 // sample>; d_offsets (dy, dx) = sum over corners of <g, x[corner]> times d
 // (wx * wy) / d (py, px) = (+-wx, +-wy).
 //
@@ -27,9 +29,17 @@
 // corners, mostly from L1/L2); the backward reads that many bytes of d_cols
 // and writes d_x, 17-69 MB in x's dtype.
 //
-// The forward takes one warp per output pixel (b, ho, wo), its lanes holding
-// CPL = min(8, C / 32) adjacent channels (looping over C / (32 * CPL)
-// chunks), so that every corner row and column row is one coalesced request.
+// What the forward's design does about it: every lane moves 16 bytes a
+// load and a store at every C (a group of C / 8 lanes per output pixel in
+// 16-bit types up to C = 256, so a warp takes 2 pixels at C = 128, and a
+// warp per (pixel, 256-channel chunk) above; C / 4 lanes and 128-channel
+// chunks in f32); the corners are predicated (clamped addresses, weight 0
+// outside the image), so the 12 corner loads of 3 taps issue before any sum
+// and each tap's loads wait on no branch; the columns are stored streaming
+// (st.global.cs), keeping the input rows in L2 for the corners that read
+// them again.  The first design took a warp per pixel with 8-byte lanes at
+// C = 128, skipped outside corners by branches and walked C = 512 in two
+// chunks a warp.
 //
 // The backward is a pull: each input pixel's d_x row is summed by one warp
 // in registers and stored once, in x's dtype, with no atomic add of a float.
@@ -118,61 +128,119 @@ __device__ __forceinline__ int warp_min(int v) {
   return v;
 }
 
-// One warp per output pixel (b, ho, wo), its 9 taps in turn: lanes 0-17
-// load the pixel's offsets and lanes 0-8 its masks once, and each tap takes
-// its three values by shuffles, so the taps' corner loads do not wait on
-// their own offset loads and can be in flight together.
-template <typename T, int CPL>
+// The pixel's 18 offsets and 9 masks, "slots" 0-17 and 18-26, spread over
+// the G lanes of its group: lane j of the group holds slots j, j + G, ...,
+// so that every value is loaded once per group; a tap takes its values by
+// shuffles within the group.
+template <int G>
+struct TapSlots {
+  static constexpr int kRegs = (2 * kTaps + kTaps + G - 1) / G;
+  float v[kRegs];
+
+  __device__ __forceinline__ void load(const float* __restrict__ offsets,
+                                       const float* __restrict__ mask, int64_t pix, int sub) {
+#pragma unroll
+    for (int r = 0; r < kRegs; ++r) {
+      const int s = sub + r * G;
+      v[r] = s < 2 * kTaps   ? __ldg(offsets + pix * 2 * kTaps + s)
+             : s < 3 * kTaps ? __ldg(mask + pix * kTaps + s - 2 * kTaps)
+                             : 0.f;
+    }
+  }
+
+  // slot s (a compile-time constant once the tap loop is unrolled) from the
+  // group's lane s % G
+  __device__ __forceinline__ float get(int s) const {
+    return __shfl_sync(kFull, v[s / G], s % G, G);
+  }
+};
+
+// The corners of kTapGroup taps, issued together: each corner's address is
+// clamped into the image and a corner outside it keeps weight 0 (the plain
+// version's where(valid, wx * wy, 0) times the clamped row), so no load
+// waits on a validity test and 4 * kTapGroup 16-byte loads are in flight.
+constexpr int kTapGroup = 3;
+
+// A group of G lanes per (output pixel, chunk of G * VEC channels), VEC =
+// 16 / sizeof(T) channels a lane: every corner row and column row is one
+// 16-byte load or store a lane, a group covering G * 16 contiguous bytes;
+// 32 / G items a warp.  The sums are the plain version's operations in its
+// order: per tap w00 * v00 + w01 * v01 + w10 * v10 + w11 * v11, left to
+// right, each product and sum rounded (no FMA), then times the mask, then
+// rounded once to T.  The columns are stored streaming (st.global.cs), so
+// that they do not evict from L2 the input rows that later pixels' corners
+// read again.
+template <typename T, int G>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 deform_conv_forward_kernel(const T* __restrict__ x, const float* __restrict__ offsets,
                            const float* __restrict__ mask, T* __restrict__ cols, int B, int H,
-                           int W, int C, int Ho, int Wo, int stride) {
-  const int64_t pix = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / 32;
-  if (pix >= static_cast<int64_t>(B) * Ho * Wo) return;
+                           int W, int C, int Ho, int Wo, int stride, int chunks) {
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  const int64_t items = static_cast<int64_t>(B) * Ho * Wo * chunks;
+  const int64_t warp_item = (static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / 32) *
+                            (32 / G);
+  if (warp_item >= items) return;  // whole warps: the shuffles below take every lane
   const int lane = threadIdx.x & 31;
+  const int sub = lane % G;
+  const int64_t mine = warp_item + lane / G;
+  const bool live = mine < items;  // a group past the end redoes the last item, storing nothing
+  const int64_t item = live ? mine : items - 1;
+  const int64_t pix = item / chunks;
+  const int c0 = static_cast<int>(item % chunks) * (G * VEC) + sub * VEC;
   const int wo = static_cast<int>(pix % Wo);
   const int ho = static_cast<int>((pix / Wo) % Ho);
   const int b = static_cast<int>(pix / (static_cast<int64_t>(Wo) * Ho));
-  const float my_off = lane < 2 * kTaps ? __ldg(offsets + pix * 2 * kTaps + lane) : 0.f;
-  const float my_mask = lane < kTaps ? __ldg(mask + pix * kTaps + lane) : 0.f;
-  const T* x_b = x + static_cast<int64_t>(b) * H * W * C;
+  TapSlots<G> slots;
+  slots.load(offsets, mask, pix, sub);
+  const T* x_b = x + static_cast<int64_t>(b) * H * W * C + c0;
+  T* out = cols + pix * kTaps * C + c0;
 
-#pragma unroll 3
-  for (int k = 0; k < kTaps; ++k) {
-    const float oy = __shfl_sync(0xffffffffu, my_off, 2 * k);
-    const float ox = __shfl_sync(0xffffffffu, my_off, 2 * k + 1);
-    const float m = __shfl_sync(0xffffffffu, my_mask, k);
-    const float py = __fadd_rn(static_cast<float>(ho * stride + k / 3 - 1), oy);
-    const float px = __fadd_rn(static_cast<float>(wo * stride + k % 3 - 1), ox);
-    const float y = fminf(fmaxf(py, -2.f), H + 1.f);
-    const float xf = fminf(fmaxf(px, -2.f), W + 1.f);
-    const float y0f = floorf(y), x0f = floorf(xf);
-    const int y0 = static_cast<int>(y0f), x0 = static_cast<int>(x0f);
-    const float fy = __fsub_rn(y, y0f), fx = __fsub_rn(xf, x0f);
-    T* out = cols + (pix * kTaps + k) * C;
-    for (int c0 = lane * CPL; c0 < C; c0 += 32 * CPL) {
-      float acc[CPL];
 #pragma unroll
-      for (int i = 0; i < CPL; ++i) acc[i] = 0.f;
+  for (int k0 = 0; k0 < kTaps; k0 += kTapGroup) {
+    uint4 raw[kTapGroup][4];
+    float w[kTapGroup][4];
+#pragma unroll
+    for (int t = 0; t < kTapGroup; ++t) {
+      const int k = k0 + t;
+      const float py = __fadd_rn(static_cast<float>(ho * stride + k / 3 - 1), slots.get(2 * k));
+      const float px = __fadd_rn(static_cast<float>(wo * stride + k % 3 - 1), slots.get(2 * k + 1));
+      const float y = fminf(fmaxf(py, -2.f), H + 1.f);
+      const float xf = fminf(fmaxf(px, -2.f), W + 1.f);
+      const float y0f = floorf(y), x0f = floorf(xf);
+      const int y0 = static_cast<int>(y0f), x0 = static_cast<int>(x0f);
+      const float fy = __fsub_rn(y, y0f), fx = __fsub_rn(xf, x0f);
 #pragma unroll
       for (int dy = 0; dy < 2; ++dy) {
         const int cy = y0 + dy;
-        if (cy < 0 || cy >= H) continue;
         const float wy = dy ? fy : __fsub_rn(1.f, fy);
 #pragma unroll
         for (int dx = 0; dx < 2; ++dx) {
           const int cx = x0 + dx;
-          if (cx < 0 || cx >= W) continue;
-          const float w = __fmul_rn(dx ? fx : __fsub_rn(1.f, fx), wy);
-          float v[CPL];
-          load_chunk<T, CPL>(x_b + (static_cast<int64_t>(cy) * W + cx) * C + c0, v);
-#pragma unroll
-          for (int i = 0; i < CPL; ++i) acc[i] = __fadd_rn(acc[i], __fmul_rn(w, v[i]));
+          const bool valid = cy >= 0 && cy < H && cx >= 0 && cx < W;
+          w[t][2 * dy + dx] = valid ? __fmul_rn(dx ? fx : __fsub_rn(1.f, fx), wy) : 0.f;
+          const int row = min(max(cy, 0), H - 1) * W + min(max(cx, 0), W - 1);
+          raw[t][2 * dy + dx] = __ldg(reinterpret_cast<const uint4*>(x_b + static_cast<int64_t>(row) * C));
         }
       }
+    }
 #pragma unroll
-      for (int i = 0; i < CPL; ++i) acc[i] = __fmul_rn(acc[i], m);
-      store_chunk<T, CPL>(out + c0, acc);
+    for (int t = 0; t < kTapGroup; ++t) {
+      float acc[VEC];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const T* e = reinterpret_cast<const T*>(&raw[t][c]);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          const float term = __fmul_rn(w[t][c], to_float(e[i]));
+          acc[i] = c ? __fadd_rn(acc[i], term) : term;
+        }
+      }
+      const float m = slots.get(2 * kTaps + k0 + t);
+      uint4 packed;
+      T* e = reinterpret_cast<T*>(&packed);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) e[i] = from_float<T>(__fmul_rn(acc[i], m));
+      if (live) __stcs(reinterpret_cast<uint4*>(out + (k0 + t) * C), packed);
     }
   }
 }
@@ -528,13 +596,15 @@ dcn_combine_kernel(const float* __restrict__ offsets, const float* __restrict__ 
   d_mask[item] = dm;
 }
 
-template <typename T, int CPL>
+template <typename T, int G>
 void launch_forward(const void* x, const float* offsets, const float* mask, void* cols, int B,
                     int H, int W, int C, int Ho, int Wo, int stride, cudaStream_t s) {
-  const int64_t warps = static_cast<int64_t>(B) * Ho * Wo;
+  const int chunks = C / (G * (16 / static_cast<int>(sizeof(T))));
+  const int64_t warps = (static_cast<int64_t>(B) * Ho * Wo * chunks + 32 / G - 1) / (32 / G);
   const unsigned blocks = static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  deform_conv_forward_kernel<T, CPL><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
-      static_cast<const T*>(x), offsets, mask, static_cast<T*>(cols), B, H, W, C, Ho, Wo, stride);
+  deform_conv_forward_kernel<T, G><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
+      static_cast<const T*>(x), offsets, mask, static_cast<T*>(cols), B, H, W, C, Ho, Wo, stride,
+      chunks);
 }
 
 // channels per lane: 1, 2, 4 for C = 32, 64, 128; 8 for multiples of 256
@@ -550,14 +620,18 @@ inline int gather_channels(int C) {
   return C <= 512 ? C / 32 : 8;
 }
 
+// the forward's lanes per item: C / VEC up to a whole warp (C = 32, 64,
+// 128: 4, 8, 16 lanes in 16-bit types, 8, 16, 32 in f32), then chunks of 32
+// * VEC channels (256 in 16-bit types, 128 in f32)
 template <typename T>
 int dispatch_forward(const void* x, const float* offsets, const float* mask, void* cols, int B,
                      int H, int W, int C, int Ho, int Wo, int stride, cudaStream_t s) {
-  switch (lane_channels(C)) {
-    case 1: launch_forward<T, 1>(x, offsets, mask, cols, B, H, W, C, Ho, Wo, stride, s); break;
-    case 2: launch_forward<T, 2>(x, offsets, mask, cols, B, H, W, C, Ho, Wo, stride, s); break;
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  switch (C < 32 * VEC ? C / VEC : 32) {
     case 4: launch_forward<T, 4>(x, offsets, mask, cols, B, H, W, C, Ho, Wo, stride, s); break;
     case 8: launch_forward<T, 8>(x, offsets, mask, cols, B, H, W, C, Ho, Wo, stride, s); break;
+    case 16: launch_forward<T, 16>(x, offsets, mask, cols, B, H, W, C, Ho, Wo, stride, s); break;
+    case 32: launch_forward<T, 32>(x, offsets, mask, cols, B, H, W, C, Ho, Wo, stride, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -402,7 +402,8 @@ def ms_deform_attn_q8_plain(
 
 def q8_quantize(value: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`q8_quantize_plain` on a CPU tensor; on CUDA the quantise kernel
-    (the absmax pass, then the table pass), or raise."""
+    (one cooperative launch: the absmax pass, a grid barrier, the table
+    pass), or raise.  The kernel takes the absmax scratch zeroed."""
     if value.device.type == "cpu":
         return q8_quantize_plain(value)
     if value.device.type != "cuda":

@@ -27,7 +27,9 @@ Ho, Wo, 18) with (dy, dx) interleaved per tap; mask (B, Ho, Wo, 9); columns
 Taps run row-major over (ky, kx) in {-1, 0, 1}^2 and sample at pixel
 ``(ho * stride + ky + dy, wo * stride + kx + dx)`` (pixel units, no
 half-pixel shift), with 4 bilinear corners and zero padding: a corner outside
-the image has weight 0 and is never read (nor written by the backward).  The
+the image has weight 0, times x at its address clamped into the image in the
+forward (as the JAX package's ``_bilinear_sample_map`` takes it), and is not
+written by the backward.  The
 sample is summed in float32, multiplied by the mask and rounded once to x's
 dtype (float32, bfloat16 or float16 on the card).
 """
@@ -269,7 +271,8 @@ def deform_conv_sample(
     (``csrc/deform_conv.cu``); same contract as :func:`deform_conv_sample_plain`.
 
     On CUDA, x must be a contiguous float32, bfloat16 or float16 tensor with C in
-    (32, 64, 128) or a multiple of 256 (32 lanes of 1, 2, 4 or 8 channels);
+    (32, 64, 128) or a multiple of 256 (the forward's lanes hold 16 bytes of
+    channels each, C / 8 or C / 4 of them a pixel up to a warp);
     offsets and mask are cast to float32 for the kernels, since autocast does
     not reach a kernel call, and their gradients come back in their dtypes.
     """

@@ -807,6 +807,86 @@ def test_msda_q8_sampler_rejects_what_it_cannot_take(cuda):
             q8_sample(table, torch.ones(C, device=cuda), levels, locs, w, torch.bfloat16)
 
 
+# the R50-DCN layers at B=4 on the 800x1344 canvas (Cin, input height,
+# width, stride), then narrow Cin at small sizes
+DCN_COLUMN_SHAPES = [(128, 200, 336, 2), (128, 100, 168, 1), (256, 100, 168, 2), (256, 50, 84, 1),
+                     (512, 50, 84, 2), (512, 25, 42, 1), (32, 30, 41, 1), (64, 31, 40, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("C,H,W,stride", DCN_COLUMN_SHAPES)
+def test_deform_conv_columns_bit_equal_to_plain(cuda, C, H, W, stride, dtype):
+    """The columns kernel is the plain version's operations one for one:
+    equal to it in every element, at every lane layout (4, 8, 16 and 32
+    lanes a pixel, 1, 2 and 4 channel chunks), one counted launch."""
+    from salience_detr_torch.ops.deform_conv import deform_conv_sample, deform_conv_sample_plain
+
+    x, offsets, mask = dcn_inputs(cuda, dtype, stride, C, B=4 if H > 31 else 2, H=H, W=W, seed=C + H)
+    before = native.LAUNCHES["deform_conv"]
+    got = deform_conv_sample(x, offsets, mask, stride)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["deform_conv"] == before + 1
+    assert torch.equal(got, deform_conv_sample_plain(x, offsets, mask, stride))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_deform_conv_columns_on_nonfinite_rows(cuda, stride, dtype):
+    """inf and NaN in the top-right and bottom-right pixels, which only the
+    clamped addresses of corners outside the image reach (the right half's
+    taps lie beyond the image; the left half's offsets stay within 1 px):
+    the kernel weighs them 0 as the plain version does, NaN where it has NaN
+    (0 * inf) and equal elsewhere."""
+    from salience_detr_torch.ops.deform_conv import deform_conv_sample, deform_conv_sample_plain
+
+    C, H, W = 64, 9, 11
+    x, offsets, mask = dcn_inputs(cuda, dtype, stride, C, H=H, W=W, seed=23)
+    pairs = offsets.clamp(-1, 1).reshape(*offsets.shape[:-1], 9, 2)
+    right = torch.arange(offsets.shape[2], device=cuda) >= offsets.shape[2] // 2
+    far_y = torch.where(torch.arange(9, device=cuda) % 2 == 0, -30.5, H + 30.5)
+    pairs[:, :, right, :, 0] = far_y
+    pairs[:, :, right, :, 1] = W + 30.25
+    offsets = pairs.reshape(offsets.shape).contiguous()
+    x[:, 0, W - 1, 0::2] = float("inf")
+    x[:, H - 1, W - 1, 1::2] = float("nan")
+    got = deform_conv_sample(x, offsets, mask, stride)
+    want = deform_conv_sample_plain(x, offsets, mask, stride)
+    torch.cuda.synchronize()
+    assert bool(want.isnan().any()) and bool(torch.isfinite(want).any())
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,B,S,C", [("below_one_tile", 1, 3, 256), ("ragged", 3, 337, 256),
+                                        ("zero_channel", 2, 1001, 128), ("narrow", 1, 4099, 64),
+                                        ("narrow", 2, 777, 32), ("one_chunk", 1, 5000, 8),
+                                        ("encoder", 4, 22323, 256)])
+def test_msda_q8_quantize_exact(cuda, dtype, case, B, S, C):
+    """The one-launch quantisation (a persistent cooperative grid) exactly
+    equal to the plain quantisation: fewer rows than one row tile of a
+    block, rows that are no multiple of the blocks' slices, a channel of
+    zeros (scale 1e-20, table 0), C / 8 chunks from 1 to 32; two calls give
+    the same bits, one counted launch each."""
+    from salience_detr_torch.ops.deform_attn import q8_quantize, q8_quantize_plain
+
+    g = torch.Generator().manual_seed(S + C)
+    value = (torch.randn(B, S, C, generator=g) * 3).to(cuda, dtype)
+    if case == "zero_channel":
+        value[..., 5] = 0
+    before = native.LAUNCHES["msda_q8_quantize"]
+    first, second = q8_quantize(value), q8_quantize(value)
+    want_table, want_scale = q8_quantize_plain(value)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["msda_q8_quantize"] == before + 2
+    assert torch.equal(first[0], want_table) and torch.equal(first[1], want_scale)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    if case == "zero_channel":
+        assert float(first[1][5]) == float(torch.tensor(1e-20)) and not bool(first[0][..., 5].any())
+
+
 # ---------------------------------------------------------------- the DCN layer: fused 16-bit forward
 
 
