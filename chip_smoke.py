@@ -66,12 +66,15 @@ non-zero exit and no result line:
 13. msda_groups (after phase 7): K1 and K3 at G=2 and G=4 location groups at
    the encoder's flagship shape (B=4, Q=11403, bf16), against their plain
    versions, with times and bounds;
-14. nms_keep: the greedy NMS keep-mask kernel (K9) against its plain version,
-   exactly, on the post-process boxes of a flagship serve forward (B=4,
-   N=300) at IoU thresholds 0.5 and 0.7, on a chain of boxes, on identical
-   boxes and on random boxes at N = 300, 600 and 1024, with times and bounds;
-   with ``--baseline-csrc``, each directory's keep-mask kernel timed in turns
-   with this one on every case (``keep_ab:``);
+14. nms_keep: the greedy NMS keep-mask kernel (K9, a thread-block cluster
+   an image) against its plain version, exactly, on the post-process boxes
+   of a flagship serve forward (B=4, N=300) at IoU thresholds 0.5 and 0.7,
+   on a chain of boxes, on identical boxes and on random boxes at N = 300,
+   600, 1024, 1400 and 4096, with times (launch only, the fill alone, the
+   wrapper) and bounds, and every placement of the conflict rows at
+   clusters of 8 and 16 blocks held and timed (``nms_keep_variants:``);
+   with ``--baseline-csrc``, each directory's keep-mask kernel timed in
+   turns with this one on every case (``keep_ab:``);
 15. eval: the evaluation path (python -m salience_detr_torch.test) on a
    COCO-format split of 8 .npy images of mixed sizes and orientations written
    under build/chip_smoke_eval/: the flagship in exact mode from a strict load
@@ -90,8 +93,14 @@ non-zero exit and no result line:
    times, bound and one library call of the same function (K6 with f32 and
    bf16 weights, K7 and K8 with f32 and bf16 outputs, K8 with bf16 weights),
    and each of the seven pipelines against K1 within the shootout's check
-   bound (rtol 0.05, atol 0.02).  The serve and train phases' counters show
-   no stage-kernel launch;
+   bound (rtol 0.05, atol 0.02); the K5 part prints the row bytes it reads
+   from L2.  With ``--baseline-csrc``, ``gather_ab:`` lines: each
+   directory's K5 in turns with the shipped one at the hot shape, on the
+   shootout's uniform indices and on level-shaped ones (the corners of its
+   locations), outputs bitwise equal, with both shares of the bound and the
+   L2 row bytes each leaves; the cluster-staged design
+   (salience_detr_torch/tools/gather_cluster) at each staging variant.  The
+   serve and train phases' counters show no stage-kernel launch;
 17. deform_conv (after phase 15): the DCNv2 kernels (B6) at each distinct
    DCN layer shape of the R50-DCN config (B=4, 800x1344 canvas; stages 2-4,
    stride 2 and 1) on offsets spanning a few pixels (some taps outside the
@@ -150,8 +159,9 @@ non-zero exit and no result line:
 23. nms_past_budget (after phase 16, msda_stages): K2 at the 5-scale levels
    of the 800x1344 canvas (S = 89,250, the rank map in shared memory) and of
    a 1344x1344 canvas (S = 149,940, past the shared memory: the rank map in
-   global memory), and K9 at N = 1024 (bitmask in shared memory) and 2048
-   (in global memory), exactly against their plain versions, with times;
+   global memory), and K9 at N = 1024 (the conflict rows in the walking
+   block's shared memory), 1400, 2048 and 4096 (in the filling blocks'),
+   spread and crowded, exactly against their plain versions, with times;
 24. backbone_slice: phases 5 and 9 for the backbone families, small archs
    with stochastic depth 0 registered in the port's tables: the forward
    card-vs-CPU with a ResNeXt, ConvNeXt, Swin v1, Swin v2, FocalNet, ViT and
@@ -245,15 +255,18 @@ from salience_detr_torch.ops.deform_attn import (
 from salience_detr_torch.ops.boxes import box_iou_pairwise
 from salience_detr_torch.ops.hungarian import batched_assignment, batched_assignment_plain
 from salience_detr_torch.ops.nms import (
-    NMS_KEEP_SHARED_MAX_BOXES,
+    NMS_KEEP_ROWS,
+    SMEM_OPTIN_BYTES,
     grid_nms_rank_in_global,
     grid_nms_topk,
     grid_nms_topk_plain,
     nms_keep_mask,
     nms_keep_mask_plain,
+    nms_keep_plan,
+    nms_keep_smem_bytes,
 )
 from salience_detr_torch.parallel.train_step import make_eval_step
-from salience_detr_torch.timing import card_line, cuda_ms
+from salience_detr_torch.timing import card_line, cuda_ms, queued_ms
 from salience_detr_torch.tools import msda_stages as stage_tool
 from salience_detr_torch import train as train_entry
 from salience_detr_torch.parallel import train_step as train_step_module
@@ -959,7 +972,12 @@ def baseline_library(csrc_dir):
     each entry point that the library has is bound by its own C signature
     (``hungarian_forward`` is the earlier assignment kernel's entry point,
     whose cost rows are exactly N floats long; ``deform_conv_backward`` the
-    earlier DCN backward, which adds d_x into a zeroed f32 buffer)."""
+    earlier DCN backward, which adds d_x into a zeroed f32 buffer;
+    ``nms_keep_forward`` and ``nms_keep_forward_global`` the keep-mask
+    kernel of one block an image, N <= 1024 with the bitmask in shared
+    memory and any N with it in a global scratch buffer;
+    ``gather_sum_staged`` the cluster-staged gather-sum of
+    salience_detr_torch/tools/gather_cluster)."""
     lib = ctypes.CDLL(str(native.build(Path(csrc_dir).resolve())))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     if hasattr(lib, "msda_forward"):
@@ -975,6 +993,10 @@ def baseline_library(csrc_dir):
         "assignment_forward": [ptr, ptr, ptr, i32, i32, i32, i32, ptr],
         "hungarian_forward": [ptr, ptr, ptr, i32, i32, i32, ptr],
         "nms_keep_forward": [ptr, ctypes.c_float, ptr, i32, i32, ptr],
+        "nms_keep_forward_global": [ptr, ctypes.c_float, ptr, ptr, i32, i32, ptr],
+        "nms_keep_cluster_forward": [ptr, ctypes.c_float, ptr, ptr, i32, i32, i32, i32, i32, ptr],
+        "gather_sum": [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr],
+        "gather_sum_staged": [ptr, ptr, ptr] + [i32] * 9 + [ptr],
     }
     for name, argtypes in signatures.items():
         if hasattr(lib, name):
@@ -1010,9 +1032,9 @@ def kernel_launchers(value, locs, weights, d_out):
     return forward, backward
 
 
-def in_turns(run, base, new, iters):
+def in_turns(run, base, new, iters, timer=cuda_ms):
     """Device ms of ``run(lib)`` for base, new, new, base."""
-    return [cuda_ms(lambda: run(lib), iters) for lib in (base, new, new, base)]
+    return [timer(lambda: run(lib), iters) for lib in (base, new, new, base)]
 
 
 def phase_msda_captured(smi, baselines, captured):
@@ -1317,9 +1339,10 @@ def phase_nms_assignment_captured(smi, baselines, assignment):
     return nms_t, hung_t
 
 
-def phase_msda_stages(smi):
+def phase_msda_stages(smi, baselines=()):
     """The shootout's entry point at the hot layer, counted; then K5-K8
-    against their plain versions and the pipelines against K1 (uncounted)."""
+    against their plain versions and the pipelines against K1 (uncounted);
+    with ``--baseline-csrc``, the ``gather_ab:`` lines (:func:`gather_ab`)."""
     t0 = time.perf_counter()
     for k in native.LAUNCHES:
         native.LAUNCHES[k] = 0
@@ -1332,7 +1355,81 @@ def phase_msda_stages(smi):
     parts, results = stage_checks(torch.device("cuda"), B, Q)
     print(f"msda_stages: entry point exit {rc}, stage launches {launches}; B={B} Q={Q} C=256 bf16 rows; "
           f"{'; '.join(parts)}; phase_s={time.perf_counter() - t0:.2f}; card: {smi}")
+    if baselines:
+        gather_ab(smi, baselines, B, Q)
     return launches, results
+
+
+# staging variants of the cluster-staged gather-sum at the hot shape (S =
+# 22,323 over LEVELS: level sizes 16,800, 4,200, 1,050, 273): (T, cluster,
+# qsplit); levels 2-3 in one block (85 KB), one block's whole 227 KB (two
+# waves), levels 1-3 over 2 and 4 blocks, 4 blocks' whole budget, the whole
+# slice over 8 blocks; qsplit puts 128 or 256 blocks on the 132 SMs
+GATHER_VARIANTS = [(0, 1, 8), (1323, 1, 4), (1323, 1, 8), (3584, 1, 8), (5523, 2, 2), (5523, 4, 1),
+                   (14336, 4, 1), (22323, 8, 1)]
+
+
+def level_shaped_indices(locs, levels=LEVELS, H=8):
+    """(B, H, Q, 64) int32 gather indices from the shootout's locations: the
+    bilinear corners of each (level, point), shared by the H heads, so that
+    each level takes a quarter of the rows read (three quarters fall in the
+    4,200 + 1,050 + 273 rows of levels 1-3)."""
+    idx, _ = stages.corners_flat(locs, levels)  # (B, Q, 4L, P)
+    B, Q = idx.shape[:2]
+    return idx.reshape(B, Q, -1)[:, None].expand(B, H, Q, idx.shape[2] * idx.shape[3]).contiguous()
+
+
+def gather_ab(smi, baselines, B, Q):
+    """K5 at the hot shape on the shootout's uniform indices and on
+    level-shaped ones: each directory's gather-sum timed in turns with the
+    shipped one (base, new, new, base; launch only), its output held bitwise
+    equal, with both shares of the bound and the row bytes each reads from
+    L2 (rows not staged in shared memory).  A directory with the
+    cluster-staged kernel (``gather_sum_staged``, salience_detr_torch/tools/
+    gather_cluster) is timed at each of ``GATHER_VARIANTS``."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    value, idx_uniform = stage_tool.gather_inputs(Q, LEVELS, gen, dev)
+    idx_uniform = idx_uniform.permute(0, 2, 1, 3).contiguous()
+    _, locs, _ = stages.make_inputs(Q, LEVELS, B, generator=gen, device=dev)
+    Bv, S, H, D = value.shape
+    new = native.load()
+    bases = [(d, baseline_library(d)) for d in baselines]
+    for label, idx in (("uniform", idx_uniform), ("level-shaped", level_shaped_indices(locs, H=H))):
+        G = idx.shape[-1]
+        stream = native.stream_of(value)
+        want = stages.gather_sum(value, idx)
+        bound_ms, bound_by = bound(nbytes(value, idx, want), idx.numel() * D)
+        valid = (idx >= 0) & (idx < S)
+        outs = {}
+
+        def run(lib, variant=None):
+            out = outs.setdefault(id(lib), torch.empty_like(want))
+            if hasattr(lib, "gather_sum"):
+                err = lib.gather_sum(value.data_ptr(), idx.data_ptr(), out.data_ptr(), Bv, S, H, D, Q, G, stream)
+            else:
+                err = lib.gather_sum_staged(value.data_ptr(), idx.data_ptr(), out.data_ptr(), Bv, S, H, D, Q, G,
+                                            *variant, stream)
+            native.check(err, "gather_sum")
+
+        for base_dir, base in bases:
+            if not (hasattr(base, "gather_sum") or hasattr(base, "gather_sum_staged")):
+                continue
+            staged = not hasattr(base, "gather_sum")
+            for variant in (GATHER_VARIANTS if staged else [None]):
+                outs.clear()
+                times = in_turns(lambda lib: run(lib, variant), base, new, 10)
+                torch.cuda.synchronize()
+                if not torch.equal(outs[id(base)], outs[id(new)]) or not torch.equal(outs[id(new)], want):
+                    raise AssertionError(f"gather_ab: {base_dir} {variant} differs from the shipped K5 on {label}")
+                base_ms, new_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+                l2_base = int((valid & (idx < S - variant[0])).sum()) * 64 if staged else int(valid.sum()) * 64
+                desc = f"T={variant[0]} cluster={variant[1]} qsplit={variant[2]}" if staged else "one warp a query"
+                print(f"gather_ab: {label} B={Bv} H={H} Q={Q} G={G} baseline={base_dir} ({desc}): K5 ms "
+                      f"base/new/new/base {[round(x, 4) for x in times]} (launch only), outputs bitwise equal; "
+                      f"bound_ms={bound_ms:.4f} ({bound_by}) share base {bound_ms / base_ms:.1%} new "
+                      f"{bound_ms / new_ms:.1%}; L2 row bytes base {l2_base} new {int(valid.sum()) * 64}; "
+                      f"card: {smi}")
 
 
 def stage_checks(dev, B, Q):
@@ -1344,10 +1441,11 @@ def stage_checks(dev, B, Q):
     C = value.shape[-1]
     results, parts = {}, []
 
-    def kernel_vs_plain(key, label, fn, plain, dtype, inputs=(), ops=0, library=None):
+    def kernel_vs_plain(key, label, fn, plain, dtype, inputs=(), ops=0, library=None, note=""):
         """``inputs`` and ``ops``: what the kernel reads and computes (its
         output is added to the bytes); ``library``: one PyTorch call of the
-        same function, timed as a yardstick."""
+        same function, timed as a yardstick; ``note``: printed after the
+        bound."""
         got, want = fn(), plain()
         torch.cuda.synchronize()
         max_abs, _, bad, atol, rtol = compare(got, want, dtype)
@@ -1356,7 +1454,7 @@ def stage_checks(dev, B, Q):
         ms, plain_ms = cuda_ms(fn, 10), cuda_ms(plain, 3)
         library_ms = cuda_ms(library, 10) if library is not None else None
         parts.append(f"{label} max_abs_err={max_abs:.3e} (atol {atol} rtol {rtol}, violations {bad}) "
-                     f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})"
+                     f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}){note}"
                      + (f" library_ms={library_ms:.4f}" if library is not None else ""))
         if bad:
             raise AssertionError(f"{label}: the kernel disagrees with its plain version in {bad} elements")
@@ -1375,7 +1473,9 @@ def stage_checks(dev, B, Q):
     kernel_vs_plain("gather_sum", f"K5 gather_sum (B,H,Q,G)={tuple(gidx.shape)} bf16",
                     lambda: stages.gather_sum(gv, gidx), lambda: stages.gather_sum_plain(gv, gidx),
                     torch.bfloat16, (gv, gidx), gidx.numel() * Dg,
-                    lambda: torch.nn.functional.embedding_bag(bags, table, mode="sum"))
+                    lambda: torch.nn.functional.embedding_bag(bags, table, mode="sum"),
+                    # every row in range is read from L2 (none is staged)
+                    f" l2_row_bytes={int(((gidx >= 0) & (gidx < Sg)).sum()) * 64}")
     del gv, gidx, bags, table
 
     base, wt = stages.quad_base_and_weights(locs, w, LEVELS)
@@ -1459,26 +1559,56 @@ def greedy_iou_tests(boxes, keep, thr):
 
 def keep_launcher(boxes, thr):
     """A launch-only call of a library's keep-mask kernel on these boxes
-    (output allocated once)."""
+    (output and scratch allocated once): the cluster kernel, by default at
+    the wrapper's placement of the rows, where the library has it; else the
+    one-block-an-image kernel (its shared-memory variant up to 1024 boxes,
+    its global-memory one past)."""
     B, N, _ = boxes.shape
     keep = torch.empty(B, N, dtype=torch.bool, device=boxes.device)
+    scratch = torch.empty(B, N, -(-N // 32), dtype=torch.int32, device=boxes.device)
     stream, thr32 = native.stream_of(boxes), float(np.float32(thr))
+    planned = nms_keep_plan(N)
 
-    def run(lib):
-        native.check(lib.nms_keep_forward(boxes.data_ptr(), thr32, keep.data_ptr(), B, N, stream),
-                     "nms_keep_forward")
+    def run(lib, rows=planned[0], cluster=planned[1], fill_only=0):
+        if hasattr(lib, "nms_keep_cluster_forward"):
+            err = lib.nms_keep_cluster_forward(boxes.data_ptr(), thr32, keep.data_ptr(), scratch.data_ptr(), B, N,
+                                               NMS_KEEP_ROWS[rows], cluster, fill_only, stream)
+        elif N <= 1024:
+            err = lib.nms_keep_forward(boxes.data_ptr(), thr32, keep.data_ptr(), B, N, stream)
+        else:
+            err = lib.nms_keep_forward_global(boxes.data_ptr(), thr32, keep.data_ptr(), scratch.data_ptr(), B, N,
+                                              stream)
+        native.check(err, "nms_keep")
 
     return run, keep
+
+
+def keep_variants(N):
+    """(rows, cluster) placements of the cluster kernel worth timing at N:
+    clusters of 8 and of 16 blocks (each at most one a window), the rows in
+    the walking block where they fit it, in the filling blocks where they
+    fit those, in global memory always."""
+    out = []
+    for cluster in (8, 16):
+        C = max(1, min(cluster, -(-N // 32)))
+        for rows in ("local", "remote", "global"):
+            if (rows, C) not in out and (rows == "global" or nms_keep_smem_bytes(rows, N, C) <= SMEM_OPTIN_BYTES):
+                out.append((rows, C))
+    return out
 
 
 def phase_nms_keep(smi, baselines):
     """K9 against its plain version, exactly, on a flagship serve forward's
     post-process boxes (thresholds 0.5 and 0.7), on a chain of boxes each
     overlapping only its neighbours (IoU 0.6, 1/3 two apart) and on identical
-    boxes; then on random boxes at N = 300, 600 and 1024, with times of the
-    launch alone and of the wrapper.  With ``--baseline-csrc``, each
-    directory's keep-mask kernel is timed in turns with this one on every
-    case (``keep_ab:``)."""
+    boxes; then on random boxes at N = 300, 600, 1024, 1400 and 4096, with
+    device times of the launch alone (queued behind a sleeping kernel, so
+    that the host's enqueue rate does not show), of the fill alone (the
+    kernel stopped after it; the walk is the rest), of the wrapper, and of
+    every placement of the rows at clusters of 8 and 16 blocks
+    (``nms_keep_variants:``, each held exactly).  With ``--baseline-csrc``,
+    each directory's keep-mask kernel is timed in turns with this one on
+    every case (``keep_ab:``)."""
     dev = torch.device("cuda")
     boxes = capture_post_boxes()
     B, N, _ = boxes.shape
@@ -1488,7 +1618,7 @@ def phase_nms_keep(smi, baselines):
     gen = torch.Generator(device=dev).manual_seed(11)
     cases = [("captured serve", boxes, 0.5), ("captured serve", boxes, 0.7), ("chain", chain, 0.5),
              ("identical", identical, 0.7)]
-    for n in (300, 600, 1024):
+    for n in (300, 600, 1024, 1400, 4096):
         xy = torch.rand(B, n, 2, generator=gen, device=dev) * 400
         cases.append((f"random N={n}", torch.cat([xy, xy + 5 + torch.rand(B, n, 2, generator=gen, device=dev) * 60],
                                                  -1), 0.5))
@@ -1500,23 +1630,43 @@ def phase_nms_keep(smi, baselines):
         mismatches = int((got != want).sum())
         if mismatches:
             raise AssertionError(f"nms_keep kernel differs from plain in {mismatches} entries on {name} at {thr}")
-        run, _ = keep_launcher(bx, thr)
-        ms = cuda_ms(lambda: run(new), 200)  # the launch alone
+        n = bx.shape[1]
+        run, keep = keep_launcher(bx, thr)
+        ms = queued_ms(lambda: run(new), 100)  # the launch alone
+        fill_ms = queued_ms(lambda: run(new, fill_only=1), 100)
         wrapper_ms = cuda_ms(lambda: nms_keep_mask(bx, thr), 20)
         plain_ms = cuda_ms(lambda: nms_keep_mask_plain(bx, thr), 3)
         tests = greedy_iou_tests(bx, got, thr)
         # reads the boxes, writes the mask; IOU_OPS per needed IoU test
         t = (ms, plain_ms, *bound(nbytes(bx, got), tests * IOU_OPS))
-        print(f"nms_keep: {name} B={bx.shape[0]} N={bx.shape[1]} thr={thr} kept={got.sum(1).tolist()} "
-              f"mismatches={mismatches} kernel_ms={ms:.4f} (launch only) wrapper_ms={wrapper_ms:.4f} "
+        rows, C = nms_keep_plan(n)
+        print(f"nms_keep: {name} B={bx.shape[0]} N={n} thr={thr} kept={got.sum(1).tolist()} "
+              f"mismatches={mismatches} rows={rows} cluster={C} kernel_ms={ms:.4f} (launch only) "
+              f"fill_ms={fill_ms:.4f} walk_ms={ms - fill_ms:.4f} wrapper_ms={wrapper_ms:.4f} "
               f"plain_ms={plain_ms:.4f} bound_ms={t[2]:.6f} ({t[3]}) iou_tests={tests} "
-              f"kernel_us_per_rank={1000 * ms / bx.shape[1]:.4f}; card: {smi}")
+              f"kernel_us_per_rank={1000 * ms / n:.4f}; card: {smi}")
         if (name, thr) == ("captured serve", 0.7):  # the eval phase's filter
             timing = t
+        if name.startswith(("captured", "random")) and thr == 0.5:
+            parts = []
+            for rows_v, C_v in keep_variants(n):
+                keep.zero_()
+                run(new, rows_v, C_v)
+                torch.cuda.synchronize()
+                bad = int((keep != want).sum())
+                if bad:
+                    raise AssertionError(f"nms_keep {rows_v} cluster {C_v} differs from plain in {bad} entries "
+                                         f"on {name}")
+                v_ms = queued_ms(lambda: run(new, rows_v, C_v), 100)
+                v_fill = queued_ms(lambda: run(new, rows_v, C_v, 1), 100)
+                parts.append(f"{rows_v}/C{C_v} {v_ms:.4f} (fill {v_fill:.4f}, walk {v_ms - v_fill:.4f})")
+            print(f"nms_keep_variants: {name} N={n} thr={thr} launch-only ms: {'; '.join(parts)}; mismatches 0; "
+                  f"card: {smi}")
         for base_dir, base in bases:
-            if hasattr(base, "nms_keep_forward"):
-                print(f"keep_ab: {name} N={bx.shape[1]} thr={thr} baseline={base_dir}: K9 ms base/new/new/base "
-                      f"{[round(x, 4) for x in in_turns(run, base, new, 200)]}; card: {smi}")
+            if hasattr(base, "nms_keep_forward") and (n <= 1024 or hasattr(base, "nms_keep_forward_global")):
+                print(f"keep_ab: {name} N={n} thr={thr} baseline={base_dir}: K9 ms base/new/new/base "
+                      f"{[round(x, 4) for x in in_turns(run, base, new, 100, queued_ms)]} (launch only, "
+                      f"bound {t[2]:.6f}); card: {smi}")
     return timing
 
 
@@ -2783,9 +2933,10 @@ def phase_nms_past_budget(smi):
     """C-18: K2 at the 5-scale levels of the 800x1344 canvas (rank map in
     shared memory) and of a 1344x1344 canvas (past it: the global-memory
     rank map), K=3600, B=4, random candidates with a raster clump in image
-    1; K9 at N=1024 (bitmask in shared memory) and N=2048 (in global
-    memory), B=4, spread and crowded boxes.  Each exactly against its plain
-    version, with times."""
+    1; K9 at N=1024 (the conflict rows in the walking block's shared
+    memory), 1400, 2048 and 4096 (in the filling blocks' shared memory),
+    B=4, spread and crowded boxes.  Each exactly against its plain version,
+    with times."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     for label, levels in (("5-scale 800x1344", FIVE_SCALE_LEVELS), ("5-scale 1344x1344", FIVE_SCALE_SQUARE)):
@@ -2804,7 +2955,7 @@ def phase_nms_past_budget(smi):
         if mismatches:
             raise AssertionError(f"grid_nms kernel differs from plain in {mismatches} entries at {label}")
     rng = np.random.default_rng(8)
-    for n in (NMS_KEEP_SHARED_MAX_BOXES, 2048):
+    for n in (1024, 1400, 2048, 4096):
         for extent in (400.0, 60.0):
             xy = rng.uniform(0, extent * n / 1024, size=(4, n, 2)).astype(np.float32)
             wh = rng.uniform(5, 60, size=(4, n, 2)).astype(np.float32)
@@ -2814,9 +2965,12 @@ def phase_nms_past_budget(smi):
             torch.cuda.synchronize()
             mismatches = int((got != want).sum())
             ms = cuda_ms(lambda: nms_keep_mask(boxes, 0.5), 20)
-            where = "global" if n > NMS_KEEP_SHARED_MAX_BOXES else "shared"
-            print(f"nms_past_budget: nms_keep B=4 N={n} {'crowded' if extent < 100 else 'spread'} bitmask in "
-                  f"{where} memory, kept {int(got.sum())}, mismatches={mismatches} wrapper_ms={ms:.4f}; card: {smi}")
+            run, _ = keep_launcher(boxes, 0.5)
+            launch_ms = queued_ms(lambda: run(native.load()), 50)
+            rows, C = nms_keep_plan(n)
+            print(f"nms_past_budget: nms_keep B=4 N={n} {'crowded' if extent < 100 else 'spread'} rows in "
+                  f"{rows} memory, cluster {C}, kept {int(got.sum())}, mismatches={mismatches} "
+                  f"wrapper_ms={ms:.4f} kernel_ms={launch_ms:.4f} (launch only); card: {smi}")
             if mismatches:
                 raise AssertionError(f"nms_keep kernel differs from plain in {mismatches} entries at N={n}")
 
@@ -2832,9 +2986,10 @@ def kernel_entry(name, source, replaces, launches, err, timing):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline-csrc", nargs="*", default=[], metavar="DIR",
-                        help="directories holding another version of csrc/, whose MSDA, grid-NMS, "
-                             "assignment, keep-mask, DCN and int8 MSDA kernels are timed in turns with "
-                             "these on the captured inputs and the phases' other inputs")
+                        help="directories holding another version of csrc/ (or some of its sources), "
+                             "whose MSDA, grid-NMS, assignment, keep-mask, DCN, int8 MSDA and gather-sum "
+                             "kernels are timed in turns with these on the captured inputs and the "
+                             "phases' other inputs")
     args = parser.parse_args(argv)
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2864,7 +3019,7 @@ def main(argv=None):
     dcn_train_launches = phase_dcn_train(smi)
     q8_sample_err, q8_t = phase_msda_q8(smi, args.baseline_csrc)
     q8_launches = phase_serve_q8(smi)
-    stage_launches, stage_results = phase_msda_stages(smi)
+    stage_launches, stage_results = phase_msda_stages(smi, args.baseline_csrc)
     phase_nms_past_budget(smi)
     phase_backbone_slice()
     phase_msda_backbone_shapes(smi)

@@ -164,10 +164,8 @@ def load() -> ctypes.CDLL:
         lib.grid_nms_forward_global.restype = i32
         lib.assignment_forward.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
         lib.assignment_forward.restype = i32
-        lib.nms_keep_forward.argtypes = [ptr, ctypes.c_float, ptr, i32, i32, ptr]
-        lib.nms_keep_forward.restype = i32
-        lib.nms_keep_forward_global.argtypes = [ptr, ctypes.c_float, ptr, ptr, i32, i32, ptr]
-        lib.nms_keep_forward_global.restype = i32
+        lib.nms_keep_cluster_forward.argtypes = [ptr, ctypes.c_float, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+        lib.nms_keep_cluster_forward.restype = i32
         lib.deform_conv_forward.argtypes = [ptr, i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
         lib.deform_conv_forward.restype = i32
         lib.deform_conv_fused_forward.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,

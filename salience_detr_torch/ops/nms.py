@@ -22,10 +22,12 @@ threshold with it.
 
 * :func:`nms_keep_mask_plain` is the JAX package's dense conflict-matrix
   fixpoint, batched;
-* :func:`nms_keep_mask` is the wrapper of ``csrc/nms_keep.cu`` (a bitmask and
-  a serial walk, one block per image), dispatching as ``grid_nms_topk`` does;
-  above ``NMS_KEEP_SHARED_MAX_BOXES`` boxes the kernel's variant with the
-  bitmask in a global scratch buffer takes any count.
+* :func:`nms_keep_mask` is the wrapper of ``csrc/nms_keep.cu`` (a conflict
+  bitmask filled by a thread-block cluster per image, then a serial walk),
+  dispatching as ``grid_nms_topk`` does; :func:`nms_keep_plan` places the
+  bitmask's rows for a box count (in the walking block's shared memory, in
+  each filling block's, or in a global scratch buffer past the cluster's
+  capacity), and :func:`nms_keep_mask_cuda` launches one placement.
 """
 
 from __future__ import annotations
@@ -45,10 +47,13 @@ SMEM_BUDGET_BYTES = 226 * 1024
 MAX_CANDIDATES = 65535
 # relaxation steps of the plain fixpoints between convergence checks
 UNROLL = 8
-# boxes per image the keep-mask kernel takes with its bitmask in shared
-# memory (its walking warp holds one 32-bit removed-mask word per lane);
-# more go to the variant with the bitmask in global memory
-NMS_KEEP_SHARED_MAX_BOXES = 1024
+# the keep-mask kernel's blocks per image (one cluster), and where the rows
+# of its conflict bitmask live (csrc/nms_keep.cu kLocal, kRemote, kGlobal)
+NMS_KEEP_CLUSTER = 16
+NMS_KEEP_ROWS = {"local": 0, "remote": 1, "global": 2}
+# dynamic shared memory a block may opt in to on every sm_90 card (the
+# kernels are built for sm_90a alone)
+SMEM_OPTIN_BYTES = 232448
 
 
 def grid_nms_rank_in_global(K: int, S: int) -> bool:
@@ -186,14 +191,37 @@ def nms_keep_mask_plain(boxes: torch.Tensor, iou_threshold: float) -> torch.Tens
     return keep
 
 
-def nms_keep_mask(boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
-    """Wrapper of the keep-mask kernel (csrc/nms_keep.cu); same contract as
-    :func:`nms_keep_mask_plain`.  On CUDA, ``boxes`` must be a contiguous
-    (B, N, 4) float32 tensor; above ``NMS_KEEP_SHARED_MAX_BOXES`` boxes the
-    kernel keeps its N x ceil(N/32)-word bitmask in a scratch buffer of
-    global memory."""
-    if boxes.device.type == "cpu":
-        return nms_keep_mask_plain(boxes, iou_threshold)
+def nms_keep_smem_bytes(rows: str, N: int, cluster: int) -> int:
+    """Dynamic shared memory of one block of the keep-mask kernel
+    (``smem_bytes`` in csrc/nms_keep.cu): the boxes and their areas (20N
+    bytes) and the removed-mask (4W, W = ceil(N/32)), plus the rows the block
+    holds: all N in "local" (the walking block's), its ceil(W / cluster)
+    windows of 32 in "remote"; "global" holds the removed-mask alone."""
+    W = -(-N // 32)
+    if rows == "global":
+        return 4 * W
+    held = N if rows == "local" else 32 * -(-W // cluster)
+    return 20 * N + 4 * W + 4 * held * W
+
+
+def nms_keep_plan(N: int, cluster: int = NMS_KEEP_CLUSTER, smem: int = SMEM_OPTIN_BYTES) -> Tuple[str, int]:
+    """Where the keep-mask kernel keeps its conflict rows for N boxes, and its
+    blocks per image: a cluster of min(cluster, ceil(N/32)) blocks (one
+    32-rank window each at least); the rows in the walking block's shared
+    memory while they fit there, else in the filling blocks' own, else in a
+    global scratch buffer."""
+    C = max(1, min(cluster, -(-N // 32)))
+    for rows in ("local", "remote"):
+        if nms_keep_smem_bytes(rows, N, C) <= smem:
+            return rows, C
+    return "global", C
+
+
+def nms_keep_mask_cuda(boxes: torch.Tensor, iou_threshold: float, rows: str, cluster: int) -> torch.Tensor:
+    """One launch of the keep-mask kernel on CUDA ``boxes`` (a contiguous
+    (B, N, 4) float32 tensor) with its conflict rows placed as ``rows`` says
+    ("local", "remote", "global") and ``cluster`` blocks an image; raises
+    when the card refuses the launch."""
     if boxes.device.type != "cuda":
         raise RuntimeError(f"nms_keep_mask: no kernel for device {boxes.device}")
     if boxes.dtype != torch.float32 or boxes.dim() != 3 or boxes.shape[-1] != 4 or not boxes.is_contiguous():
@@ -205,15 +233,26 @@ def nms_keep_mask(boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
     keep = torch.empty((B, N), dtype=torch.bool, device=boxes.device)
     if B == 0 or N == 0:
         return keep
+    # the global placement's rows: B x N x ceil(N/32) words (any contents)
+    scratch = (torch.empty((B, N, -(-N // 32)), dtype=torch.int32, device=boxes.device)
+               if rows == "global" else None)
     lib = native.load()
     threshold, stream = float(np.float32(iou_threshold)), native.stream_of(boxes)
     with torch.cuda.device(boxes.device):
-        if N > NMS_KEEP_SHARED_MAX_BOXES:
-            mask = torch.empty((B, N, (N + 31) // 32), dtype=torch.int32, device=boxes.device)
-            err = lib.nms_keep_forward_global(boxes.data_ptr(), threshold, keep.data_ptr(), mask.data_ptr(), B, N,
-                                              stream)
-        else:
-            err = lib.nms_keep_forward(boxes.data_ptr(), threshold, keep.data_ptr(), B, N, stream)
-    native.check(err, "nms_keep_forward")
+        err = lib.nms_keep_cluster_forward(boxes.data_ptr(), threshold, keep.data_ptr(),
+                                           None if scratch is None else scratch.data_ptr(), B, N,
+                                           NMS_KEEP_ROWS[rows], cluster, 0, stream)
+    native.check(err, f"nms_keep_cluster_forward (rows {rows}, cluster {cluster})")
     native.LAUNCHES["nms_keep"] += 1
     return keep
+
+
+def nms_keep_mask(boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """Wrapper of the keep-mask kernel (csrc/nms_keep.cu); same contract as
+    :func:`nms_keep_mask_plain`.  On CUDA, ``boxes`` must be a contiguous
+    (B, N, 4) float32 tensor; :func:`nms_keep_plan` places the kernel's
+    conflict rows for N."""
+    if boxes.device.type == "cpu":
+        return nms_keep_mask_plain(boxes, iou_threshold)
+    rows, cluster = nms_keep_plan(boxes.shape[1] if boxes.dim() == 3 else 0)
+    return nms_keep_mask_cuda(boxes, iou_threshold, rows, cluster)

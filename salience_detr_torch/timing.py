@@ -24,6 +24,23 @@ def cuda_ms(fn: Callable[[], object], iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(fn: Callable[[], object], iters: int) -> float:
+    """Mean device milliseconds per call over ``iters`` calls queued behind a
+    sleeping kernel, after one warm-up: the device runs them back to back,
+    so a call shorter than the host's enqueue still reads its device time
+    (``cuda_ms`` reads the enqueue rate there)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(iters * 50_000))  # about 25 us of cycles a call at 2 GHz
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def cuda_times(fn: Callable[[], object], iters: int) -> List[float]:
     """Device milliseconds of each of ``iters`` calls, after one warm-up."""
     fn()

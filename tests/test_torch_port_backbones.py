@@ -35,12 +35,12 @@ from salience_detr_torch.models.backbones import convnext, focalnet, resnet, swi
 from salience_detr_torch.models.factory import SalienceDETRConfig, build_backbone, build_salience_detr
 from salience_detr_torch.models.layers import DropPath, linear_drop_rates, set_drop_path_generator
 from salience_detr_torch.ops.nms import (
-    NMS_KEEP_SHARED_MAX_BOXES,
     grid_nms_rank_in_global,
     grid_nms_topk,
     grid_nms_topk_plain,
     nms_keep_mask,
     nms_keep_mask_plain,
+    nms_keep_plan,
 )
 from salience_detr_torch.weights import converter_rules, load_backbone_weights
 from tests.torch_port_common import (
@@ -381,5 +381,6 @@ def test_nms_keep_plain_at_2048_boxes_matches_jax():
     want = np.stack([np.asarray(jax_nms.nms_keep_mask(jnp.asarray(b), 0.5)) for b in boxes])
     got = nms_keep_mask_plain(t(boxes), 0.5)
     np.testing.assert_array_equal(got.numpy(), want)
-    assert 0 < int(got.sum()) < got.numel() and boxes.shape[1] > NMS_KEEP_SHARED_MAX_BOXES
+    # past the walking block's shared memory: the card reads the rows remotely
+    assert 0 < int(got.sum()) < got.numel() and nms_keep_plan(boxes.shape[1])[0] == "remote"
     np.testing.assert_array_equal(nms_keep_mask(t(boxes), 0.5).numpy(), want)

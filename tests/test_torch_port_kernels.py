@@ -19,13 +19,17 @@ from salience_detr_torch.ops.deform_attn import (
 from salience_detr_torch.ops import msda_stages as st
 from salience_detr_torch.ops.hungarian import batched_assignment, batched_assignment_plain
 from salience_detr_torch.ops.nms import (
-    NMS_KEEP_SHARED_MAX_BOXES,
+    SMEM_OPTIN_BYTES,
     grid_nms_rank_in_global,
     grid_nms_topk,
     grid_nms_topk_plain,
     nms_keep_mask,
+    nms_keep_mask_cuda,
     nms_keep_mask_plain,
+    nms_keep_plan,
+    nms_keep_smem_bytes,
 )
+from salience_detr_torch.tools import gather_cluster
 
 LEVELS = [(10, 14), (5, 7), (3, 4), (1, 2)]
 S = sum(h * w for h, w in LEVELS)
@@ -168,14 +172,14 @@ NMS_KEEP_CASES = nms_keep_cases()
 @pytest.mark.parametrize("name", sorted(NMS_KEEP_CASES) + ["max_boxes", "max_boxes_clustered", "global_2048",
                                                             "global_2048_clustered"])
 def test_nms_keep_kernel_bit_exact(cuda, name):
-    """Bit-exact against the plain fixpoint (run on the CPU), also at the
-    shared-memory variant's limit of 1024 boxes and at 2048 (the bitmask in
-    global memory), spread out and crowded."""
+    """Bit-exact against the plain fixpoint (run on the CPU), also at 1024
+    boxes (the conflict rows in the walking block's shared memory) and at
+    2048 (in the filling blocks'), spread out and crowded."""
     if name.startswith(("max_boxes", "global_2048")):
         rng = np.random.default_rng(1)
         extent = 60.0 if name.endswith("clustered") else 400.0
-        n = NMS_KEEP_SHARED_MAX_BOXES if name.startswith("max_boxes") else 2048
-        boxes, thr = random_boxes(rng, 3, n, extent * n / NMS_KEEP_SHARED_MAX_BOXES), 0.5
+        n = 1024 if name.startswith("max_boxes") else 2048
+        boxes, thr = random_boxes(rng, 3, n, extent * n / 1024), 0.5
     else:
         boxes, thr = NMS_KEEP_CASES[name]
     before = native.LAUNCHES["nms_keep"]
@@ -189,15 +193,67 @@ def test_nms_keep_kernel_bit_exact(cuda, name):
 
 @pytest.mark.gpu
 def test_nms_keep_kernel_rejects_what_it_cannot_take(cuda):
-    """Wrong dtypes and layouts raise; a count past the shared-memory
-    variant's 1024 boxes no longer does (the global-memory variant)."""
-    boxes = torch.from_numpy(random_boxes(np.random.default_rng(2), 1, NMS_KEEP_SHARED_MAX_BOXES + 1)).to(cuda)
+    """Wrong dtypes and layouts raise; a count past 1024 boxes does not."""
+    boxes = torch.from_numpy(random_boxes(np.random.default_rng(2), 1, 1025)).to(cuda)
     torch.testing.assert_close(nms_keep_mask(boxes, 0.5).cpu(), nms_keep_mask_plain(boxes.cpu(), 0.5), rtol=0, atol=0)
     with pytest.raises(TypeError):
         nms_keep_mask(boxes[:, :8].double(), 0.5)
     with pytest.raises(TypeError):
         nms_keep_mask(boxes[:, :16:2], 0.5)
     assert nms_keep_mask(boxes[:, :0].contiguous(), 0.5).shape == (1, 0)
+
+
+def keep_boxes(rng, B, N, kind):
+    """(B, N, 4) float32 boxes: spread out, crowded, all identical, or
+    crowded with a twentieth of the boxes and some coordinates NaN."""
+    if kind == "identical":
+        return np.tile(np.float32([[[3.0, 4.0, 50.0, 60.0]]]), (B, N, 1))
+    boxes = random_boxes(rng, B, N, (400.0 if kind == "spread" else 60.0) * max(N, 64) / 1024, (5.0, 60.0))
+    if kind == "nan":
+        boxes[:, rng.integers(0, N, max(1, N // 20))] = np.nan
+        boxes[-1, ::7, 2] = np.nan
+    return boxes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("thr", [0.5, 0.7])
+@pytest.mark.parametrize("kind", ["spread", "crowded", "identical", "nan"])
+@pytest.mark.parametrize("B", [1, 4, 8])
+@pytest.mark.parametrize("N", [1, 31, 32, 33, 300, 1023, 1024, 1025, 1400, 2048, 4096])
+def test_nms_keep_cluster_bit_exact(cuda, N, B, kind, thr):
+    """The wrapper (one launch a call) and every placement of the conflict
+    rows the kernel can take at N, at the wrapper's cluster size and at 8
+    blocks (the walk local or the rows remote, or in global memory), bit-exact
+    against the plain fixpoint on the card."""
+    boxes = torch.from_numpy(keep_boxes(np.random.default_rng(N * 10 + B), B, N, kind)).to(cuda)
+    want = nms_keep_mask_plain(boxes, thr)
+    before = native.LAUNCHES["nms_keep"]
+    got = nms_keep_mask(boxes, thr)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["nms_keep"] == before + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for cluster in sorted({nms_keep_plan(N)[1], min(8, -(-N // 32))}):
+        for rows in ("local", "remote", "global"):
+            if rows != "global" and nms_keep_smem_bytes(rows, N, cluster) > SMEM_OPTIN_BYTES:
+                continue
+            got = nms_keep_mask_cuda(boxes, thr, rows, cluster)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=0, atol=0, msg=f"{rows} cluster {cluster}")
+
+
+@pytest.mark.gpu
+def test_nms_keep_refused_launch_raises(cuda):
+    """A cluster the kernel does not take (17 blocks) and rows past a block's
+    shared memory are refused by the C entry point, and the wrapper raises
+    rather than launch another variant."""
+    boxes = torch.from_numpy(random_boxes(np.random.default_rng(3), 2, 2048)).to(cuda)
+    assert nms_keep_plan(2048)[0] == "remote"
+    with pytest.raises(RuntimeError):
+        nms_keep_mask_cuda(boxes, 0.5, "local", 16)
+    with pytest.raises(RuntimeError):
+        nms_keep_mask_cuda(boxes, 0.5, "remote", 17)
+    with pytest.raises(RuntimeError):
+        nms_keep_mask_cuda(boxes.cpu(), 0.5, "remote", 16)
 
 
 # a pyramid with levels large enough for long suppression chains
@@ -514,6 +570,64 @@ def test_gather_sum_kernel_matches_plain(cuda, G):
     got = counted("gather_sum", st.gather_sum, value, bad.to(cuda))
     idx[0, 0, 0, :3] = 0
     stage_close(got, st.gather_sum_plain(value, idx.to(cuda)), torch.bfloat16)
+
+
+def gather_cluster_inputs(device, pattern, T, G=64, seed=14):
+    """value (2, S, 4, 32) bf16 with row 0 zero and idx (2, 4, 37, G) int32:
+    all in the last T rows, all before them, or both with indices outside
+    [0, S); with the same idx where out-of-range ones are 0 (what skipping
+    them gives over the zero row)."""
+    g = torch.Generator().manual_seed(seed)
+    value = torch.randn(2, S, 4, 32, generator=g)
+    value[:, 0] = 0
+    lo, hi = {"inside": (S - max(T, 1), S), "outside": (0, max(S - T, 1)), "mixed": (0, S)}[pattern]
+    idx = torch.randint(lo, hi, (2, 4, 37, G), generator=g, dtype=torch.int32)
+    clean = idx.clone()
+    if pattern == "mixed":
+        idx[0, 0, 0, :3] = torch.tensor([-1, S, 1 << 30], dtype=torch.int32)
+        clean[0, 0, 0, :3] = 0
+    return value.to(device, torch.bfloat16), idx.to(device), clean.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["inside", "outside", "mixed"])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("T", [0, 50, S])
+def test_gather_cluster_matches_shipped_gather_sum(cuda, T, cluster, pattern):
+    """The cluster-staged design (salience_detr_torch/tools/gather_cluster)
+    at T = 0, a tail in between and T = S, over 1-8 blocks and 1-3 query
+    ranges: bitwise equal to the shipped K5 (the same f32 order), within
+    stage_close of the plain version, and bitwise repeatable."""
+    value, idx, clean = gather_cluster_inputs(cuda, pattern, T)
+    for qsplit in (1, 3):
+        got = gather_cluster.gather_sum_staged(value, idx, T, cluster, qsplit)
+        again = gather_cluster.gather_sum_staged(value, idx, T, cluster, qsplit)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert torch.equal(got, st.gather_sum(value, idx))
+        stage_close(got, st.gather_sum_plain(value, clean), torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [70, 5])
+def test_gather_cluster_ragged_and_rejected(cuda, G):
+    """Ragged G with out-of-range indices, bitwise equal to the shipped K5;
+    D != 32, a tail past S or past a block's shared memory, and 9 blocks
+    raise."""
+    value, idx, clean = gather_cluster_inputs(cuda, "mixed", S // 2, G)
+    got = gather_cluster.gather_sum_staged(value, idx, S // 2, 3, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, st.gather_sum(value, idx))
+    stage_close(got, st.gather_sum_plain(value, clean), torch.bfloat16)
+    with pytest.raises(ValueError):
+        gather_cluster.gather_sum_staged(value[..., :24].contiguous(), idx, 0, 1, 1)
+    with pytest.raises(ValueError):
+        gather_cluster.gather_sum_staged(value, idx, S + 1, 1, 1)
+    with pytest.raises(ValueError):
+        gather_cluster.gather_sum_staged(value, idx, S, 9, 1)
+    big = torch.zeros(1, 4000, 1, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        gather_cluster.gather_sum_staged(big, idx[:1, :1].contiguous(), 4000, 1, 1)
 
 
 @pytest.mark.gpu
