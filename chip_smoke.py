@@ -63,6 +63,13 @@ non-zero exit and no result line:
    K4 on the captured costs as the baseline's one launch per set of 4
    images against the shipped single launch, then both as single launches,
    and on phase 8's costs;
+12b. mixed_assignment: the mixed (Align-DETR) assignment on K4 at C = 2 and
+   C = 10 (C * M = 1000 > N = 900) on phase 12's captured costs, one launch
+   each, against the plain version over the tiled columns: the same queries
+   for each gt and equal totals (which copy takes which query is a tie);
+   the wrapper's and launch-only times beside the plain entry's (C = 1),
+   bounds; then phase 10's flagship step with ``SetCriterion(
+   mixed_match_copies=2)`` built directly: one assignment launch a step;
 13. msda_groups (after phase 7): K1 and K3 at G=2 and G=4 location groups at
    the encoder's flagship shape (B=4, Q=11403, bf16), against their plain
    versions, with times and bounds;
@@ -84,6 +91,16 @@ non-zero exit and no result line:
    predictions re-scored to the same stats.  Launches per forward: 12 MSDA,
    1 grid NMS, 1 or 0 NMS keep mask; the 12 stats finite; K1 held on the
    exact-mode encoder inputs (G=8, Q=11403); wall seconds and img/s;
+15b. train_coco: the train CLI's ``main`` on a COCO-format split of 20
+   .npy images written under build/ (the flagship, bf16, B=4, both
+   canvases, the detr preset): 4 steps and an eval, a resume, an
+   accumulated step, fp16 epochs; per step 12 K1, 12 K3, 1 K2 and 1 K4
+   launches; host transform ms a sample, loader wait, step wall, peak;
+15c. train_coco_strong: phase 15b's first run with ``strong_album`` and
+   ``copypaste`` (instance masks from polygon segmentations) and ``cv2``
+   blocked from import, 3 steps and the eval: the same launches a step,
+   finite losses, the host transform ms a sample beside 15b's, the loader
+   wait, step wall and peak memory;
 16. msda_stages: the staged MSDA shootout's entry point
    (python -m salience_detr_torch.tools.msda_stages --q 11403 --iters 3:
    every pipeline checked against the plain MSDA at Q=256, then timed beside
@@ -189,7 +206,8 @@ non-zero exit and no result line:
    grid-NMS launch a forward, the stats finite.
 
 Then the total wall time.  The line before the last is {"kernels": [...]}: per kernel its launches in
-the counted train steps (3; K4 launches once a step; K9 in the eval phase's
+the counted train steps (3; K4 launches once a step: in phase 15b's first
+run, phase 15c and phase 12b's mixed step; K9 in the eval phase's
 first run; the DCN kernels in phase 20's steps, the int8 kernels in phase
 22's 6 forwards), its largest error, its time, its plain version's
 time, its bound (``bound_ms``: bytes over 3.35 TB/s or f32 operations over
@@ -253,7 +271,13 @@ from salience_detr_torch.ops.deform_attn import (
     q8_sample_plain,
 )
 from salience_detr_torch.ops.boxes import box_iou_pairwise
-from salience_detr_torch.ops.hungarian import batched_assignment, batched_assignment_plain
+from salience_detr_torch.ops.hungarian import (
+    batched_assignment,
+    batched_assignment_plain,
+    batched_mixed_assignment,
+    batched_mixed_assignment_plain,
+    copy_counts,
+)
 from salience_detr_torch.ops.nms import (
     NMS_KEEP_ROWS,
     SMEM_OPTIN_BYTES,
@@ -836,10 +860,11 @@ def adam_step_below_resolution(optimizer, p):
 
 
 def phase_train(smi, name="train", cfg=None, label="flagship R50", prepare=None, per_step_extra=None,
-                must_move=(), timed=3, counts=GT_COUNTS, sub_ulp_ok=False):
+                must_move=(), timed=3, counts=GT_COUNTS, sub_ulp_ok=False, criterion=None):
     """``cfg`` (the flagship by default) through ``Trainer``: a warm-up step,
     then ``timed`` counted steps on batches with ``counts`` valid gts per
-    image; ``prepare`` edits the model before the run; every trainable
+    image; ``prepare`` edits the model before the run; ``criterion``, when
+    given, replaces the train step's SetCriterion; every trainable
     parameter whose name contains one of ``must_move`` has to move (with
     ``sub_ulp_ok``, or have a nonzero Adam first moment, its steps below the
     float32 resolution of its value)."""
@@ -848,6 +873,8 @@ def phase_train(smi, name="train", cfg=None, label="flagship R50", prepare=None,
     per_step = {k: 0 for k in native.LAUNCHES}
     per_step.update(msda=12, msda_backward=12, grid_nms=1, hungarian=1, **(per_step_extra or {}))
     trainer = Trainer(cfg, "cuda", seed=0, steps_per_epoch=1 + timed)
+    if criterion is not None:
+        trainer.step.criterion = criterion
     if prepare is not None:
         prepare(trainer.model)
     batches = list(trainer.batches(1 + timed, seed=0, counts=counts))
@@ -1339,6 +1366,102 @@ def phase_nms_assignment_captured(smi, baselines, assignment):
     return nms_t, hung_t
 
 
+def mixed_launcher(cost, valid, copies):
+    """A launch-only call of the assignment kernel on the (B, N, M) costs
+    with ``copies`` copies of each gt (the wrapper's cap per image), or of
+    the plain entry when ``copies`` is 1."""
+    B, N, M = cost.shape
+    ld = -(-N // 4) * 4
+    padded = torch.zeros(B, M, ld, device=cost.device)
+    padded[..., :N] = cost.transpose(1, 2)
+    flags = valid.to(torch.uint8).contiguous()
+    per_image = copy_counts(valid, N, copies)
+    out = torch.empty(B, copies * M, dtype=torch.int32, device=cost.device)
+    stream, lib = native.stream_of(cost), native.load()
+
+    def run():
+        if copies == 1:
+            err = lib.assignment_forward(padded.data_ptr(), flags.data_ptr(), out.data_ptr(), B, N, M, ld, stream)
+        else:
+            err = lib.assignment_copies_forward(padded.data_ptr(), flags.data_ptr(), per_image.data_ptr(),
+                                                out.data_ptr(), B, N, M, copies, ld, stream)
+        native.check(err, "assignment kernel")
+
+    return run
+
+
+def mixed_sets_and_totals(cost, match, valid):
+    """({(image, gt): sorted queries of its valid copies}, per-image totals in
+    float64) on the host; every valid copy holds a distinct query."""
+    cost, match, valid = cost.double().cpu(), match.long().cpu(), valid.cpu()
+    sets, totals = {}, []
+    for b in range(cost.shape[0]):
+        used = match[b][valid[b]]
+        if len(set(used.tolist())) != len(used) or bool((used < 0).any()) or bool((match[b][~valid[b]] != -1).any()):
+            raise AssertionError(f"mixed assignment of image {b} is not a matching of its valid copies")
+        gts = torch.nonzero(valid[b])[:, 1]
+        totals.append(float(cost[b, used, gts].sum()))
+        for g in range(cost.shape[2]):
+            sets[(b, g)] = sorted(match[b, valid[b, :, g], g].tolist())
+    return sets, totals
+
+
+def phase_mixed_assignment(smi, assignment):
+    """The mixed (Align-DETR) assignment on K4: on the stacked (7 x 4, 900,
+    100) costs a flagship train step at init hands the criterion, the kernel
+    at C = 2 and C = 10 (C * M = 1000 > N) in one launch against the plain
+    version over the tiled columns (the same queries for each gt, equal
+    totals; which copy of a gt takes which query is a tie), with the
+    wrapper's and the launch-only times beside the plain entry's (C = 1),
+    bounds and the plain time; then the flagship trained (phase train, one
+    warm-up and one counted step) with ``SetCriterion(mixed_match_copies=2)``
+    built directly: one assignment launch a step, every trainable parameter
+    with a gradient moved.  Returns (per-C facts, the train steps'
+    launches)."""
+    t0 = time.perf_counter()
+    cost, valid = assignment
+    n_img, N, M = cost.shape
+    n_valid = int(valid.sum())
+    launch_only = {1: queued_ms(mixed_launcher(cost, valid, 1), 20)}
+    for C in (2, 10):
+        before = native.LAUNCHES["hungarian"]
+        got, got_valid = batched_mixed_assignment(cost, valid, C)
+        torch.cuda.synchronize()
+        if native.LAUNCHES["hungarian"] != before + 1:
+            raise AssertionError(f"mixed assignment C={C}: {native.LAUNCHES['hungarian'] - before} launches")
+        t_plain = time.perf_counter()
+        want, want_valid = batched_mixed_assignment_plain(cost, valid, C)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t_plain)
+        got_sets, got_totals = mixed_sets_and_totals(cost, got, got_valid)
+        want_sets, want_totals = mixed_sets_and_totals(cost, want, want_valid)
+        if not torch.equal(got_valid, want_valid) or got_sets != want_sets or got_totals != want_totals:
+            differ = sum(got_sets[k] != want_sets[k] for k in got_sets)
+            raise AssertionError(f"mixed assignment C={C}: copy validity equal {torch.equal(got_valid, want_valid)}, "
+                                 f"{differ} gts with other queries, totals {got_totals} vs {want_totals}")
+        ms = cuda_ms(lambda: batched_mixed_assignment(cost, valid, C), 10)
+        launch_only[C] = queued_ms(mixed_launcher(cost, valid, C), 20)
+        rows = got_valid.flatten(1).sum(1)
+        # reads the valid gts' costs once (the copies read the same rows),
+        # the mask and the copy counts, writes one query per copy slot; at
+        # least one comparison per row and query
+        t = (ms, plain_ms, *bound(n_valid * N * 4 + nbytes(valid, got) + 4 * n_img, int(rows.sum()) * N))
+        print(f"mixed_assignment: C={C} on the captured train step's {n_img // 4} sets x B=4, N={N} M={M} "
+              f"valid={GT_COUNTS}: rows per image (copies x valid gts) {rows[:4].tolist()} (C*M={C * M}); "
+              f"kernel vs plain: same copy validity, same queries for all {len(got_sets)} (image, gt), totals "
+              f"equal ({[round(x, 4) for x in got_totals[:4]]} ...); one launch kernel_ms={ms:.4f} "
+              f"launch_only_ms={launch_only[C]:.4f} (C=1 {launch_only[1]:.4f}) plain_ms={plain_ms:.1f} "
+              f"bound_ms={t[2]:.6f} ({t[3]}); card: {smi}")
+    cfg = load_config(DEFAULT_CONFIG)
+    mixed = criterion_module.SetCriterion(
+        cfg.num_classes, cfg.cost_class, cfg.cost_bbox, cfg.cost_giou, cfg.focal_alpha, cfg.focal_gamma,
+        hybrid=True, mixed_match_copies=2,
+    )
+    launches = phase_train(smi, name="train_mixed", timed=1, criterion=mixed)
+    print(f"mixed_assignment: phase_s={time.perf_counter() - t0:.2f}")
+    return launches
+
+
 def phase_msda_stages(smi, baselines=()):
     """The shootout's entry point at the hot layer, counted; then K5-K8
     against their plain versions and the pipelines against K1 (uncounted);
@@ -1817,12 +1940,16 @@ EVAL_FORWARD_KERNELS = {"msda": 12, "grid_nms": 1}
 # GradScaler, from its default 65536, skips its first steps (17 on this
 # phase's data) before it steps
 FP16_EPOCHS = 5
+STRONG_STEPS = 3  # the train_coco_strong phase's steps
 
 
-def write_train_split(root, seed=21):
+def write_train_split(root, seed=21, polygons=False):
     """TRAIN_COCO_SIZES as ``.npy`` uint8 RGB images drawn from ``seed`` and a
     COCO annotation file with 0 to 40 random boxes per image, labels in
-    1..90; returns (image dir, annotation path)."""
+    1..90; with ``polygons`` each annotation also has a segmentation of one
+    or two polygons of 3 to 16 random vertices around its box (some past the
+    image, many self-intersecting), drawn after all the boxes; returns
+    (image dir, annotation path)."""
     rng = np.random.default_rng(seed)
     img_dir = root / "images"
     img_dir.mkdir(parents=True, exist_ok=True)
@@ -1835,6 +1962,14 @@ def write_train_split(root, seed=21):
             x, y = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
             anns.append({"id": len(anns) + 1, "image_id": i + 1, "category_id": int(rng.integers(1, 91)),
                          "bbox": [x, y, bw, bh], "area": bw * bh, "iscrowd": int(rng.uniform() < 0.125)})
+    if polygons:
+        for a in anns:
+            x, y, bw, bh = a["bbox"]
+            a["segmentation"] = [
+                np.stack([rng.uniform(x - 0.1 * bw, x + 1.1 * bw, k), rng.uniform(y - 0.1 * bh, y + 1.1 * bh, k)],
+                         1).reshape(-1).round(2).tolist()
+                for k in rng.integers(3, 17, int(rng.integers(1, 3)))
+            ]
     ann = root / "annotations.json"
     ann.write_text(json.dumps({"images": images, "annotations": anns,
                                "categories": [{"id": c, "name": f"class{c}"} for c in range(1, 91)]}))
@@ -2016,7 +2151,68 @@ def phase_train_coco(smi):
           f"{s1['metrics']['grad_norm']:.4f} eval AP={s1['stats']['AP']:.6f} AR100={s1['stats']['AR100']:.6f}, "
           f"run 2 loss={s2['metrics']['loss']:.4f}, run 3 loss={s3['metrics']['loss']:.4f}, run 4 loss="
           f"{s4['metrics']['loss']:.4f}, all finite; phase_s={time.perf_counter() - t0:.2f}; card: {smi}")
-    return {k: sum(r["launches"][k] for r in r1) for k in native.LAUNCHES}
+    return {k: sum(r["launches"][k] for r in r1) for k in native.LAUNCHES}, transform_ms
+
+
+def phase_train_coco_strong(smi, detr_transform_ms):
+    """The train CLI as in phase train_coco's run 1, with the options that
+    need OpenCV in the JAX package: the ``strong_album`` preset and
+    ``copypaste`` (the dataset loads each annotation's polygons as a mask,
+    the loader composites each batch), on a TRAIN_COCO_SIZES split with
+    polygon segmentations written under build/, with ``cv2`` blocked from
+    import: the flagship at full width, bf16, B=4, both canvases,
+    STRONG_STEPS steps of epoch 0 and its eval.  Each step must launch K1
+    and K3 12 times, K2 and K4 once, the losses must be finite.  Prints the
+    workers' host transform ms a sample beside ``detr_transform_ms`` (phase
+    train_coco's), the loader wait a step, the step wall and the peak
+    memory; returns the run's launches."""
+    import shutil
+
+    t0 = time.perf_counter()
+    root = TRAIN_COCO_DIR.parent / "chip_smoke_train_strong"
+    if root.exists():
+        shutil.rmtree(root)
+    img_dir, ann = write_train_split(root, seed=22, polygons=True)
+    forwards = sum(1 for _ in DetectionLoader(CocoDetection(str(img_dir), str(ann)), 4))
+    real_make, real_cv2 = train_entry.make_train_step, sys.modules.get("cv2", False)
+    train_entry.make_train_step = lambda *a, **k: TimedStep(*a, **k)
+    sys.modules["cv2"] = None  # import cv2 raises ImportError
+    try:
+        config = train_coco_config(root / "strong.py", img_dir, ann, root / "run", train_transform="strong_album",
+                                   copypaste=True)
+        torch.cuda.reset_peak_memory_stats()
+        summary, records, launches = run_train_cli(
+            ["--config-file", config, "--seed", "3", "--dry-run-steps", str(STRONG_STEPS)], forwards)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        train_entry.make_train_step = real_make
+        if real_cv2 is False:
+            sys.modules.pop("cv2", None)
+        else:
+            sys.modules["cv2"] = real_cv2
+        TimedStep.last = None
+    if len(records) != STRONG_STEPS:
+        raise AssertionError(f"train_coco_strong: {len(records)} steps")
+    per_step = {k: sum(r["launches"][k] for r in records) / len(records) for k in TRAIN_STEP_KERNELS}
+    if per_step != {k: float(v) for k, v in TRAIN_STEP_KERNELS.items()}:
+        raise AssertionError(f"train_coco_strong: launches per step {per_step}")
+    waits_ms = [1e3 * w for w in summary["loader_waits_s"][:len(records)]]
+    transform_ms = 1e3 * summary["transform_s"] / max(summary["samples"], 1)
+    wall = [r["wall_ms"] for r in records]
+    counts = [n for r in records for n in r["counts"]]
+    print(f"train_coco_strong: flagship R50 bf16 B=4 strong_album + copypaste through "
+          f"salience_detr_torch.train.main with cv2 blocked, {len(TRAIN_COCO_SIZES)} .npy images with polygon "
+          f"masks, {len(records)} steps + eval; canvases {sorted({r['canvas'] for r in records})}; gts per image "
+          f"after copy-paste min {min(counts)} max {max(counts)}; launches per step {per_step}, in all "
+          f"{ {k: v for k, v in launches.items() if v} } with {forwards} eval forwards; "
+          f"host_transform_ms_per_sample={transform_ms:.3f} (detr in phase train_coco "
+          f"{detr_transform_ms:.3f}; 8 worker threads, 1 intra-op thread each; copy-paste runs in the loader's "
+          f"batch thread, not counted there); loader_wait_ms per step={[round(x, 3) for x in waits_ms]} "
+          f"mean={statistics.mean(waits_ms):.3f}; step wall_ms={[round(x, 3) for x in wall]} median="
+          f"{statistics.median(wall):.3f} device_ms={[round(r['device_ms'], 3) for r in records]}; "
+          f"peak_mem_gib={peak_gib:.3f}; loss={summary['metrics']['loss']:.4f} eval AP="
+          f"{summary['stats']['AP']:.6f}, finite; phase_s={time.perf_counter() - t0:.2f}; card: {smi}")
+    return launches
 
 
 # the DCN layers of the R50-DCN config at B=4 on the 800x1344 canvas: (Cin,
@@ -3007,11 +3203,15 @@ def main(argv=None):
     train_launches = phase_train(smi)
     captured = capture_train_inputs()
     phase_msda_captured(smi, args.baseline_csrc, captured)
-    nms_t, hung_t = phase_nms_assignment_captured(smi, args.baseline_csrc, captured.pop("assignment"))
+    assignment = captured.pop("assignment")
+    nms_t, hung_t = phase_nms_assignment_captured(smi, args.baseline_csrc, assignment)
     del captured
+    mixed_launches = phase_mixed_assignment(smi, assignment)
+    del assignment
     keep_t = phase_nms_keep(smi, args.baseline_csrc)
     eval_launches = phase_eval(smi)
-    coco_launches = phase_train_coco(smi)
+    coco_launches, detr_transform_ms = phase_train_coco(smi)
+    strong_launches = phase_train_coco_strong(smi, detr_transform_ms)
     dcn_fwd_err, dcn_bwd_err, dcn_t, fused_err, fused_t = phase_deform_conv(smi, args.baseline_csrc)
     phase_dcn_captured(smi, args.baseline_csrc)
     phase_dcn_slice()
@@ -3033,6 +3233,8 @@ def main(argv=None):
         f"{k} {{{', '.join(f'{n}: {v}' for n, v in l.items() if v)}}}" for k, l in backbone_launches.items()))
     print(f"serve launches {serve_launches}; train launches {train_launches}; "
           f"train_coco launches (run 1, 4 steps) {coco_launches}; "
+          f"train_coco_strong launches ({STRONG_STEPS} steps) {strong_launches}; "
+          f"train_mixed launches (1 step) {mixed_launches}; "
           f"eval launches (NMS filter on) {eval_launches}; dcn_serve launches {dcn_serve_launches}; "
           f"dcn_train launches {dcn_train_launches}; serve_q8 launches {q8_launches}; "
           f"msda_stages launches {stage_launches}")
@@ -3047,8 +3249,12 @@ def main(argv=None):
                      coco_launches["grid_nms"], 0.0, nms_t),
         kernel_entry("msda_backward", "msda_backward.cu", "salience_detr_tpu/ops/deform_attn.py:666",
                      coco_launches["msda_backward"], bwd_err, bwd_t),
-        kernel_entry("assignment_forward", "hungarian.cu", "salience_detr_tpu/ops/hungarian.py:36",
-                     coco_launches["hungarian"], 0.0, hung_t),
+        # K4: the train CLI's steps (train_coco run 1, train_coco_strong) and
+        # the mixed criterion's step, timed on the captured costs at C = 1
+        kernel_entry("assignment_forward", "hungarian.cu",
+                     "salience_detr_tpu/ops/hungarian.py:36, :111",
+                     coco_launches["hungarian"] + strong_launches["hungarian"] + mixed_launches["hungarian"],
+                     0.0, hung_t),
         # K9 launches on the eval path with the NMS filter on (phase eval's run 1)
         kernel_entry("nms_keep_forward", "nms_keep.cu", "salience_detr_tpu/ops/nms.py:133",
                      eval_launches["nms_keep"], 0.0, keep_t),

@@ -14,9 +14,21 @@
 // so that one gt's costs over the queries are contiguous, each row padded to
 // ld >= N floats, a multiple of 4 (16 bytes, for the bulk copies below);
 // valid (B, M) uint8; out (B, M) int32, the query matched to each valid gt
-// and -1 for padded gts.  Requires M <= N <= 32 * kThreads.  The images are
-// independent problems, so a caller batches all its matchings into one
-// launch (the criterion stacks a train step's seven sets).  An image whose
+// and -1 for padded gts.  Requires N <= 32 * kThreads and at most N valid
+// gts an image (the wrapper checks).  The images are independent problems,
+// so a caller batches all its matchings into one launch (the criterion
+// stacks a train step's seven sets).
+//
+// The mixed (Align-DETR) assignment, salience_detr_tpu/ops/hungarian.py
+// ::mixed_assignment (:111) vmapped by batched_mixed_assignment (:135),
+// solves one assignment over the gt columns tiled C times, the copies past
+// an image's cap invalid.  Here copies[b] of the C copies of image b take
+// part (the wrapper computes the cap; NULL means 1): the problem's rows are
+// copy c of valid gt k for c < copies[b], in copy-major order, and row r
+// reads the cost row of valid gt r mod n_valid - the untiled cost, through
+// the same staged rows, so the (B, C * M, N) tiled cost is never written
+// and C = 1 runs the same code as before.  out is then (B, C, M): the query
+// of copy c of gt k, -1 where the copy or the gt is not valid.  An image whose
 // costs leave some gt no finite path (NaN or inf costs, as from a diverged
 // model) stops and reports -1 for all its gts; the other images of the
 // launch are solved as usual.
@@ -149,31 +161,33 @@ __device__ __forceinline__ void relax(const float* row, bool in_smem, double bas
   }
 }
 
-// kCols: columns per thread, N <= kCols * kThreads.  Dynamic shared memory:
-// the staged rows (cap x ld f32), then u (M f64), the rows' mbarriers (cap),
-// the argmin slots (2 x kWarps), row4col and path (N int32 each), col4row
-// and gt_of_row (M int32 each).
+// kCols: columns per thread, N <= kCols * kThreads.  R = C * M rows at
+// most.  Dynamic shared memory: the staged rows (cap x ld f32), then u (R
+// f64), the rows' mbarriers (cap), the argmin slots (2 x kWarps), row4col
+// and path (N int32 each), col4row (R int32) and gt_of_row (M int32).
 template <int kCols>
 __global__ void __launch_bounds__(kThreads, 1)
 hungarian_kernel(const float* __restrict__ cost_t, const uint8_t* __restrict__ valid,
-                 int* __restrict__ out, int N, int M, int ld, int cap) {
+                 const int* __restrict__ copies, int* __restrict__ out, int N, int M, int C, int ld,
+                 int cap) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int R = C * M;
   float* rows = reinterpret_cast<float*>(smem);
   double* u = reinterpret_cast<double*>(rows + static_cast<size_t>(cap) * ld);  // row potentials
-  uint64_t* arrived = reinterpret_cast<uint64_t*>(u + M);
+  uint64_t* arrived = reinterpret_cast<uint64_t*>(u + R);
   Partial* slots = reinterpret_cast<Partial*>(arrived + cap);
   int* row4col = reinterpret_cast<int*>(slots + 2 * kWarps);  // row matched to each query, -1 if free
   int* path = row4col + N;        // row through which each scanned column was reached
   int* col4row = path + N;        // query matched to each row
-  int* gt_of_row = col4row + M;   // rows are the valid gts in index order
-  __shared__ int n_rows_shared;
+  int* gt_of_row = col4row + R;   // the valid gts in index order
+  __shared__ int n_valid_shared;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float* cost_b = cost_t + static_cast<int64_t>(blockIdx.x) * M * ld;
   const uint8_t* valid_b = valid + static_cast<int64_t>(blockIdx.x) * M;
-  int* out_b = out + static_cast<int64_t>(blockIdx.x) * M;
+  int* out_b = out + static_cast<int64_t>(blockIdx.x) * R;
 
-  for (int k = tid; k < M; k += kThreads) {
+  for (int k = tid; k < R; k += kThreads) {
     out_b[k] = -1;
     u[k] = 0.0;
     col4row[k] = -1;
@@ -188,11 +202,14 @@ hungarian_kernel(const float* __restrict__ cost_t, const uint8_t* __restrict__ v
       if (ok) gt_of_row[n + __popc(mask & ((1u << lane) - 1))] = k;
       n += __popc(mask);
     }
-    if (lane == 0) n_rows_shared = n;
+    if (lane == 0) n_valid_shared = n;
   }
   __syncthreads();
-  const int n_rows = n_rows_shared;
-  const int n_staged = min(n_rows, cap);
+  // row r is copy r / n_valid of valid gt r % n_valid; the staged rows are
+  // the first copy's
+  const int n_valid = n_valid_shared;
+  const int n_rows = n_valid * (copies ? min(copies[blockIdx.x], C) : 1);
+  const int n_staged = min(n_valid, cap);
   if (tid == 0) {
     for (int r = 0; r < n_staged; ++r) mbar_init(arrived + r);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -223,10 +240,11 @@ hungarian_kernel(const float* __restrict__ cost_t, const uint8_t* __restrict__ v
       unsigned long long key = ~0ull;
       unsigned jbest = 0xffffffffu;
       const double base = min_val - u[i];
-      if (i < n_staged)
-        relax<kCols>(rows + static_cast<size_t>(i) * ld, true, base, i, N, scanned, v, d, from, key, jbest);
+      const int gi = i < n_valid ? i : i % n_valid;  // the row's valid gt
+      if (gi < n_staged)
+        relax<kCols>(rows + static_cast<size_t>(gi) * ld, true, base, i, N, scanned, v, d, from, key, jbest);
       else
-        relax<kCols>(cost_b + static_cast<int64_t>(gt_of_row[i]) * ld, false, base, i, N, scanned, v, d, from,
+        relax<kCols>(cost_b + static_cast<int64_t>(gt_of_row[gi]) * ld, false, base, i, N, scanned, v, d, from,
                      key, jbest);
       warp_argmin(key, jbest);
       Partial* slot = slots + (step++ & 1) * kWarps;
@@ -305,44 +323,57 @@ hungarian_kernel(const float* __restrict__ cost_t, const uint8_t* __restrict__ v
     return;
   }
   __syncthreads();
-  for (int j = tid; j < N; j += kThreads)
-    if (row4col[j] >= 0) out_b[gt_of_row[row4col[j]]] = j;
+  for (int j = tid; j < N; j += kThreads) {
+    const int r = row4col[j];
+    if (r >= 0) out_b[(r / n_valid) * M + gt_of_row[r % n_valid]] = j;
+  }
 }
 
 template <int kCols>
-int launch(const void* cost_t, const void* valid, void* out, int B, int N, int M, int ld, int cap,
-           size_t smem, cudaStream_t stream) {
+int launch(const void* cost_t, const void* valid, const int* copies, void* out, int B, int N, int M, int C,
+           int ld, int cap, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         hungarian_kernel<kCols>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   hungarian_kernel<kCols><<<B, kThreads, smem, stream>>>(
-      static_cast<const float*>(cost_t), static_cast<const uint8_t*>(valid), static_cast<int*>(out), N, M,
-      ld, cap);
+      static_cast<const float*>(cost_t), static_cast<const uint8_t*>(valid), copies, static_cast<int*>(out),
+      N, M, C, ld, cap);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
-// shape the kernel does not take (the Python wrapper rejects those first).
-extern "C" int assignment_forward(const void* cost_t, const void* valid, void* out, int B, int N, int M,
-                                  int ld, void* stream) {
-  if (N <= 0 || M < 0 || M > N || N > 32 * kThreads || ld < N || ld % 4 != 0) {
+// The assignment with C copies of every gt, copies[b] of them taking part in
+// image b (int32 on the device; NULL: one).  Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for a shape the kernel does not
+// take (the Python wrapper rejects those first).
+extern "C" int assignment_copies_forward(const void* cost_t, const void* valid, const void* copies, void* out,
+                                         int B, int N, int M, int C, int ld, void* stream) {
+  if (N <= 0 || M < 0 || C < 1 || N > 32 * kThreads || ld < N || ld % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0 || M == 0) return static_cast<int>(cudaSuccess);
   // everything but the staged rows, then as many rows as fit (each with its mbarrier)
-  const size_t fixed = static_cast<size_t>(M) * (sizeof(double) + 2 * sizeof(int)) +
+  const size_t R = static_cast<size_t>(C) * M;
+  const size_t fixed = R * (sizeof(double) + sizeof(int)) + static_cast<size_t>(M) * sizeof(int) +
                        2 * kWarps * sizeof(Partial) + 2 * static_cast<size_t>(N) * sizeof(int);
+  if (fixed >= kSmemBudget) return static_cast<int>(cudaErrorInvalidValue);
   const size_t per_row = static_cast<size_t>(ld) * sizeof(float) + sizeof(uint64_t);
   const int cap = static_cast<int>(std::min<size_t>(M, (kSmemBudget - fixed) / per_row));
   const size_t smem = fixed + cap * per_row;
   const int cols = (N + kThreads - 1) / kThreads;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cols <= 4) return launch<4>(cost_t, valid, out, B, N, M, ld, cap, smem, s);
-  if (cols <= 8) return launch<8>(cost_t, valid, out, B, N, M, ld, cap, smem, s);
-  if (cols <= 16) return launch<16>(cost_t, valid, out, B, N, M, ld, cap, smem, s);
-  return launch<32>(cost_t, valid, out, B, N, M, ld, cap, smem, s);
+  const int* c = static_cast<const int*>(copies);
+  if (cols <= 4) return launch<4>(cost_t, valid, c, out, B, N, M, C, ld, cap, smem, s);
+  if (cols <= 8) return launch<8>(cost_t, valid, c, out, B, N, M, C, ld, cap, smem, s);
+  if (cols <= 16) return launch<16>(cost_t, valid, c, out, B, N, M, C, ld, cap, smem, s);
+  return launch<32>(cost_t, valid, c, out, B, N, M, C, ld, cap, smem, s);
+}
+
+// The plain assignment: one copy of every gt.
+extern "C" int assignment_forward(const void* cost_t, const void* valid, void* out, int B, int N, int M,
+                                  int ld, void* stream) {
+  return assignment_copies_forward(cost_t, valid, nullptr, out, B, N, M, 1, ld, stream);
 }

@@ -1,12 +1,14 @@
-"""COCO-format detection dataset, boxes only (the port's copy of
-salience_detr_tpu/data/coco.py's ``CocoIndex``, ``_prepare_target``,
-``CocoDetection`` with its transforms, and ``Object365Detection``).
+"""COCO-format detection dataset (the port's copy of
+salience_detr_tpu/data/coco.py's ``CocoIndex``, ``_rasterize_mask``,
+``_prepare_target``, ``CocoDetection`` with its transforms and instance
+masks, and ``Object365Detection``).
 
 The annotation index is built directly from the JSON, and the same index
 feeds the evaluator (``utils/coco_eval.py``).  Images are decoded with cv2
 (BGR -> RGB) where it is installed; ``.npy`` files holding uint8 HWC RGB
 arrays are read with numpy everywhere.  A machine without cv2, as the CUDA
-card's machine is, reads ``.npy`` images only.
+card's machine is, reads ``.npy`` images only.  Polygon masks are filled
+by ``cv_ops.fill_poly_into``, byte-equal to the JAX package's ``cv2.fillPoly``.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from salience_detr_torch.data.transforms import NOT_PORTED
+from salience_detr_torch.data.cv_ops import fill_poly_into
 
 
 class CocoIndex:
@@ -45,9 +47,22 @@ class CocoIndex:
         return self.img_to_anns.get(img_id, [])
 
 
-def _prepare_target(img_h: int, img_w: int, anns: List[dict]) -> Dict[str, np.ndarray]:
-    """COCO anns -> clamped xyxy boxes + labels, dropping degenerate boxes and
-    crowd annotations (ConvertCocoPolysToMask semantics)."""
+def _rasterize_mask(img_h: int, img_w: int, segmentation) -> np.ndarray:
+    """COCO polygon segmentation -> (img_h, img_w) bool mask: each polygon's
+    vertices rounded half to even and filled (an RLE segmentation, crowd
+    only, gives an empty mask)."""
+    mask = np.zeros((img_h, img_w), np.uint8)
+    if isinstance(segmentation, list):
+        for poly in segmentation:
+            pts = np.asarray(poly, np.float64).reshape(-1, 2)
+            fill_poly_into(mask, np.round(pts).astype(np.int32), 1)
+    return mask.astype(bool)
+
+
+def _prepare_target(img_h: int, img_w: int, anns: List[dict], return_masks: bool = False) -> Dict[str, np.ndarray]:
+    """COCO anns -> clamped xyxy boxes + labels (and masks), dropping
+    degenerate boxes and crowd annotations (ConvertCocoPolysToMask
+    semantics)."""
     anns = [a for a in anns if a.get("iscrowd", 0) == 0]
     boxes = np.asarray([a["bbox"] for a in anns], np.float32).reshape(-1, 4)
     # xywh -> xyxy, clamp to image
@@ -57,7 +72,13 @@ def _prepare_target(img_h: int, img_w: int, anns: List[dict]) -> Dict[str, np.nd
     labels = np.asarray([a["category_id"] for a in anns], np.int64)
     area = np.asarray([a.get("area", 0.0) for a in anns], np.float32)
     keep = (boxes[:, 2] > boxes[:, 0]) & (boxes[:, 3] > boxes[:, 1])
-    return {"boxes": boxes[keep], "labels": labels[keep], "area": area[keep]}
+    out = {"boxes": boxes[keep], "labels": labels[keep], "area": area[keep]}
+    if return_masks:
+        masks = np.stack(
+            [_rasterize_mask(img_h, img_w, a.get("segmentation", [])) for a in anns]
+        ) if anns else np.zeros((0, img_h, img_w), bool)
+        out["masks"] = masks[keep]
+    return out
 
 
 def load_image(path: str) -> np.ndarray:
@@ -77,19 +98,18 @@ def load_image(path: str) -> np.ndarray:
 
 class CocoDetection:
     """Map-style dataset of sample dicts (image, boxes, labels, area,
-    image_id, orig_size), augmented by ``transforms(sample, rng)`` when
-    given.  ``train`` drops the images without a valid annotation.  Mix
+    image_id, orig_size, and with ``return_masks`` the (N, H, W) bool
+    instance masks), augmented by ``transforms(sample, rng)`` when given.  ``train`` drops the images without a valid annotation.  Mix
     transforms (``Mosaic``, ``MixUp``) are wired to draw their extra samples
     from this dataset without transforms."""
 
     def __init__(self, img_folder: str, ann_file: str, transforms: Optional[Callable] = None,
                  train: bool = False, return_masks: bool = False):
-        if return_masks:
-            raise ValueError(f"return_masks is not ported: it needs {NOT_PORTED['copypaste']}")
         self.img_folder = img_folder
         self.coco = CocoIndex(ann_file)
         self.transforms = transforms
         self.train = train
+        self.return_masks = return_masks
         self._wire_dataset(transforms)
         ids = list(self.coco.img_ids)
         if train:
@@ -123,8 +143,8 @@ class CocoDetection:
         img_id = self.ids[idx]
         image = load_image(os.path.join(self.img_folder, self._image_file_name(self.coco.imgs[img_id])))
         h, w = image.shape[:2]
-        target = _prepare_target(h, w, self.coco.annotations(img_id))
-        return {
+        target = _prepare_target(h, w, self.coco.annotations(img_id), return_masks=self.return_masks)
+        sample = {
             "image": image,
             "boxes": target["boxes"],
             "labels": target["labels"],
@@ -132,6 +152,9 @@ class CocoDetection:
             "image_id": img_id,
             "orig_size": np.asarray([h, w], np.int32),
         }
+        if self.return_masks:
+            sample["masks"] = target["masks"]
+        return sample
 
     def get_with_rng(self, idx: int, rng: random.Random) -> dict:
         """The sample, augmented with the caller's ``rng`` (the train loader

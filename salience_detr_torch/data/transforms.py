@@ -1,44 +1,38 @@
 """Host-side train augmentations (the port's copy of
-salience_detr_tpu/data/transforms.py), numpy plus one resize on CPU tensors.
+salience_detr_tpu/data/transforms.py), numpy plus cv2-free image operations.
 
-The JAX package resizes with ``cv2.resize(INTER_LINEAR)``; the card's
-machine has no cv2, so :func:`resize` runs :func:`resize_linear_u8`, which
-computes OpenCV's uint8 bilinear arithmetic in integers and gives the same
-bytes.  Every other operation is the JAX module's numpy code, so a sample
-and a ``random.Random`` give byte-equal images, equal boxes and equal labels
-in both packages.
+The JAX package calls cv2 for its resizes, the HSV conversion, the JPEG
+round trip, the blurs and copy-paste's mask resize and alpha blur; the
+card's machine has no cv2.  The port computes each in OpenCV's own
+arithmetic (:func:`resize_linear_u8` here, the rest in ``data/cv_ops.py``),
+so a sample and a ``random.Random`` give byte-equal images, masks, equal
+boxes and equal labels in both packages; every transform draws from the
+``random.Random`` in the JAX class's order.
 
 Presets (:func:`build_preset`, each call a fresh object): ``basic``,
 ``hflip``, ``multiscale``, ``detr`` (the default train preset), ``lsj``,
-``lsj_1536``, ``ssd``, ``ssdlite``, ``rtdetr``, ``mosaic`` and ``mixup``.
-``strong_album`` and copy-paste need cv2 codecs and filters that the port
-does not carry yet; asking for them raises a ``ValueError`` that names the
-missing operations.
+``lsj_1536``, ``ssd``, ``ssdlite``, ``strong_album``, ``rtdetr``,
+``mosaic`` and ``mixup``.  :func:`simple_copy_paste` is the batch transform
+of ``copypaste = True`` (samples with masks).
 
 Sample dict contract: {"image": HxWx3 uint8 RGB, "boxes": (N, 4) float32
-xyxy absolute, "labels": (N,) int64}.
+xyxy absolute, "labels": (N,) int64, optionally "masks": (N, H, W) bool}.
 """
 
 from __future__ import annotations
 
 import random
-from typing import Callable, Dict, Optional, Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from salience_detr_torch.data import cv_ops
+
 SCALES = [480, 512, 544, 576, 608, 640, 672, 704, 736, 768, 800]
 
 Sample = Dict[str, np.ndarray]
-
-# what the presets and options of the JAX package that the port lacks need
-NOT_PORTED = {
-    "strong_album": "RandomHSV (cv2.cvtColor), RandomJPEG (cv2.imencode/imdecode) and RandomBlur "
-                    "(cv2.blur/medianBlur)",
-    "copypaste": "SimpleCopyPaste (cv2.GaussianBlur of the paste mask, nearest-neighbour mask resize) "
-                 "and mask loading (cv2.fillPoly of the polygons)",
-}
-
 
 def _linear_taps(n_in: int, n_out: int, clamp_border: bool):
     """Source indices and 11-bit fixed-point weights of OpenCV's INTER_LINEAR
@@ -77,7 +71,10 @@ def hflip(sample: Sample) -> Sample:
     boxes = sample["boxes"].copy()
     w = img.shape[1]
     boxes[:, [0, 2]] = w - sample["boxes"][:, [2, 0]]
-    return {**sample, "image": np.ascontiguousarray(img), "boxes": boxes}
+    out = {**sample, "image": np.ascontiguousarray(img), "boxes": boxes}
+    if "masks" in sample and len(sample["masks"]):
+        out["masks"] = np.ascontiguousarray(sample["masks"][:, :, ::-1])
+    return out
 
 
 def vflip(sample: Sample) -> Sample:
@@ -85,7 +82,10 @@ def vflip(sample: Sample) -> Sample:
     boxes = sample["boxes"].copy()
     h = img.shape[0]
     boxes[:, [1, 3]] = h - sample["boxes"][:, [3, 1]]
-    return {**sample, "image": np.ascontiguousarray(img), "boxes": boxes}
+    out = {**sample, "image": np.ascontiguousarray(img), "boxes": boxes}
+    if "masks" in sample and len(sample["masks"]):
+        out["masks"] = np.ascontiguousarray(sample["masks"][:, ::-1])
+    return out
 
 
 def resize(sample: Sample, size_hw) -> Sample:
@@ -93,7 +93,19 @@ def resize(sample: Sample, size_hw) -> Sample:
     nh, nw = size_hw
     img = resize_linear_u8(torch.from_numpy(np.ascontiguousarray(sample["image"])), nh, nw).numpy()
     boxes = sample["boxes"] * np.array([nw / w, nh / h, nw / w, nh / h], np.float32)
-    return {**sample, "image": img, "boxes": boxes.astype(np.float32)}
+    out = {**sample, "image": img, "boxes": boxes.astype(np.float32)}
+    if "masks" in sample and len(sample["masks"]):
+        out["masks"] = resize_masks(sample["masks"], nh, nw)
+    return out
+
+
+def resize_masks(masks: np.ndarray, nh: int, nw: int) -> np.ndarray:
+    """(N, h, w) masks -> (N, nh, nw) uint8, as the JAX package's
+    ``cv2.resize`` of the (h, w, N) uint8 stack with INTER_NEAREST (whose
+    rows and columns it picks, without the transposes)."""
+    h, w = masks.shape[1:]
+    rows = np.take(masks.astype(np.uint8, copy=False), cv_ops.nearest_index(h, nh), axis=1)
+    return np.take(rows, cv_ops.nearest_index(w, nw), axis=2)
 
 
 def shortest_size(sample: Sample, min_size: int, max_size: Optional[int] = None) -> Sample:
@@ -113,7 +125,10 @@ def crop(sample: Sample, top: int, left: int, height: int, width: int) -> Sample
     boxes[:, [1, 3]] -= top
     boxes[:, [0, 2]] = boxes[:, [0, 2]].clip(0, width)
     boxes[:, [1, 3]] = boxes[:, [1, 3]].clip(0, height)
-    return {**sample, "image": np.ascontiguousarray(img), "boxes": boxes}
+    out = {**sample, "image": np.ascontiguousarray(img), "boxes": boxes}
+    if "masks" in sample and len(sample["masks"]):
+        out["masks"] = np.ascontiguousarray(sample["masks"][:, top : top + height, left : left + width])
+    return out
 
 
 def sanitize(sample: Sample, min_size: float = 1.0) -> Sample:
@@ -121,7 +136,7 @@ def sanitize(sample: Sample, min_size: float = 1.0) -> Sample:
     b = sample["boxes"]
     keep = (b[:, 2] - b[:, 0] >= min_size) & (b[:, 3] - b[:, 1] >= min_size)
     out = {**sample, "boxes": b[keep], "labels": sample["labels"][keep]}
-    for k in ("iscrowd", "area"):
+    for k in ("iscrowd", "area", "masks"):
         if k in sample and len(sample[k]) == len(b):
             out[k] = sample[k][keep]
         else:
@@ -404,11 +419,213 @@ class RandomIoUCrop:
                 "boxes": boxes[inside],
                 "labels": sample["labels"][inside],
             }
-            for k in ("iscrowd", "area"):
+            for k in ("iscrowd", "area", "masks"):
                 if k in sample and len(sample[k]) == len(boxes):
                     kept[k] = sample[k][inside]
             return crop(kept, top, left, ch, cw)
         return sample
+
+
+# ------------------------------------------------- albumentations-style ops
+# the ops of the reference's strong_album preset, image-only and
+# box-preserving except RandomShift
+
+
+class RandomVerticalFlip:
+    def __init__(self, p: float = 0.5):
+        self.p = p
+
+    def __call__(self, sample, rng: random.Random):
+        return vflip(sample) if rng.random() < self.p else sample
+
+
+class RandomShift:
+    """A.ShiftScaleRotate(shift_limit, scale_limit=0, rotate_limit=0): a
+    pure translation with a constant-0 border."""
+
+    def __init__(self, shift_limit: float = 0.0625, p: float = 0.5):
+        self.shift_limit = shift_limit
+        self.p = p
+
+    def __call__(self, sample, rng: random.Random):
+        if rng.random() >= self.p:
+            return sample
+        h, w = sample["image"].shape[:2]
+        tx = int(round(rng.uniform(-self.shift_limit, self.shift_limit) * w))
+        ty = int(round(rng.uniform(-self.shift_limit, self.shift_limit) * h))
+        img = np.zeros_like(sample["image"])
+        src = sample["image"]
+        x0s, x1s = max(0, -tx), min(w, w - tx)
+        y0s, y1s = max(0, -ty), min(h, h - ty)
+        img[y0s + ty : y1s + ty, x0s + tx : x1s + tx] = src[y0s:y1s, x0s:x1s]
+        boxes = sample["boxes"] + np.asarray([tx, ty, tx, ty], np.float32)
+        boxes[:, [0, 2]] = boxes[:, [0, 2]].clip(0, w)
+        boxes[:, [1, 3]] = boxes[:, [1, 3]].clip(0, h)
+        return {**sample, "image": img, "boxes": boxes}
+
+
+class RandomBrightnessContrast:
+    """A.RandomBrightnessContrast(brightness_limit=(0.1, 0.3),
+    contrast_limit=(0.1, 0.3)): img * alpha + beta * 255."""
+
+    def __init__(self, brightness_limit=(0.1, 0.3), contrast_limit=(0.1, 0.3), p: float = 0.2):
+        self.brightness = brightness_limit
+        self.contrast = contrast_limit
+        self.p = p
+
+    def __call__(self, sample, rng: random.Random):
+        if rng.random() >= self.p:
+            return sample
+        alpha = 1.0 + rng.uniform(*self.contrast)
+        beta = rng.uniform(*self.brightness)
+        img = sample["image"].astype(np.float32) * alpha + beta * 255.0
+        return {**sample, "image": img.clip(0, 255).astype(np.uint8)}
+
+
+class RandomRGBShift:
+    def __init__(self, limit: int = 10, p: float = 1.0):
+        self.limit = limit
+        self.p = p
+
+    def __call__(self, sample, rng: random.Random):
+        if rng.random() >= self.p:
+            return sample
+        shift = np.asarray([rng.uniform(-self.limit, self.limit) for _ in range(3)], np.float32)
+        img = sample["image"].astype(np.float32) + shift
+        return {**sample, "image": img.clip(0, 255).astype(np.uint8)}
+
+
+class RandomHSV:
+    """A.HueSaturationValue(20, 30, 20) through OpenCV's uint8 HSV."""
+
+    def __init__(self, hue: int = 20, sat: int = 30, val: int = 20, p: float = 1.0):
+        self.hue, self.sat, self.val = hue, sat, val
+        self.p = p
+
+    def __call__(self, sample, rng: random.Random):
+        if rng.random() >= self.p:
+            return sample
+        hsv = cv_ops.rgb2hsv_u8(sample["image"]).astype(np.int32)
+        hsv[..., 0] = (hsv[..., 0] + int(rng.uniform(-self.hue, self.hue))) % 180
+        hsv[..., 1] = (hsv[..., 1] + int(rng.uniform(-self.sat, self.sat))).clip(0, 255)
+        hsv[..., 2] = (hsv[..., 2] + int(rng.uniform(-self.val, self.val))).clip(0, 255)
+        return {**sample, "image": cv_ops.hsv2rgb_u8(hsv.astype(np.uint8))}
+
+
+class RandomJPEG:
+    """A.ImageCompression(quality 85-95): a JPEG round trip."""
+
+    def __init__(self, quality=(85, 95), p: float = 0.2):
+        self.quality = quality
+        self.p = p
+
+    def __call__(self, sample, rng: random.Random):
+        if rng.random() >= self.p:
+            return sample
+        q = rng.randint(*self.quality)
+        return {**sample, "image": cv_ops.jpeg_roundtrip_u8(sample["image"], q)}
+
+
+class RandomChannelShuffle:
+    def __init__(self, p: float = 0.1):
+        self.p = p
+
+    def __call__(self, sample, rng: random.Random):
+        if rng.random() >= self.p:
+            return sample
+        perm = [0, 1, 2]
+        rng.shuffle(perm)
+        return {**sample, "image": np.ascontiguousarray(sample["image"][:, :, perm])}
+
+
+class RandomBlur:
+    """A.OneOf([Blur(3), MedianBlur(3)])."""
+
+    def __init__(self, p: float = 0.1):
+        self.p = p
+
+    def __call__(self, sample, rng: random.Random):
+        if rng.random() >= self.p:
+            return sample
+        blur = cv_ops.box3_u8 if rng.random() < 0.5 else cv_ops.median3_u8
+        return {**sample, "image": blur(sample["image"])}
+
+
+class OneOf:
+    """Apply exactly one of the given transforms (albumentations A.OneOf)."""
+
+    def __init__(self, transforms: Sequence[Callable], p: float = 1.0):
+        self.transforms = list(transforms)
+        self.p = p
+
+    def __call__(self, sample, rng: random.Random):
+        if rng.random() >= self.p:
+            return sample
+        return rng.choice(self.transforms)(sample, rng)
+
+
+# ------------------------------------------------------------ copy-paste
+
+
+def simple_copy_paste(samples: List[Sample], rng: random.Random) -> List[Sample]:
+    """Batch-level SimpleCopyPaste: each image receives a random selection
+    of the previous image's instances (the batch rolled by one), masked by
+    the union of their blurred masks.  Samples carry masks
+    (``CocoDetection(return_masks=True)``).  The selections are drawn in
+    the JAX function's order, then the pairs are composited in threads
+    (numpy releases the GIL for the image-sized work)."""
+    rolled = samples[-1:] + samples[:-1]
+    pairs = []
+    for target, paste in zip(samples, rolled):
+        if "masks" not in paste or len(paste["masks"]) == 0 or "masks" not in target:
+            pairs.append((target, paste, None))
+            continue
+        n = len(paste["masks"])
+        pairs.append((target, paste, sorted(set(rng.randrange(n) for _ in range(n)))))  # draws with repeats
+    # one intra-op thread each, as the loader's workers: the resize of a
+    # paste image is a torch op
+    with ThreadPoolExecutor(len(pairs), initializer=torch.set_num_threads, initargs=(1,)) as ex:
+        return list(ex.map(lambda pair: _copy_paste_one(*pair), pairs))
+
+
+def _copy_paste_one(sample: Sample, paste: Sample, sel: Optional[List[int]]) -> Sample:
+    if sel is None:
+        return sample
+    p_masks = paste["masks"][sel]
+    p_boxes = paste["boxes"][sel]
+    p_labels = paste["labels"][sel]
+
+    h, w = sample["image"].shape[:2]
+    ph, pw = paste["image"].shape[:2]
+    p_img = paste["image"]
+    if (ph, pw) != (h, w):
+        p_img = resize_linear_u8(torch.from_numpy(np.ascontiguousarray(p_img)), h, w).numpy()
+        p_masks = resize_masks(p_masks, h, w)
+        p_boxes = p_boxes * np.asarray([w / pw, h / ph, w / pw, h / ph], np.float32)
+
+    alpha = cv_ops.gaussian_blur5_f32(p_masks.any(0).astype(np.float32), 2.0)
+    img = (
+        sample["image"].astype(np.float32) * (1.0 - alpha[..., None])
+        + p_img.astype(np.float32) * alpha[..., None]
+    )
+    # a 0/1 mask times (1 - alpha) is above 0.5 where the mask is set and
+    # (1 - alpha) is: the JAX package's float test, without the float stack
+    masks = sample["masks"].astype(bool, copy=False) & ((1.0 - alpha) > 0.5)[None]
+    keep = masks.reshape(len(masks), -1).any(1)
+    masks = masks[keep]
+    # the boxes of the surviving target instances, from their masks
+    rows, cols = masks.any(2), masks.any(1)
+    H, W = masks.shape[1:]
+    boxes = np.stack([cols.argmax(1), rows.argmax(1), W - cols[:, ::-1].argmax(1),
+                      H - rows[:, ::-1].argmax(1)], 1).astype(np.float32).reshape(-1, 4)
+    out = {
+        **{k: v for k, v in sample.items() if k not in ("area", "iscrowd")},
+        "image": img.clip(0, 255).astype(np.uint8),
+        "masks": np.concatenate([masks, p_masks.astype(bool)]) if len(masks) or len(p_masks) else masks,
+        "boxes": np.concatenate([boxes, p_boxes]).astype(np.float32),
+        "labels": np.concatenate([sample["labels"][keep], p_labels]),
+    }
+    return sanitize(out)
 
 
 # ------------------------------------------------------------------ presets
@@ -454,15 +671,25 @@ PRESETS: Dict[str, Callable[[], Compose]] = {
         Mosaic((640, 640)), RandomShortestSize(SCALES, 1333), RandomHorizontalFlip(0.5), Sanitize(),
     ]),
     "mixup": lambda: Compose([MixUp(), RandomHorizontalFlip(0.5), _multiscale_or_crop(), Sanitize()]),
+    "strong_album": lambda: Compose([
+        RandomHorizontalFlip(0.5),
+        _multiscale_or_crop(),
+        # the reference's albumentations block
+        RandomShift(0.0625, p=0.5),
+        RandomBrightnessContrast(p=0.2),
+        OneOf([RandomRGBShift(10), RandomHSV(20, 30, 20)], p=1.0),
+        RandomJPEG((85, 95), p=0.2),
+        RandomChannelShuffle(p=0.1),
+        RandomBlur(p=0.1),
+        RandomHorizontalFlip(0.5),
+        RandomVerticalFlip(0.5),
+        Sanitize(),
+    ]),
 }
 
 
 def build_preset(name: str) -> Compose:
-    """A fresh transform of the preset ``name``; raises ``ValueError`` for a
-    preset of the JAX package that the port does not carry, naming what it
-    lacks."""
-    if name in NOT_PORTED:
-        raise ValueError(f"train_transform {name!r} is not ported: it needs {NOT_PORTED[name]}")
+    """A fresh transform of the preset ``name``."""
     if name not in PRESETS:
         raise ValueError(f"unknown train_transform {name!r}; presets: {sorted(PRESETS)}")
     return PRESETS[name]()

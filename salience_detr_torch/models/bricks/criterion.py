@@ -6,8 +6,10 @@ normalised cxcywh, valid (B, M) bool with each image's valid gts first, and
 ``counts``, the per-image valid counts as host integers (the CDN layout reads
 them, so that it costs no synchronisation).  The assignment runs in the
 assignment kernel (ops/hungarian.py) on the device, one launch for all the
-sets of a step.  Every loss is computed in float32; call the criteria
-outside autocast.
+sets of a step, also for the mixed (Align-DETR) assignment of
+``mixed_match_copies`` > 1, which matches each gt to up to that many
+queries and scores the losses against the gts tiled that many times.
+Every loss is computed in float32; call the criteria outside autocast.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from salience_detr_torch.ops.boxes import (
     generalized_box_iou_elementwise,
     generalized_box_iou_pairwise,
 )
-from salience_detr_torch.ops.hungarian import batched_assignment
+from salience_detr_torch.ops.hungarian import batched_assignment, batched_mixed_assignment, copy_validity
 from salience_detr_torch.ops.losses import sigmoid_focal_loss, vari_sigmoid_focal_loss
 
 
@@ -61,11 +63,15 @@ def compute_matching_cost(pred_logits, pred_boxes, targets: Targets, cost_class=
 
 class SetCriterion:
     """Hungarian-matched detection loss; ``hybrid=True`` is the IoU-aware
-    HybridSetCriterion variant Salience-DETR trains with."""
+    HybridSetCriterion variant Salience-DETR trains with.
+    ``two_stage_binary_cls`` scores the encoder's proposals against class 0
+    (foreground) for every gt; ``mixed_match_copies`` > 1 is the Align-DETR
+    mixed assignment (each gt matched to up to that many queries).  Both are
+    off in every shipped config."""
 
     def __init__(self, num_classes: int, cost_class: float = 2.0, cost_bbox: float = 5.0,
                  cost_giou: float = 2.0, alpha: float = 0.25, gamma: float = 2.0,
-                 hybrid: bool = True):
+                 hybrid: bool = True, two_stage_binary_cls: bool = False, mixed_match_copies: int = 1):
         self.num_classes = num_classes
         self.cost_class = cost_class
         self.cost_bbox = cost_bbox
@@ -73,43 +79,90 @@ class SetCriterion:
         self.alpha = alpha
         self.gamma = gamma
         self.hybrid = hybrid
+        self.two_stage_binary_cls = two_stage_binary_cls
+        self.mixed_match_copies = mixed_match_copies
+
+    def _cost(self, pred_logits, pred_boxes, targets: Targets) -> torch.Tensor:
+        return compute_matching_cost(
+            pred_logits, pred_boxes, targets, self.cost_class, self.cost_bbox, self.cost_giou,
+            self.alpha, self.gamma,
+        )
 
     @torch.no_grad()
     def match(self, pred_logits, pred_boxes, targets: Targets) -> torch.Tensor:
         """(B, M) int32 matched query per gt, -1 for padded gts."""
-        cost = compute_matching_cost(
-            pred_logits, pred_boxes, targets, self.cost_class, self.cost_bbox, self.cost_giou,
-            self.alpha, self.gamma,
-        )
-        return batched_assignment(cost, targets.valid)
+        return batched_assignment(self._cost(pred_logits, pred_boxes, targets), targets.valid)
+
+    def tiled_targets(self, targets: Targets, num_queries: int) -> Targets:
+        """The gts tiled ``mixed_match_copies`` times (copy-major), valid
+        where the copy takes part in the mixed assignment over
+        ``num_queries`` queries: the targets its (B, C * M) matches index."""
+        C = self.mixed_match_copies
+        B, M = targets.labels.shape
+        valid = copy_validity(targets.valid, num_queries, C).reshape(B, C * M)
+        counts = tuple(min((num_queries // 2) // max(n, 1), C) * n for n in targets.counts)
+        return Targets(targets.labels.repeat(1, C), targets.boxes.repeat(1, C, 1), valid, counts)
+
+    def match_mixed(self, pred_logits, pred_boxes, targets: Targets) -> Tuple[torch.Tensor, Targets]:
+        """The mixed assignment: the (B, C * M) int32 query of each copy of
+        each gt (-1 where the copy or the gt is not valid) and the tiled
+        targets it indexes, so the losses downstream are unchanged."""
+        return self._assign(pred_logits, pred_boxes, targets), self.tiled_targets(targets, pred_logits.shape[1])
+
+    def encoder_targets(self, targets: Targets) -> Targets:
+        """The encoder's targets: every label 0 with ``two_stage_binary_cls``."""
+        if not self.two_stage_binary_cls:
+            return targets
+        return Targets(torch.zeros_like(targets.labels), targets.boxes, targets.valid, targets.counts)
+
+    @torch.no_grad()
+    def _assign(self, pred_logits, pred_boxes, targets: Targets) -> torch.Tensor:
+        """:meth:`match`, or with ``mixed_match_copies`` > 1 the (B, C * M)
+        mixed assignment."""
+        if self.mixed_match_copies <= 1:
+            return self.match(pred_logits, pred_boxes, targets)
+        cost = self._cost(pred_logits, pred_boxes, targets)
+        return batched_mixed_assignment(cost, targets.valid, self.mixed_match_copies)[0].flatten(1)
 
     @torch.no_grad()
     def match_sets(self, outputs_class, outputs_coord, enc_class, enc_coord,
                    targets: Targets) -> List[torch.Tensor]:
-        """One (B, M) assignment per decoder layer of ``outputs_*`` (L, B, Q,
-        .) and one for the encoder's ``enc_*`` (B, Q', .), in that order.
-        Each image of each set is its own problem, so the sets are stacked to
-        (L + 1) * B images for one cost computation and one assignment launch;
-        an encoder set with another query count is matched in its own call."""
+        """One assignment per decoder layer of ``outputs_*`` (L, B, Q, .) and
+        one for the encoder's ``enc_*`` (B, Q', .) against
+        :meth:`encoder_targets`, in that order: (B, M) each, or (B, C * M)
+        over :meth:`tiled_targets` when mixed.  Each image of each set is
+        its own problem, so the sets are stacked to (L + 1) * B images for
+        one cost computation and one assignment launch; an encoder set with
+        another query count is matched in its own call."""
         n_layers = outputs_class.shape[0]
+        enc_targets = self.encoder_targets(targets)
         if enc_class.shape[1] == outputs_class.shape[2]:
             outputs_class = torch.cat([outputs_class, enc_class[None]])
             outputs_coord = torch.cat([outputs_coord, enc_coord[None]])
             enc_match = None
         else:
-            enc_match = self.match(enc_class, enc_coord, targets)
+            enc_match = self._assign(enc_class, enc_coord, enc_targets)
         sets = outputs_class.shape[0]
-        stacked = Targets(targets.labels.repeat(sets, 1), targets.boxes.repeat(sets, 1, 1),
-                          targets.valid.repeat(sets, 1), targets.counts * sets)
-        matches = self.match(outputs_class.flatten(0, 1), outputs_coord.flatten(0, 1), stacked)
-        matches = list(matches.view(sets, *targets.valid.shape).unbind(0))
+        labels = targets.labels.repeat(n_layers, 1)
+        if enc_match is None:
+            labels = torch.cat([labels, enc_targets.labels])
+        stacked = Targets(labels, targets.boxes.repeat(sets, 1, 1), targets.valid.repeat(sets, 1),
+                          targets.counts * sets)
+        matches = self._assign(outputs_class.flatten(0, 1), outputs_coord.flatten(0, 1), stacked)
+        matches = list(matches.view(sets, targets.valid.shape[0], -1).unbind(0))
         return matches if enc_match is None else matches[:n_layers] + [enc_match]
 
     def calculate_loss(self, pred_logits, pred_boxes, targets: Targets, num_boxes,
                        gt_to_query: Optional[torch.Tensor] = None,
                        class_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """The class, L1 and GIoU losses of one set; without ``gt_to_query``
+        it matches first (mixed, against the tiled targets, when
+        ``mixed_match_copies`` > 1)."""
         if gt_to_query is None:
-            gt_to_query = self.match(pred_logits, pred_boxes, targets)
+            if self.mixed_match_copies > 1:
+                gt_to_query, targets = self.match_mixed(pred_logits, pred_boxes, targets)
+            else:
+                gt_to_query = self.match(pred_logits, pred_boxes, targets)
         B, Q, K = pred_logits.shape
         valid = targets.valid
         q_idx = gt_to_query.long().clamp(0, Q - 1)
@@ -150,12 +203,16 @@ class SetCriterion:
         losses = {}
         n_layers = outputs_class.shape[0]
         matches = self.match_sets(outputs_class, outputs_coord, enc_class, enc_coord, targets)
+        dec_targets, enc_targets = targets, self.encoder_targets(targets)
+        if self.mixed_match_copies > 1:
+            dec_targets = self.tiled_targets(dec_targets, outputs_class.shape[2])
+            enc_targets = self.tiled_targets(enc_targets, enc_class.shape[1])
         for i in range(n_layers):
-            layer = self.calculate_loss(outputs_class[i], outputs_coord[i], targets, num_boxes,
+            layer = self.calculate_loss(outputs_class[i], outputs_coord[i], dec_targets, num_boxes,
                                         gt_to_query=matches[i])
             suffix = "" if i == n_layers - 1 else f"_{i}"
             losses.update({k + suffix: v for k, v in layer.items()})
-        enc = self.calculate_loss(enc_class, enc_coord, targets, num_boxes, gt_to_query=matches[-1])
+        enc = self.calculate_loss(enc_class, enc_coord, enc_targets, num_boxes, gt_to_query=matches[-1])
         losses.update({k + "_enc": v for k, v in enc.items()})
         return losses
 
@@ -187,20 +244,28 @@ class SetCriterion:
 
 class SalienceCriterion:
     """Supervision of the hierarchical salience maps (the reference's
-    salience_detr.py:13-116), noise off."""
+    salience_detr.py:13-116).  With ``noise_scale`` > 0 and uniform draws
+    (``uniform``: one (B, h * w) tensor in [0, 1) a level, or a
+    ``generator`` to draw them), each level's target becomes (1 - s) *
+    target + s * uniform and the positives are the targets above s / 2; the
+    JAX package draws them only when given a key, and its train step gives
+    none."""
 
     def __init__(self, limit_range: Sequence[Tuple[float, float]] = (
                      (-1, 64), (64, 128), (128, 256), (256, 99999)),
-                 alpha: float = 0.25, gamma: float = 2.0):
+                 noise_scale: float = 0.0, alpha: float = 0.25, gamma: float = 2.0):
         self.limit_range = limit_range
+        self.noise_scale = noise_scale
         self.alpha = alpha
         self.gamma = gamma
 
     def __call__(self, foreground_mask: List[torch.Tensor], targets: Targets,
-                 feature_strides: Sequence[Tuple[float, float]],
-                 image_sizes: torch.Tensor) -> Dict[str, torch.Tensor]:
+                 feature_strides: Sequence[Tuple[float, float]], image_sizes: torch.Tensor,
+                 uniform: Optional[Sequence[torch.Tensor]] = None,
+                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """foreground_mask [(B, h, w, 1)] salience logits; image_sizes (B, 2)
         valid (h, w)."""
+        noisy = self.noise_scale > 0 and (uniform is not None or generator is not None)
         sizes = image_sizes.float()
         scale = torch.stack([sizes[:, 1], sizes[:, 0], sizes[:, 1], sizes[:, 0]], -1)[:, None]
         gt_xyxy = box_cxcywh_to_xyxy(targets.boxes.float()) * scale  # (B, M, 4)
@@ -236,11 +301,18 @@ class SalienceCriterion:
             else:
                 tgt = torch.zeros(b, h * w, device=dev)
             pos = (in_boxes & in_level).any(-1)
-            mask_targets.append(torch.where(pos, tgt, torch.zeros_like(tgt)))
+            tgt = torch.where(pos, tgt, torch.zeros_like(tgt))
+            if noisy:
+                if uniform is not None:
+                    u = uniform[level_idx].to(dev, torch.float32)
+                else:
+                    u = torch.rand(tgt.shape, generator=generator, device=generator.device).to(dev)
+                tgt = (1 - self.noise_scale) * tgt + self.noise_scale * u
+            mask_targets.append(tgt)
             flat_scores.append(mask.reshape(b, h * w))
         mask_targets = torch.cat(mask_targets, 1)
         scores = torch.cat(flat_scores, 1).float()
-        num_pos = (mask_targets > 0).sum().float().clamp(min=1.0)
+        num_pos = (mask_targets > 0.5 * self.noise_scale).sum().float().clamp(min=1.0)
         loss = sigmoid_focal_loss(scores, mask_targets, num_pos, self.alpha, self.gamma)
         return {"loss_salience": loss * scores.shape[1]}
 

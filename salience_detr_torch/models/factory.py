@@ -228,4 +228,6 @@ def build_criteria(cfg: SalienceDETRConfig):
         cfg.num_classes, cfg.cost_class, cfg.cost_bbox, cfg.cost_giou, cfg.focal_alpha,
         cfg.focal_gamma, hybrid=True,
     )
-    return criterion, SalienceCriterion(cfg.salience_limit_range, cfg.focal_alpha, cfg.focal_gamma)
+    salience = SalienceCriterion(cfg.salience_limit_range, noise_scale=0.0, alpha=cfg.focal_alpha,
+                                 gamma=cfg.focal_gamma)
+    return criterion, salience

@@ -13,11 +13,23 @@ matched query per gt and -1 for padded gts.
   per image, all images in one launch): a CPU tensor goes to the plain
   version, a CUDA tensor launches the kernel or raises.
 
+The mixed (Align-DETR) assignment gives each gt up to C queries: one exact
+assignment over the gt columns tiled C times, the copies past an image's
+cap ``min((N // 2) // max(n_valid, 1), C)`` invalid
+(:func:`batched_mixed_assignment_plain`, and on CUDA
+:func:`batched_mixed_assignment`, one launch of the same kernel reading the
+untiled costs).  The C copies of a gt are identical columns, so which copy
+takes which of the gt's queries is a tie that the two versions may break
+differently; the set of queries of each gt and the total cost are what they
+share.
+
 Both are exact, so they agree wherever the optimum is unique and otherwise
 reach the same total cost.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -65,6 +77,8 @@ def batched_assignment_plain(cost: torch.Tensor, gt_valid: torch.Tensor) -> torc
         done = ~active
         # a path visits at most k matched gts before the source column k
         for _ in range(k + 1):
+            if bool(done.all()):
+                break
             g = parent.gather(1, q[:, None])[:, 0]
             is_src = g < 0
             g_eff = torch.where(is_src, torch.full_like(g, k), g)
@@ -77,23 +91,36 @@ def batched_assignment_plain(cost: torch.Tensor, gt_valid: torch.Tensor) -> torc
     return match_gt.to(torch.int32)
 
 
-def batched_assignment(cost: torch.Tensor, gt_valid: torch.Tensor) -> torch.Tensor:
-    """Wrapper of the assignment kernel (csrc/hungarian.cu); same contract as
-    :func:`batched_assignment_plain`.  On CUDA it takes M <= N <= 8192."""
-    if cost.device.type == "cpu":
-        return batched_assignment_plain(cost, gt_valid)
-    if cost.device.type != "cuda":
-        raise RuntimeError(f"batched_assignment: no kernel for device {cost.device}")
-    if cost.dim() != 3 or tuple(gt_valid.shape) != (cost.shape[0], cost.shape[2]):
-        raise ValueError(
-            f"batched_assignment: cost (B, N, M) and gt_valid (B, M) expected, got "
-            f"{tuple(cost.shape)} and {tuple(gt_valid.shape)}"
-        )
+def copy_counts(gt_valid: torch.Tensor, num_queries: int, gt_copy: int) -> torch.Tensor:
+    """(B,) int32: the copies of each gt that image b's mixed assignment
+    uses, min((N // 2) // max(n_valid, 1), C) (the reference's cap
+    min(N * 0.5 / n_gt, C))."""
+    n_valid = gt_valid.sum(1).clamp(min=1)
+    return ((num_queries // 2) // n_valid).clamp(max=gt_copy).to(torch.int32)
+
+
+def copy_validity(gt_valid: torch.Tensor, num_queries: int, gt_copy: int) -> torch.Tensor:
+    """(B, C, M) bool: copy c of gt k takes part in image b's mixed
+    assignment."""
+    copies = copy_counts(gt_valid, num_queries, gt_copy)
+    use = torch.arange(gt_copy, device=gt_valid.device)[None] < copies[:, None]
+    return use[:, :, None] & gt_valid.to(torch.bool)[:, None, :]
+
+
+def batched_mixed_assignment_plain(cost: torch.Tensor, gt_valid: torch.Tensor,
+                                   gt_copy: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cost (B, N, M), gt_valid (B, M) -> (match (B, C, M) int32, the query
+    of copy c of gt k with -1 for unused slots; copy validity (B, C, M)):
+    :func:`batched_assignment_plain` over the columns tiled C times."""
     B, N, M = cost.shape
-    if not M <= N <= MAX_QUERIES:
-        raise ValueError(f"batched_assignment: need gt slots ({M}) <= queries ({N}) <= {MAX_QUERIES}")
-    if gt_valid.device != cost.device:
-        raise ValueError("batched_assignment: cost and gt_valid must be on one device")
+    valid = copy_validity(gt_valid, N, gt_copy)
+    match = batched_assignment_plain(cost.repeat(1, 1, gt_copy), valid.reshape(B, gt_copy * M))
+    return match.view(B, gt_copy, M), valid
+
+
+def _launch(cost: torch.Tensor, gt_valid: torch.Tensor, copies, gt_copy: int) -> torch.Tensor:
+    """One launch of the assignment kernel; (B, C * M) int32."""
+    B, N, M = cost.shape
     # one gt's costs contiguous, each row a multiple of 16 bytes for the
     # kernel's bulk copies: the criterion's costs come so, others are copied
     cost_t = cost.transpose(1, 2)
@@ -102,13 +129,65 @@ def batched_assignment(cost: torch.Tensor, gt_valid: torch.Tensor) -> torch.Tens
         cost_t = torch.zeros((B, M, ld), dtype=torch.float32, device=cost.device)
         cost_t[..., :N] = cost.transpose(1, 2)
     valid = gt_valid.to(torch.bool).contiguous().view(torch.uint8)
-    out = torch.empty((B, M), dtype=torch.int32, device=cost.device)
+    out = torch.empty((B, gt_copy * M), dtype=torch.int32, device=cost.device)
     lib = native.load()
     with torch.cuda.device(cost.device):
-        err = lib.assignment_forward(
-            cost_t.data_ptr(), valid.data_ptr(), out.data_ptr(), B, N, M, ld,
-            native.stream_of(cost),
-        )
-    native.check(err, "assignment_forward")
+        if copies is None:
+            err = lib.assignment_forward(
+                cost_t.data_ptr(), valid.data_ptr(), out.data_ptr(), B, N, M, ld, native.stream_of(cost),
+            )
+        else:
+            err = lib.assignment_copies_forward(
+                cost_t.data_ptr(), valid.data_ptr(), copies.data_ptr(), out.data_ptr(), B, N, M, gt_copy, ld,
+                native.stream_of(cost),
+            )
+    native.check(err, "assignment_forward" if copies is None else "assignment_copies_forward")
     native.LAUNCHES["hungarian"] += 1
     return out
+
+
+def _check_cuda(name: str, cost: torch.Tensor, gt_valid: torch.Tensor):
+    if cost.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {cost.device}")
+    if cost.dim() != 3 or tuple(gt_valid.shape) != (cost.shape[0], cost.shape[2]):
+        raise ValueError(
+            f"{name}: cost (B, N, M) and gt_valid (B, M) expected, got "
+            f"{tuple(cost.shape)} and {tuple(gt_valid.shape)}"
+        )
+    if not 0 < cost.shape[1] <= MAX_QUERIES:
+        raise ValueError(f"{name}: need 0 < queries ({cost.shape[1]}) <= {MAX_QUERIES}")
+    if gt_valid.device != cost.device:
+        raise ValueError(f"{name}: cost and gt_valid must be on one device")
+
+
+def batched_assignment(cost: torch.Tensor, gt_valid: torch.Tensor) -> torch.Tensor:
+    """Wrapper of the assignment kernel (csrc/hungarian.cu); same contract as
+    :func:`batched_assignment_plain`.  On CUDA it takes N <= 8192 queries
+    and at most N valid gts an image: with more gt slots than queries it
+    counts them on the host first and raises before the launch."""
+    if cost.device.type == "cpu":
+        return batched_assignment_plain(cost, gt_valid)
+    _check_cuda("batched_assignment", cost, gt_valid)
+    B, N, M = cost.shape
+    if M > N and B:
+        most = int(gt_valid.sum(1).max())
+        if most > N:
+            raise ValueError(f"batched_assignment: an image has {most} valid gts, more than its {N} queries")
+    return _launch(cost, gt_valid, None, 1)
+
+
+def batched_mixed_assignment(cost: torch.Tensor, gt_valid: torch.Tensor,
+                             gt_copy: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Wrapper of the assignment kernel for the mixed assignment, one launch
+    for every image; same contract as :func:`batched_mixed_assignment_plain`.
+    The cap keeps each image's rows (copies x valid gts) at or below N // 2,
+    so C * M may exceed N."""
+    if cost.device.type == "cpu":
+        return batched_mixed_assignment_plain(cost, gt_valid, gt_copy)
+    _check_cuda("batched_mixed_assignment", cost, gt_valid)
+    if gt_copy < 1:
+        raise ValueError(f"batched_mixed_assignment: gt_copy must be >= 1, got {gt_copy}")
+    B, N, M = cost.shape
+    copies = copy_counts(gt_valid, N, gt_copy)
+    out = _launch(cost, gt_valid, copies, gt_copy)
+    return out.view(B, gt_copy, M), copy_validity(gt_valid, N, gt_copy)

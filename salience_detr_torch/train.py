@@ -6,8 +6,10 @@
         [--dry-run-steps N] [--model-config F] [--device cuda]
 
 Trains the model of the train config's ``model_path`` (or ``--model-config``)
-on a COCO-format split: the ``train_transform`` preset, the fixed-canvas
-train loader, AdamW with the config's parameter grouping, the warmup +
+on a COCO-format split: the ``train_transform`` preset (``strong_album``
+included), copy-paste between the images of a batch when ``copypaste`` is
+set (the dataset then loads instance masks), the fixed-canvas train
+loader, AdamW with the config's parameter grouping, the warmup +
 multi-step schedule (warmup capped at the steps of an epoch), clip
 ``max_norm``; after each epoch a checkpoint, the COCO evaluation of the test
 split with the port's eval loader, and the best-AP/AP50 snapshots.
@@ -173,7 +175,7 @@ def train_coco(args) -> Dict:
     wait for each batch and the workers' transform seconds)."""
     from salience_detr_torch.data.coco import CocoDetection
     from salience_detr_torch.data.loader import DetectionLoader, DevicePrefetcher, TrainLoader, to_device, train_to_device
-    from salience_detr_torch.data.transforms import NOT_PORTED, build_preset
+    from salience_detr_torch.data.transforms import build_preset, simple_copy_paste
     from salience_detr_torch.utils.checkpoint import CheckpointManager, HighestCheckpoint
     from salience_detr_torch.utils.coco_eval import CocoEvaluator
     from salience_detr_torch.utils.coco_utils import get_coco_index_from_dataset
@@ -186,8 +188,6 @@ def train_coco(args) -> Dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train: device cuda requested but torch.cuda.is_available() is False")
     cfg = Config(args.config_file)
-    if cfg.get("copypaste", False):
-        raise ValueError(f"copypaste is not ported: it needs {NOT_PORTED['copypaste']}")
     model_path = args.model_config or cfg.model_path
     dtype = DTYPES[args.mixed_precision]
     model_cfg = dataclasses.replace(load_config(model_path), dtype=dtype)
@@ -215,13 +215,18 @@ def train_coco(args) -> Dict:
     logger.info(f"Environment:\n{collect_env_info()}")
     logger.info(f"seed={seed}")
 
+    # copy-paste composites by instance masks: the dataset loads them and
+    # the loader runs it on each pooled batch
+    use_copypaste = bool(cfg.get("copypaste", False))
     train_dataset = CocoDetection(cfg.train_img_folder, cfg.train_ann_file,
-                                  transforms=build_preset(cfg.get("train_transform", "detr")), train=True)
+                                  transforms=build_preset(cfg.get("train_transform", "detr")), train=True,
+                                  return_masks=use_copypaste)
     test_dataset = CocoDetection(cfg.test_img_folder, cfg.test_ann_file)
     num_workers = cfg.get("num_workers", 8)
     train_loader = TrainLoader(
         train_dataset, cfg.batch_size, canvas_hw=tuple(cfg.get("train_canvas", (800, 1344))),
         max_gt=cfg.get("max_gt", 100), shuffle=True, seed=seed, num_workers=num_workers,
+        batch_transform=simple_copy_paste if use_copypaste else None,
     )
     test_loader = DetectionLoader(test_dataset, cfg.batch_size, num_workers)
     steps_per_epoch = len(train_loader)

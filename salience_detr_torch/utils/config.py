@@ -1,6 +1,5 @@
 """Executable-Python config files (the port's copy of
-salience_detr_tpu/utils/config.py's ``Config``, without the deferred
-``lazy=``/``partials=`` assignments).
+salience_detr_tpu/utils/config.py's ``Config``).
 
 A config file assigns plain values and/or a ``model_config =
 SalienceDETRConfig(...)``; ``Config(path)`` runs it and exposes its public
@@ -18,20 +17,34 @@ from typing import Any, Dict
 
 class Config:
     """Executes a Python config file and exposes its globals as attributes;
-    keyword ``overrides`` replace values of the file."""
+    keyword ``overrides`` replace values of the file.
 
-    def __init__(self, path: str, **overrides: Any):
+    ``lazy=("model",)`` / ``partials=("optimizer",)`` defer the named
+    assignments instead of running them: a lazy name becomes a
+    ``LazySpec``, replayed later with :func:`salience_detr_torch.utils.lazy.instantiate`,
+    a partial name a ``functools.partial``.
+    """
+
+    def __init__(self, path: str, lazy=(), partials=(), **overrides: Any):
         path = os.path.abspath(path)
         if not os.path.exists(path):
             raise FileNotFoundError(path)
         # allow configs to import siblings
         sys.path.insert(0, os.path.dirname(path))
         try:
-            name = f"_cfg_{abs(hash(path))}"
-            spec = importlib.util.spec_from_file_location(name, path)
-            module = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(module)
-            namespace = vars(module)
+            if lazy or partials:
+                from salience_detr_torch.utils.lazy import defer_assignments
+
+                with open(path) as f:
+                    source = f.read()
+                source, namespace = defer_assignments(source, lazy, partials)
+                exec(compile(source, path, "exec"), namespace)
+            else:
+                name = f"_cfg_{abs(hash(path))}"
+                spec = importlib.util.spec_from_file_location(name, path)
+                module = importlib.util.module_from_spec(spec)
+                spec.loader.exec_module(module)
+                namespace = vars(module)
         finally:
             sys.path.pop(0)
         self._values: Dict[str, Any] = {

@@ -17,7 +17,12 @@ from salience_detr_torch.ops.deform_attn import (
     ms_deform_attn_plain,
 )
 from salience_detr_torch.ops import msda_stages as st
-from salience_detr_torch.ops.hungarian import batched_assignment, batched_assignment_plain
+from salience_detr_torch.ops.hungarian import (
+    batched_assignment,
+    batched_assignment_plain,
+    batched_mixed_assignment,
+    batched_mixed_assignment_plain,
+)
 from salience_detr_torch.ops.nms import (
     SMEM_OPTIN_BYTES,
     grid_nms_rank_in_global,
@@ -532,6 +537,94 @@ def test_hungarian_kernel_nan_set_reports_only_its_image(cuda):
     assert bool((got[13] == -1).all())
     keep = torch.tensor([b for b in range(28) if b != 13], device=cuda)
     torch.testing.assert_close(got[keep], batched_assignment_plain(cost[keep], valid[keep]), rtol=0, atol=0)
+
+
+def mixed_query_sets(match, valid):
+    """{(image, gt): sorted queries of its valid copies} on the host."""
+    match, valid = match.cpu(), valid.cpu()
+    B, C, M = match.shape
+    return {(b, g): sorted(match[b, valid[b, :, g], g].tolist()) for b in range(B) for g in range(M)}
+
+
+def mixed_totals(cost, match, valid):
+    """Each image's cost of its mixed matching, in float64 on the host; every
+    valid copy holds a distinct query, every other slot -1."""
+    cost, match, valid = cost.double().cpu(), match.long().cpu(), valid.cpu()
+    out = []
+    for b in range(cost.shape[0]):
+        used = match[b][valid[b]]
+        assert len(set(used.tolist())) == len(used) and bool((used >= 0).all())
+        assert bool((match[b][~valid[b]] == -1).all())
+        g = torch.nonzero(valid[b])[:, 1]
+        out.append(float(cost[b, used, g].sum()))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("copies", [2, 10])
+def test_hungarian_mixed_kernel_matches_plain(cuda, copies):
+    """The mixed assignment in one launch against the plain version over the
+    tiled columns: the same queries for each gt and equal totals (which copy
+    takes which query is a tie).  At C = 10, C * M = 250 > N = 120, and one
+    image's 70 valid gts leave it no copy (70 > N // 2)."""
+    g = torch.Generator().manual_seed(20 + copies)
+    cost = (torch.rand(5, 120, 25, generator=g) * 40 - 10).to(cuda)
+    counts = torch.tensor([[25], [7], [0], [1], [25]])
+    valid = (torch.arange(25)[None] < counts).to(cuda)
+    before = native.LAUNCHES["hungarian"]
+    got, got_valid = batched_mixed_assignment(cost, valid, copies)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["hungarian"] == before + 1
+    assert got.dtype == torch.int32 and tuple(got.shape) == (5, copies, 25)
+    want, want_valid = batched_mixed_assignment_plain(cost, valid, copies)
+    assert torch.equal(got_valid, want_valid)
+    assert mixed_query_sets(got, got_valid) == mixed_query_sets(want, want_valid)
+    assert mixed_totals(cost, got, got_valid) == mixed_totals(cost, want, want_valid)
+    # rows past N: 70 valid gts of 70 slots at N = 120 take no copy
+    wide = (torch.rand(2, 120, 70, generator=g) * 10).to(cuda)
+    wide_valid = (torch.arange(70)[None] < torch.tensor([[70], [12]])).to(cuda)
+    m, v = batched_mixed_assignment(wide, wide_valid, copies)
+    assert not bool(v[0].any()) and bool((m[0] == -1).all())
+    pm, pv = batched_mixed_assignment_plain(wide, wide_valid, copies)
+    assert mixed_query_sets(m, v) == mixed_query_sets(pm, pv)
+
+
+@pytest.mark.gpu
+def test_hungarian_mixed_kernel_one_launch_for_seven_sets(cuda):
+    """Seven sets of four images stacked into one mixed launch (as the
+    criterion's match_sets does) equal to a launch of each set."""
+    g = torch.Generator().manual_seed(30)
+    sets, B, N, M, C = 7, 4, 300, 40, 3
+    cost = (torch.rand(sets * B, N, M, generator=g) * 20).to(cuda)
+    valid = (torch.arange(M)[None] < torch.tensor([40, 7, 0, 1] * sets).view(-1, 1)).to(cuda)
+    before = native.LAUNCHES["hungarian"]
+    got, got_valid = batched_mixed_assignment(cost, valid, C)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["hungarian"] == before + 1
+    for s in range(sets):
+        part, part_valid = batched_mixed_assignment(cost[s * B:(s + 1) * B], valid[s * B:(s + 1) * B], C)
+        assert torch.equal(part_valid, got_valid[s * B:(s + 1) * B])
+        assert mixed_query_sets(part, part_valid) == mixed_query_sets(got[s * B:(s + 1) * B], part_valid)
+    want, want_valid = batched_mixed_assignment_plain(cost, valid, C)
+    assert mixed_totals(cost, got, got_valid) == mixed_totals(cost, want, want_valid)
+
+
+@pytest.mark.gpu
+def test_hungarian_kernel_valid_rows_past_queries_raise(cuda):
+    """More gt slots than queries is taken while every image's valid gts fit
+    its queries; an image with more valid gts than queries raises before the
+    launch."""
+    g = torch.Generator().manual_seed(31)
+    cost = (torch.rand(3, 20, 30, generator=g) * 10).to(cuda)
+    valid = (torch.arange(30)[None] < torch.tensor([[20], [5], [0]])).to(cuda)
+    got = batched_assignment(cost, valid)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, batched_assignment_plain(cost, valid), rtol=0, atol=0)
+    before = native.LAUNCHES["hungarian"]
+    valid[1, :21] = True
+    with pytest.raises(ValueError, match="21 valid gts"):
+        batched_assignment(cost, valid)
+    assert native.LAUNCHES["hungarian"] == before
 
 
 # the MSDA stage kernels K5-K8: f32 outputs within (atol 1e-5, rtol 1e-4),

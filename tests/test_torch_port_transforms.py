@@ -4,8 +4,8 @@ resizes with cv2: the same sample and the same ``random.Random(seed)`` give
 byte-equal images, boxes equal at atol 1e-5 and equal labels, for every
 primitive, the random transforms and every ported preset, over seeds and
 odd, portrait, tiny and 240x320 images (resized up to COCO scale by the
-presets), with and without boxes.  The presets that need cv2 codecs or
-filters raise by name."""
+presets), with and without boxes.  Every JAX preset is ported; an unknown
+one raises by name."""
 
 import random
 
@@ -156,14 +156,16 @@ def test_presets(preset):
 
 
 def test_every_jax_preset_is_ported_or_raises_by_name():
-    assert set(jt.PRESETS) == set(pt.PRESETS) | {"strong_album"}
-    with pytest.raises(ValueError, match="RandomHSV.*RandomJPEG.*RandomBlur"):
-        pt.build_preset("strong_album")
-    with pytest.raises(ValueError, match="unknown train_transform"):
+    assert set(jt.PRESETS) == set(pt.PRESETS)
+    assert not hasattr(pt, "NOT_PORTED")
+    with pytest.raises(ValueError, match="unknown train_transform 'nope'"):
         pt.build_preset("nope")
     assert pt.build_preset("detr") is not pt.build_preset("detr")  # fresh objects, no shared state
 
 
 def test_masks_and_copypaste_raise_by_name(tmp_path):
-    with pytest.raises(ValueError, match="SimpleCopyPaste.*fillPoly"):
+    """Masks and copy-paste are ported: the dataset takes ``return_masks``
+    and a missing annotation file raises by its name."""
+    with pytest.raises(FileNotFoundError, match="missing.json"):
         CocoDetection(str(tmp_path), str(tmp_path / "missing.json"), return_masks=True)
+    assert callable(pt.simple_copy_paste)

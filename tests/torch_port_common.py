@@ -103,12 +103,15 @@ def build_jax_tiny():
     return jcfg, tcfg, model
 
 
-def write_coco_split(root, sizes, seed=0, max_boxes=6, crowd_every=0, fmt="png", num_classes=3, counts=None):
+def write_coco_split(root, sizes, seed=0, max_boxes=6, crowd_every=0, fmt="png", num_classes=3, counts=None,
+                     polygons=False):
     """A COCO-format split of random uint8 images of ``sizes`` (PNG through
     cv2, lossless, or ``.npy``) with ``counts[i]`` (by default 0..max_boxes)
     random boxes per image (every ``crowd_every``-th a crowd box when
-    nonzero), categories 1..num_classes; returns (image dir, annotation
-    path)."""
+    nonzero), categories 1..num_classes; with ``polygons`` each annotation
+    also gets a segmentation of one or two random polygons around its box
+    (fractional vertices, some past the image, some self-intersecting);
+    returns (image dir, annotation path)."""
     import json
     from pathlib import Path
 
@@ -134,6 +137,12 @@ def write_coco_split(root, sizes, seed=0, max_boxes=6, crowd_every=0, fmt="png",
                          "category_id": int(rng.integers(1, num_classes + 1)),
                          "bbox": [float(x), float(y), float(bw), float(bh)], "area": float(bw * bh),
                          "iscrowd": crowd})
+            if polygons:
+                anns[-1]["segmentation"] = [
+                    np.stack([rng.uniform(x - 0.1 * bw, x + 1.1 * bw, k), rng.uniform(y - 0.1 * bh, y + 1.1 * bh, k)],
+                             1).reshape(-1).round(2).tolist()
+                    for k in rng.integers(3, 9, int(rng.integers(1, 3)))
+                ]
     ann = Path(root) / "annotations.json"
     ann.write_text(json.dumps({"images": images, "annotations": anns,
                                "categories": [{"id": c, "name": f"c{c}"} for c in range(1, num_classes + 1)]}))
