@@ -228,6 +228,7 @@ import json
 import math
 import os
 import statistics
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -237,7 +238,7 @@ import torch
 
 from salience_detr_torch import native
 from salience_detr_torch import test as eval_entry
-from salience_detr_torch.data.coco import CocoDetection
+from salience_detr_torch.data.coco import CocoDetection, CocoIndex
 from salience_detr_torch.data.loader import DetectionLoader, DevicePrefetcher, to_device
 from salience_detr_torch.engine.train import evaluate, train_one_epoch
 from salience_detr_torch.inference import DEFAULT_CONFIG, Predictor, load_config, preprocess
@@ -289,8 +290,10 @@ from salience_detr_torch.ops.nms import (
     nms_keep_plan,
     nms_keep_smem_bytes,
 )
+from salience_detr_torch.parallel import mesh as ddp_mesh
 from salience_detr_torch.parallel.train_step import make_eval_step
 from salience_detr_torch.timing import card_line, cuda_ms, queued_ms
+from salience_detr_torch.tools import ddp_check
 from salience_detr_torch.tools import msda_stages as stage_tool
 from salience_detr_torch import train as train_entry
 from salience_detr_torch.parallel import train_step as train_step_module
@@ -3172,6 +3175,406 @@ def phase_nms_past_budget(smi):
 
 
 
+# the ddp phases: two ranks of the flagship on the one card over gloo (NCCL
+# refuses two ranks on one device), each started with the launcher's
+# variables; where they write (an ignored directory of the checkout)
+DDP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ddp"
+DDP_WORLD, DDP_F32_STEPS, DDP_BF16_STEPS, DDP_STEPS_PER_EPOCH = 2, 2, 2, 4
+# ddp_train's bounds against one process (float32, TF32 off).  Each step's
+# losses and grad_norm on the same weights: step 0 from the seed, each later
+# step from the ranks' own weights, optimizer moments and generator after
+# the step before (one process continues from them), because the card does
+# not repeat itself past an update (K3 adds d_value with float atomics, and
+# AdamW's first steps move a near-zero gradient entry by about +-lr
+# whichever sign it rounds to).  Step 0 at rtol DDP_STEP0_RTOL; later steps
+# at DDP_STEP_RTOL: at random init scores and costs sit near ties, and a
+# rank's half batch runs other conv and GEMM algorithms than the whole batch,
+# so a top-k, NMS or matching decision may fall the other way on a later
+# batch (PERF.md: up to 1.9e-2 on one loss term at step 1 on the same
+# weights; the tiny CPU tests hold 2e-5).  The parameters after the last step against
+# the one-process run: the norm of the difference over the norm of what the
+# steps moved them, whole model, at DDP_PARAM_GAP (AdamW divides out a
+# gradient's scale, so this reads the update's direction; grad_norm reads
+# the scale; a one-process rerun's own gap is printed beside it); the neck's
+# running statistics elementwise at atol DDP_STATS_ATOL + rtol
+# DDP_STATS_RTOL.  ddp_nccl holds the run without the launcher: the first
+# step at DDP_STEP0_RTOL, the last at DDP_LATER_RTOL (a rerun's own gap
+# reaches 3e-2), the eval's stats at DDP_STATS_GAP and the checkpoint's
+# weights at DDP_WEIGHT_GAP (absolute)
+DDP_STEP0_RTOL, DDP_STEP_RTOL, DDP_PARAM_GAP, DDP_STATS_RTOL, DDP_STATS_ATOL = 1e-4, 5e-2, 0.15, 1e-3, 1e-4
+DDP_LATER_RTOL, DDP_STATS_GAP, DDP_WEIGHT_GAP = 1e-1, 1e-2, 1e-3
+
+
+def ddp_flagship(dtype):
+    return dataclasses.replace(load_config(DEFAULT_CONFIG), dtype=dtype)
+
+
+def ddp_state(model):
+    """The parameters and the neck's BatchNorm statistics, on the host."""
+    state = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    state.update({n: b.detach().cpu() for n, b in model.named_buffers()
+                  if ".neck." in n and n.rsplit(".", 1)[-1] in ("running_mean", "running_var")})
+    return state
+
+
+def ddp_rank_main(out):
+    """One rank of phase ddp_train (``chip_smoke.py --ddp-rank DIR``, with
+    the launcher's variables): the flagship through ``Trainer`` with the
+    mesh, DDP_F32_STEPS float32 steps on the rows of the synthetic global
+    batches (GT_COUNTS), then a bf16 warm-up step and DDP_BF16_STEPS timed
+    steps whose kernel launches this rank counts; writes rank<r>.json (and
+    rank 0 the model, optimizer and generator after the first step and the
+    float32 state after the last)."""
+    from salience_detr_torch.parallel.mesh import init_distributed, mean_over_ranks, shutdown
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = Path(out)
+    mesh = init_distributed("cuda", "gloo")
+    try:
+        trainer = Trainer(ddp_flagship(torch.float32), mesh.device, seed=0, steps_per_epoch=DDP_STEPS_PER_EPOCH,
+                          mesh=mesh)
+        f32, counts = [], []
+        for i, batch in enumerate(trainer.batches(DDP_F32_STEPS, seed=0)):
+            counts.append(batch["targets"].counts)
+            metrics = trainer.step(batch, trainer.generator)
+            f32.append({k: float(v) for k, v in mean_over_ranks(metrics).items()})
+            if i == 0 and mesh.rank == 0:  # one process continues from here in phase ddp_train
+                torch.save({"model": trainer.model.state_dict(), "optimizer": trainer.optimizer.state_dict(),
+                            "generator": trainer.generator.get_state()}, out / "after_step0.pt")
+        state = ddp_state(trainer.model)
+        sums = [float(v.double().sum()) for v in state.values()]
+        same = all(s == sums for s in mesh.all_gather_object(sums))
+        if mesh.rank == 0:
+            torch.save(state, out / "state.pt")
+        del trainer, state
+        torch.cuda.empty_cache()
+
+        trainer = Trainer(ddp_flagship(torch.bfloat16), mesh.device, seed=0, steps_per_epoch=1 + DDP_BF16_STEPS,
+                          mesh=mesh)
+        batches = list(trainer.batches(1 + DDP_BF16_STEPS, seed=1))
+        trainer.step(batches[0], trainer.generator)
+        torch.cuda.synchronize()
+        mesh.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        for k in native.LAUNCHES:
+            native.LAUNCHES[k] = 0
+        times, launches, finite = [], [], True
+        for batch in batches[1:]:
+            before = dict(native.LAUNCHES)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            metrics = trainer.step(batch, trainer.generator)
+            end.record()
+            torch.cuda.synchronize()
+            times.append({"wall_ms": 1e3 * (time.perf_counter() - t0), "device_ms": start.elapsed_time(end)})
+            launches.append({k: native.LAUNCHES[k] - before[k] for k in native.LAUNCHES})
+            finite &= all(bool(torch.isfinite(v)) for v in metrics.values())
+        (out / f"rank{mesh.rank}.json").write_text(json.dumps({
+            "f32": f32, "counts": counts, "ranks_equal": same, "bf16_times": times, "bf16_launches": launches,
+            "bf16_finite": finite, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "device": str(mesh.device), "world": mesh.world,
+        }))
+    finally:
+        shutdown(mesh)
+
+
+def phase_ddp_train(smi):
+    """The flagship data-parallel over DDP_WORLD gloo ranks on this card,
+    each its own process started with the launcher's variables
+    (``--ddp-rank``): B=4 global on the 800x1344 canvas with GT_COUNTS, rank
+    0 holding images (24, 7) and rank 1 (40, 1), so the ranks' largest gt
+    counts, normalisers and salience positives differ from the global ones.
+    DDP_F32_STEPS float32 steps held against the one-process ``Trainer``
+    on the same batches and seed, made twice (every loss and grad_norm, the
+    parameters and the neck's running statistics after the last step, at
+    the bounds above; both ranks' states equal); then
+    DDP_BF16_STEPS bf16 steps timed on each rank, whose launches must be 12
+    K1, 12 K3, 1 K2 and 1 K4 a step on each rank.  The two ranks share one
+    card: the time shows the data-parallel step's overhead and correctness,
+    not scaling."""
+    import shutil
+
+    t0 = time.perf_counter()
+    if DDP_DIR.exists():
+        shutil.rmtree(DDP_DIR)
+    out = DDP_DIR / "train"
+    out.mkdir(parents=True)
+    runs = []
+    for _ in range(2):  # the one-process run and a rerun: the card's own run-to-run gap
+        trainer = Trainer(ddp_flagship(torch.float32), "cuda", seed=0, steps_per_epoch=DDP_STEPS_PER_EPOCH)
+        init = ddp_state(trainer.model)
+        metrics = [{k: float(v) for k, v in trainer.step(batch, trainer.generator).items()}
+                   for batch in trainer.batches(DDP_F32_STEPS, seed=0)]
+        runs.append((metrics, ddp_state(trainer.model)))
+        del trainer
+        torch.cuda.empty_cache()
+    (want, want_state), (again, again_state) = runs
+    t1 = time.perf_counter()
+    ddp_check.launch([str(Path(__file__).resolve()), "--ddp-rank", str(out)], DDP_WORLD, one_device=True,
+                     timeout=900, cwd=str(Path(__file__).resolve().parent))
+    ranks_s = time.perf_counter() - t1
+    ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(DDP_WORLD)]
+    got_state = torch.load(out / "state.pt", weights_only=True)
+    if [r["counts"][0] for r in ranks] != [list(GT_COUNTS[:2]), list(GT_COUNTS[2:])]:
+        raise AssertionError(f"ddp_train: ranks' gt counts {[r['counts'] for r in ranks]}")
+    if not all(r["ranks_equal"] for r in ranks):
+        raise AssertionError("ddp_train: the ranks' parameters differ after the float32 steps")
+
+    def gaps(got):
+        return [{k: abs(g[k] - v) / max(abs(v), 1e-12) for k, v in w.items()} for w, g in zip(want, got)]
+
+    def param_gap(state):
+        return param_gap_to(state, want_state)
+
+    def param_gap_to(state, ref):
+        diff = sum(float((state[n] - w).double().norm()) ** 2 for n, w in ref.items() if n not in stats)
+        moved = sum(float((w - init[n]).double().norm()) ** 2 for n, w in ref.items() if n not in stats)
+        return math.sqrt(diff / moved)
+
+    def stats_gap(state):
+        return max(float(((state[n] - want_state[n]).abs() / (DDP_STATS_ATOL + DDP_STATS_RTOL *
+                                                               want_state[n].abs())).max()) for n in stats)
+
+    # one process from the ranks' weights, moments and generator after step 0
+    after0 = torch.load(out / "after_step0.pt", weights_only=True)
+    trainer = Trainer(ddp_flagship(torch.float32), "cuda", seed=0, steps_per_epoch=DDP_STEPS_PER_EPOCH)
+    trainer.model.load_state_dict(after0["model"], strict=True)
+    trainer.optimizer.load_state_dict(after0["optimizer"])
+    trainer.step.steps_done = 1
+    trainer.generator.set_state(after0["generator"])
+    same = [want[0]] + [{k: float(v) for k, v in trainer.step(batch, trainer.generator).items()}
+                        for batch in list(trainer.batches(DDP_F32_STEPS, seed=0))[1:]]
+    same_state = ddp_state(trainer.model)
+    del trainer, after0
+    torch.cuda.empty_cache()
+
+    stats = [n for n in want_state if n.endswith(("running_mean", "running_var"))]
+    ddp_gaps = [{k: abs(g[k] - v) / max(abs(v), 1e-12) for k, v in w.items()} for w, g in zip(same, ranks[0]["f32"])]
+    rerun_gaps = gaps(again)
+    facts = {f"step{i}": (max(d.values()), max(r.values())) for i, (d, r) in enumerate(zip(ddp_gaps, rerun_gaps))}
+    facts["params"] = (param_gap(got_state), param_gap(again_state))
+    facts["neck_stats"] = (stats_gap(got_state), stats_gap(again_state))
+    worst = {f"step{i}": max(d, key=d.get) for i, d in enumerate(ddp_gaps)}
+    bounds = {"step0": DDP_STEP0_RTOL, **{f"step{i}": DDP_STEP_RTOL for i in range(1, DDP_F32_STEPS)},
+              "params": DDP_PARAM_GAP, "neck_stats": 1.0}
+    print("ddp_train_gaps: " + ", ".join(f"{k} ddp {d:.3e} rerun {r:.3e} bound {bounds[k]:.3e}"
+                                         for k, (d, r) in facts.items()) +
+          f"; largest metric gaps {worst}; the last step's parameters against one process continuing from the "
+          f"ranks' step 0: {param_gap_to(got_state, same_state):.3e} of what the steps moved them")
+    if not all(math.isfinite(v) for m in ranks[0]["f32"] for v in m.values()):
+        raise AssertionError(f"ddp_train: non-finite metrics {ranks[0]['f32']}")
+    beyond = [k for k, (d, _) in facts.items() if d > bounds[k]]
+    if beyond:
+        raise AssertionError(f"ddp_train: {beyond} beyond their bounds against one process")
+    per_step = {k: 0 for k in native.LAUNCHES}
+    per_step.update(TRAIN_STEP_KERNELS)
+    for r, rank in enumerate(ranks):
+        for launches in rank["bf16_launches"]:
+            if launches != per_step:
+                raise AssertionError(f"ddp_train: rank {r} launched {launches} in a bf16 step")
+        if not rank["bf16_finite"]:
+            raise AssertionError(f"ddp_train: rank {r} bf16 metrics not finite")
+    step_ms = [[round(t["device_ms"], 3) for t in rank["bf16_times"]] for rank in ranks]
+    wall_ms = [[round(t["wall_ms"], 3) for t in rank["bf16_times"]] for rank in ranks]
+    print(f"ddp_train: flagship R50 as {DDP_WORLD} gloo ranks on one card ({ranks[0]['device']}), B=4 global "
+          f"(2 a rank) canvas 800x1344 gts {GT_COUNTS} (rank 0 {ranks[0]['counts'][0]}, rank 1 "
+          f"{ranks[1]['counts'][0]}); {DDP_F32_STEPS} float32 steps against the one-process Trainer (and its "
+          f"rerun): losses {[round(m['loss'], 4) for m in ranks[0]['f32']]} against "
+          f"{[round(m['loss'], 4) for m in want]} (rerun {[round(m['loss'], 4) for m in again]}), grad_norm "
+          f"{[round(m['grad_norm'], 4) for m in ranks[0]['f32']]} against {[round(m['grad_norm'], 4) for m in want]}; "
+          f"gaps (ddp, rerun, bound) on the ddp_train_gaps line; ranks' states equal; {DDP_BF16_STEPS} bf16 steps "
+          f"a rank: launches a step "
+          f"{ {k: v for k, v in ranks[0]['bf16_launches'][0].items() if v} } on each rank, device step_ms by rank "
+          f"{step_ms}, wall_ms by rank {wall_ms} (two ranks share one card: overhead and correctness, not "
+          f"scaling), peak_mem_gib by rank {[round(r['peak_gib'], 3) for r in ranks]}; ranks' command "
+          f"{ranks_s:.1f} s; phase_s={time.perf_counter() - t0:.2f}; card: {smi}")
+    return ranks
+
+
+def run_cli(args, env=None, timeout=900):
+    """``python args`` from the checkout's root, with no launcher variables
+    unless ``env`` gives them; raises with its last output when it fails."""
+    root = Path(__file__).resolve().parent
+    run_env = {k: v for k, v in os.environ.items() if k not in ddp_mesh.LAUNCHER_VARS}
+    run_env.update(env or {})
+    run_env["PYTHONPATH"] = os.pathsep.join(p for p in (str(root), run_env.get("PYTHONPATH")) if p)
+    proc = subprocess.run([sys.executable, *args], cwd=str(root), env=run_env, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(args[:4])} exit {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    return proc
+
+
+def phase_ddp_nccl(smi):
+    """A world of one rank over NCCL through the launcher (python -m
+    torch.distributed.run --standalone --nproc_per_node 1 -m
+    salience_detr_torch.train) on the train_coco phase's split, float32,
+    --dry-run-steps 2 and the epoch's eval: NCCL init, DDP's all-reduce, the
+    per-step counts all-reduce and the eval merge on the card; against the
+    same command without the launcher and the same seed: each step's losses
+    and grad_norm (summary.json), the eval's stats and the checkpoint's
+    weights, at the bounds above."""
+    t0 = time.perf_counter()
+    root = DDP_DIR / "nccl"
+    img_dir, ann = write_train_split(root / "split")
+    runs = {}
+    for name, launcher in (("nccl", ["-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1"]),
+                           ("single", [])):
+        config = train_coco_config(root / f"{name}.py", img_dir, ann, root / name)
+        t1 = time.perf_counter()
+        proc = run_cli([*launcher, "-m", "salience_detr_torch.train", "--config-file", config, "--seed", "0",
+                        "--dry-run-steps", "2", "--mixed-precision", "no"])
+        summary = json.loads((root / name / "summary.json").read_text())
+        runs[name] = (summary, time.perf_counter() - t1, proc.stdout)
+    (nccl, nccl_s, log), (single, single_s, _) = runs["nccl"], runs["single"]
+    if "data parallel: 1 ranks" not in log or not nccl["global_step"] == single["global_step"] == 2:
+        raise AssertionError(f"ddp_nccl: log or steps {nccl['global_step']}, {single['global_step']}")
+
+    def gap(a, b):
+        return max(abs(a[k] - v) / max(abs(v), 1e-12) for k, v in b.items() if k != "step")
+
+    first_gap = gap(nccl["logged"][0], single["logged"][0])
+    last_gap = gap(nccl["metrics"], single["metrics"])
+    stats_gap = max(abs(nccl["stats"][k] - v) for k, v in single["stats"].items())
+    a = CheckpointManager(str(root / "nccl" / "checkpoints")).restore()["model"]
+    b = CheckpointManager(str(root / "single" / "checkpoints")).restore()["model"]
+    bitwise = all(torch.equal(a[k], b[k]) for k in b)
+    weight_gap = max(float((a[k].float() - b[k].float()).abs().max()) for k in b)
+    if (first_gap > DDP_STEP0_RTOL or last_gap > DDP_LATER_RTOL or stats_gap > DDP_STATS_GAP
+            or weight_gap > DDP_WEIGHT_GAP):
+        raise AssertionError(f"ddp_nccl: against one process: first step {first_gap:.3e}, last step "
+                             f"{last_gap:.3e}, stats {stats_gap:.3e}, weights {weight_gap:.3e}")
+    print(f"ddp_nccl: salience_detr_torch.train under torch.distributed.run (1 rank, NCCL on cuda:0, gloo side "
+          f"group) on {len(TRAIN_COCO_SIZES)} .npy images, float32, 2 steps + eval: losses "
+          f"{[round(m['loss'], 6) for m in nccl['logged']]} grad_norm {[round(m['grad_norm'], 6) for m in nccl['logged']]} "
+          f"AP {nccl['stats']['AP']:.6f} against one process without the launcher losses "
+          f"{[round(m['loss'], 6) for m in single['logged']]} grad_norm "
+          f"{[round(m['grad_norm'], 6) for m in single['logged']]} AP {single['stats']['AP']:.6f}: largest relative "
+          f"metric gap step 0 {first_gap:.3e} (bound {DDP_STEP0_RTOL}), step 1 {last_gap:.3e} (bound "
+          f"{DDP_LATER_RTOL}), stats gap {stats_gap:.3e} (bound {DDP_STATS_GAP}), checkpoint weights bitwise "
+          f"equal {bitwise}, largest |diff| {weight_gap:.3e} (bound {DDP_WEIGHT_GAP}); host transform ms a sample "
+          f"(the detr preset, 8 worker threads; every rank of a data-parallel run prepares every sample) "
+          f"{1e3 * nccl['transform_s'] / max(nccl['samples'], 1):.3f}; command wall_s launcher "
+          f"{nccl_s:.1f} single {single_s:.1f}; phase_s={time.perf_counter() - t0:.2f}; card: {smi}")
+    return nccl, single
+
+
+def prediction_gap(a_path, b_path):
+    """(images whose predictions differ, largest |score| and |box| difference
+    between two COCO result files, each image's predictions in score order)."""
+    def by_image(path):
+        out = {}
+        for r in json.loads(path.read_text()):
+            out.setdefault(r["image_id"], []).append(r)
+        return {k: sorted(v, key=lambda r: -r["score"]) for k, v in out.items()}
+
+    a, b = by_image(a_path), by_image(b_path)
+    differ, score_gap, box_gap = 0, 0.0, 0.0
+    for img in set(a) | set(b):
+        x, y = a.get(img, []), b.get(img, [])
+        differ += x != y
+        for p, q in zip(x, y):
+            score_gap = max(score_gap, abs(p["score"] - q["score"]))
+            box_gap = max(box_gap, max(abs(u - v) for u, v in zip(p["bbox"], q["bbox"])))
+    return differ, score_gap, box_gap
+
+
+def rescored(ann, path):
+    """The 12 stats of a COCO result file, scored in this process."""
+    ev = CocoEvaluator(CocoIndex(str(ann)))
+    by_img = {}
+    for r in json.loads(path.read_text()):
+        x, y, w, h = r["bbox"]
+        d = by_img.setdefault(r["image_id"], {"boxes": [], "scores": [], "labels": []})
+        d["boxes"].append([x, y, x + w, y + h])
+        d["scores"].append(r["score"])
+        d["labels"].append(r["category_id"])
+    ev.update({k: {kk: np.asarray(vv) for kk, vv in v.items()} for k, v in by_img.items()})
+    ev.accumulate()
+    return ev.summarize()
+
+
+def predictions_as_ground_truth(ann, path, out, per_image=3):
+    """A copy of the annotation file ``ann`` whose boxes are the top
+    ``per_image`` predictions of each image in the result file ``path``: a
+    split on which the random-weight model scores above zero."""
+    data = json.loads(Path(ann).read_text())
+    preds = {}
+    for r in json.loads(path.read_text()):
+        preds.setdefault(r["image_id"], []).append(r)
+    data["annotations"] = [
+        {"id": i + 1, "image_id": r["image_id"], "category_id": r["category_id"], "bbox": r["bbox"],
+         "area": r["bbox"][2] * r["bbox"][3], "iscrowd": 0}
+        for i, r in enumerate(r for v in preds.values() for r in sorted(v, key=lambda r: -r["score"])[:per_image])]
+    out.write_text(json.dumps(data))
+    return out
+
+
+def phase_ddp_eval(smi):
+    """Two gloo ranks of salience_detr_torch.test on this card (the
+    launcher's variables, LOCAL_RANK 0 for both) in exact mode
+    (--torch-checkpoint, a saved seed-1 exact-mode state dict) on the eval
+    phase's split at --batch-size 2, against the same command in one process,
+    made twice (the first process of a call gives last-bit different logits
+    from the later ones, which reorders near ties; PERF.md): the
+    merged result file must equal one of the one-process files exactly, and
+    so must its stats (rescored here on the split and on one whose boxes are
+    that run's top predictions, where the random-weight model scores above
+    zero); rank 0 logs the stats and rank 1 nothing, and one result file is
+    written, by rank 0."""
+    t0 = time.perf_counter()
+    root = DDP_DIR / "eval"
+    img_dir, ann = write_eval_split(root / "split")
+    model, _ = build_salience_detr(exact_sampling(load_config(DEFAULT_CONFIG)), torch.device("cuda"),
+                                   torch.Generator().manual_seed(1))
+    ckpt = root / "exact_seed1.pth"
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, ckpt)
+    del model
+    torch.cuda.empty_cache()
+    args = ["-m", "salience_detr_torch.test", "--coco-img", str(img_dir), "--coco-ann", str(ann),
+            "--torch-checkpoint", str(ckpt), "--batch-size", "2"]
+    for d in ("one", "again", "ranks"):
+        (root / d).mkdir()
+    t1 = time.perf_counter()
+    run_cli(args + ["--save-results", str(root / "one" / "predictions.json")])
+    one_s = time.perf_counter() - t1
+    run_cli(args + ["--save-results", str(root / "again" / "predictions.json")])
+    t1 = time.perf_counter()
+    done = ddp_check.launch(args + ["--dist-backend", "gloo", "--save-results",
+                                    str(root / "ranks" / "predictions.json")], DDP_WORLD, one_device=True,
+                            timeout=900, cwd=str(Path(__file__).resolve().parent))
+    ranks_s = time.perf_counter() - t1
+    files = sorted(p.name for p in (root / "ranks").iterdir())
+    if files != ["predictions.json"]:
+        raise AssertionError(f"ddp_eval: result files {files}")
+    runs = {d: root / d / "predictions.json" for d in ("one", "again")}
+    ranks = root / "ranks" / "predictions.json"
+    gaps = {d: prediction_gap(path, ranks) for d, path in runs.items()}
+    equal = [d for d, g in gaps.items() if g[0] == 0]
+    logged = [x for x in done[0].stdout.splitlines() if " AP=" in x]
+    print(f"ddp_eval_facts: the merged predictions against each one-process run (images that differ, largest "
+          f"score and box gaps) {gaps}; the two one-process runs {prediction_gap(runs['one'], runs['again'])}")
+    if not equal or not logged or done[1].stdout.strip():
+        raise AssertionError(f"ddp_eval: merged predictions equal no one-process run ({gaps}); rank 0 logged "
+                             f"{logged[-1:]}; rank 1 printed {done[1].stdout[-500:]}")
+    ref = runs[equal[0]]
+    scored = predictions_as_ground_truth(ann, ref, root / "top3_as_gt.json")
+    stats = {split: (rescored(a, ranks), rescored(a, ref)) for split, a in (("split", ann), ("top3", scored))}
+    if any(got != want for got, want in stats.values()) or not stats["top3"][0]["AP"] > 0:
+        raise AssertionError(f"ddp_eval: stats {stats}")
+    forwards = len(DetectionLoader(CocoDetection(str(img_dir), str(ann)), 2).plan())
+    print(f"ddp_eval: salience_detr_torch.test --torch-checkpoint (exact mode) as {DDP_WORLD} gloo ranks on one "
+          f"card, {len(EVAL_SIZES)} images in {forwards} batches of <=2 (rank r the batches r, r + 2, ...): the "
+          f"merged result file equals one-process run {equal} bitwise, its stats equal exactly (split AP "
+          f"{stats['split'][0]['AP']:.6f}; on its top-3 predictions as ground truth AP {stats['top3'][0]['AP']:.6f} "
+          f"AR100 {stats['top3'][0]['AR100']:.6f}); one result file; wall_s one process {one_s:.1f}, ranks "
+          f"{ranks_s:.1f} (process start and model build included); phase_s={time.perf_counter() - t0:.2f}; "
+          f"card: {smi}")
+
+
 def kernel_entry(name, source, replaces, launches, err, timing):
     ms, plain_ms, bound_ms, bound_by, *library = timing
     return {"name": name, "route": "cuda", "source": f"salience_detr_torch/csrc/{source}",
@@ -3186,12 +3589,22 @@ def main(argv=None):
                              "whose MSDA, grid-NMS, assignment, keep-mask, DCN, int8 MSDA and gather-sum "
                              "kernels are timed in turns with these on the captured inputs and the "
                              "phases' other inputs")
+    parser.add_argument("--ddp-rank", default=None, metavar="DIR", help=argparse.SUPPRESS)
+    parser.add_argument("--phases", nargs="+", default=None, choices=("ddp_train", "ddp_nccl", "ddp_eval"),
+                        help="run the device and build phases and these alone, and print no result line")
     args = parser.parse_args(argv)
+    if args.ddp_rank is not None:
+        return ddp_rank_main(args.ddp_rank)
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.phases is not None:
+        for name in args.phases:
+            globals()[f"phase_{name}"](smi)
+        print(f"wall_s_total={time.perf_counter() - t_start:.1f}")
+        return 0
     msda_err, msda_t = phase_msda()
     phase_grid_nms()
     phase_slice()
@@ -3229,6 +3642,9 @@ def main(argv=None):
     for name in ("swin_l", "convnext_l", "focalnet_l", "r50_5scale"):
         backbone_launches[f"train_{name}"] = phase_backbone_train(smi, name)
     backbone_launches["eval_swin_l"] = phase_eval_swin(smi)
+    ddp_ranks = phase_ddp_train(smi)
+    phase_ddp_nccl(smi)
+    phase_ddp_eval(smi)
     print("backbone launches " + "; ".join(
         f"{k} {{{', '.join(f'{n}: {v}' for n, v in l.items() if v)}}}" for k, l in backbone_launches.items()))
     print(f"serve launches {serve_launches}; train launches {train_launches}; "

@@ -7,7 +7,17 @@ own ``random.Random`` drawn from (seed, epoch, index), samples grouped by
 orientation onto a fixed canvas (landscape 800x1344, portrait 1344x800 by
 default) and packed by :func:`pack_batch` with targets padded to ``max_gt``;
 ``drop_last`` drops the partial pools, else they are topped up with
-duplicates.  Its batches equal the JAX loader's array for array.
+duplicates.  Its batches equal the JAX loader's array for array.  In a
+data-parallel run (``rank`` of ``world``) it yields the rank's rows of each
+global batch (``parallel.mesh.shard_rows``, micro-batch by micro-batch), and
+the ranks' batches concatenated in that order equal the one-process batch
+byte for byte.  A batch's members are known only once every earlier sample is
+augmented (the pools are by the augmented orientation), so every rank
+prepares every sample, as the one-process loader does: the per-sample host
+work is W times the one-process loader's over the W ranks.  Copy-paste
+(``simple_copy_paste``) rolls the global batch: every rank draws every
+pair's selection in order and composites only its rows' pairs, and packing
+and the copies to the card are the rank's rows alone.
 
 ``DetectionLoader`` (eval) decodes the dataset's samples in dataset order on
 a few threads and groups them by orientation (landscape w >= h, portrait),
@@ -15,7 +25,10 @@ as the JAX loader's canvas buckets do: a batch is yielded when its
 orientation's pool holds ``batch_size`` samples, and the partial pools
 follow at the end, landscape first.  Every image is evaluated once: the
 port's shapes need not be static, so a last partial batch is not topped up
-with duplicates.  Batches carry the decoded uint8 images; the resize to the
+with duplicates.  In a data-parallel run rank r of W takes the batches
+b = r, r + W, ... of that sequence, which it plans from the annotations'
+image sizes and loads alone; an image whose decoded orientation differs from
+its annotation's raises.  Batches carry the decoded uint8 images; the resize to the
 eval geometry happens on the device (``inference.preprocess``).
 
 ``DevicePrefetcher`` prepares the next batches on the device while the
@@ -46,6 +59,7 @@ from salience_detr_torch.inference import preprocess
 from salience_detr_torch.models.bricks.criterion import Targets
 from salience_detr_torch.models.detectors.salience_detr import normalize_images
 from salience_detr_torch.models.factory import SalienceDETRConfig
+from salience_detr_torch.parallel.mesh import shard_rows
 
 
 def pack_batch(samples: Sequence[dict], canvas_hw: Tuple[int, int], max_gt: int) -> Dict[str, np.ndarray]:
@@ -118,13 +132,17 @@ class TrainLoader:
     """Iterable over fixed-shape train batches with orientation bucketing.
 
     ``batch_transform(samples, rng) -> samples`` runs on each pooled batch
-    before packing, with an rng drawn from (seed, epoch, batch index).
+    before packing, with an rng drawn from (seed, epoch, batch index); in a
+    data-parallel run it is called with ``rows=`` the rank's rows and
+    returns those rows' samples.  ``batch_size`` is the global batch.
     ``transform_s`` and ``samples`` accumulate the seconds the workers spent
     loading and augmenting samples and how many they prepared."""
 
     def __init__(self, dataset, batch_size: int, canvas_hw: Tuple[int, int] = (800, 1344),
                  max_gt: int = 100, shuffle: bool = True, seed: int = 0, num_workers: int = 8,
-                 drop_last: bool = True, batch_transform: Optional[Callable] = None):
+                 drop_last: bool = True, batch_transform: Optional[Callable] = None,
+                 rank: int = 0, world: int = 1, accumulate_steps: int = 1):
+        self.rows = shard_rows(batch_size, rank, world, accumulate_steps) if world > 1 else None
         self.dataset = dataset
         self.batch_size = batch_size
         self.canvas_land = (min(canvas_hw), max(canvas_hw))
@@ -165,7 +183,12 @@ class TrainLoader:
     def _pack(self, pool, canvas, batch_idx: int):
         if self.batch_transform is not None:
             rng = random.Random((self.seed * 7_368_787 + self.epoch) * 7_368_787 + batch_idx)
-            pool = self.batch_transform(list(pool), rng)
+            if self.rows is None:
+                pool = self.batch_transform(list(pool), rng)
+            else:
+                pool = self.batch_transform(list(pool), rng, rows=self.rows)
+        elif self.rows is not None:
+            pool = [pool[i] for i in self.rows]
         return pack_batch(pool, canvas, self.max_gt)
 
     def _samples(self, order: List[int]) -> Iterator[dict]:
@@ -219,25 +242,49 @@ def collate(samples: List[dict]) -> Dict:
 
 
 class DetectionLoader:
-    """Iterable over eval batches with orientation bucketing, no shuffle."""
+    """Iterable over eval batches with orientation bucketing, no shuffle; in
+    a data-parallel run (``rank`` of ``world``) the rank's batches of the
+    one-process sequence."""
 
-    def __init__(self, dataset, batch_size: int, num_workers: int = 4):
+    def __init__(self, dataset, batch_size: int, num_workers: int = 4, rank: int = 0, world: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = num_workers
+        self.rank, self.world = rank, world
 
-    def _samples(self) -> Iterator[dict]:
-        """The dataset's samples in order, at most 2 * num_workers in flight."""
+    def _load(self, indices: Sequence[int]) -> Iterator[dict]:
+        """The samples of ``indices``, in order, at most 2 * num_workers in flight."""
         with ThreadPoolExecutor(max_workers=self.num_workers) as ex:
             pending = deque()
-            for idx in range(len(self.dataset)):
+            for idx in indices:
                 pending.append(ex.submit(self.dataset.__getitem__, idx))
                 if len(pending) >= 2 * self.num_workers:
                     yield pending.popleft().result()
             while pending:
                 yield pending.popleft().result()
 
+    def _samples(self) -> Iterator[dict]:
+        """The dataset's samples in order."""
+        return self._load(range(len(self.dataset)))
+
+    def plan(self) -> List[List[int]]:
+        """The one-process batches as dataset indices, from the annotations'
+        image sizes (``height``, ``width``)."""
+        info = self.dataset.coco.imgs
+        pools: Dict[bool, List[int]] = {True: [], False: []}
+        batches = []
+        for idx, img_id in enumerate(self.dataset.ids):
+            pool = pools[info[img_id]["width"] >= info[img_id]["height"]]
+            pool.append(idx)
+            if len(pool) == self.batch_size:
+                batches.append(list(pool))
+                pool.clear()
+        return batches + [pool for pool in pools.values() if pool]
+
     def __iter__(self) -> Iterator[Dict]:
+        if self.world > 1:
+            yield from self._sharded()
+            return
         pools: Dict[bool, List[dict]] = {True: [], False: []}  # landscape, portrait
         for s in self._samples():
             h, w = s["image"].shape[:2]
@@ -249,6 +296,19 @@ class DetectionLoader:
         for pool in pools.values():
             if pool:
                 yield collate(pool)
+
+    def _sharded(self) -> Iterator[Dict]:
+        info, ids = self.dataset.coco.imgs, self.dataset.ids
+        mine = self.plan()[self.rank::self.world]
+        samples = self._load([i for b in mine for i in b])
+        for batch in mine:
+            pool = [next(samples) for _ in batch]
+            want = info[ids[batch[0]]]["width"] >= info[ids[batch[0]]]["height"]
+            bad = [int(s["image_id"]) for s in pool if (s["image"].shape[1] >= s["image"].shape[0]) != want]
+            if bad:
+                raise ValueError(f"eval images {bad}: the decoded orientation differs from the annotation's "
+                                 "height and width")
+            yield collate(pool)
 
 
 def to_device(batch: Dict, cfg: SalienceDETRConfig, device: torch.device) -> Dict:

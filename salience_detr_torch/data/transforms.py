@@ -567,13 +567,16 @@ class OneOf:
 # ------------------------------------------------------------ copy-paste
 
 
-def simple_copy_paste(samples: List[Sample], rng: random.Random) -> List[Sample]:
+def simple_copy_paste(samples: List[Sample], rng: random.Random,
+                      rows: Optional[Sequence[int]] = None) -> List[Sample]:
     """Batch-level SimpleCopyPaste: each image receives a random selection
     of the previous image's instances (the batch rolled by one), masked by
     the union of their blurred masks.  Samples carry masks
     (``CocoDetection(return_masks=True)``).  The selections are drawn in
     the JAX function's order, then the pairs are composited in threads
-    (numpy releases the GIL for the image-sized work)."""
+    (numpy releases the GIL for the image-sized work).  With ``rows`` (a
+    rank's rows of the global batch) every pair's selection is still drawn,
+    in order, but only the rows' pairs are composited and returned."""
     rolled = samples[-1:] + samples[:-1]
     pairs = []
     for target, paste in zip(samples, rolled):
@@ -584,6 +587,8 @@ def simple_copy_paste(samples: List[Sample], rng: random.Random) -> List[Sample]
         pairs.append((target, paste, sorted(set(rng.randrange(n) for _ in range(n)))))  # draws with repeats
     # one intra-op thread each, as the loader's workers: the resize of a
     # paste image is a torch op
+    if rows is not None:
+        pairs = [pairs[i] for i in rows]
     with ThreadPoolExecutor(len(pairs), initializer=torch.set_num_threads, initargs=(1,)) as ex:
         return list(ex.map(lambda pair: _copy_paste_one(*pair), pairs))
 

@@ -2,11 +2,14 @@
 
 The train step's metrics stay on the device and are fetched only every
 ``print_freq`` steps (one synchronisation per interval), logged through
-``MetricLogger`` and the tracker; a non-finite loss at a fetch raises.  A
-stop request (``utils.env.GracefulShutdown``) is polled once per step and
-ends the epoch after that step.  The eval loop fetches each batch's
-detections in one host transfer and hands the valid ones to the COCO
-evaluator."""
+``MetricLogger`` and the tracker; a non-finite loss at a fetch raises.  In a
+data-parallel run the fetched metrics are averaged over the ranks first (one
+all-reduce per interval), so every rank logs, checks and raises alike.  A
+stop request (``utils.env.GracefulShutdown``, or the train step's
+``should_stop``, which the ranks agree on) is polled once per step and ends
+the epoch after that step.  The eval loop fetches each batch's detections in
+one host transfer and hands the valid ones to the COCO evaluator; with an
+``all_gather_fn`` it merges the ranks' predictions before scoring."""
 
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from salience_detr_torch.parallel.mesh import mean_over_ranks
 from salience_detr_torch.utils.logging_utils import MetricLogger, setup_logger
 
 LOGGER = logging.getLogger("salience_detr_torch.train")
@@ -40,7 +44,7 @@ def train_one_epoch(train_step: Callable, loader: Iterable, generator: Optional[
             logger.warning(f"stop requested at epoch {epoch} step {i}: ending epoch early")
             break
         if i % print_freq == 0:
-            host = {k: float(v) for k, v in metrics.items()}
+            host = {k: float(v) for k, v in mean_over_ranks(metrics).items()}
             if not math.isfinite(host["loss"]):
                 logger.error(f"Loss is {host['loss']}, stopping training\n{host}")
                 raise FloatingPointError(f"non-finite loss: {host}")
@@ -64,10 +68,13 @@ def detections_to_host(dets: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 def evaluate(eval_step: Callable, loader: Iterable, evaluator, logger=None,
              print_freq: int = 50, tracker: Optional[Callable[[Dict[str, float], int], None]] = None,
-             epoch: int = 0) -> Dict[str, float]:
+             epoch: int = 0, all_gather_fn: Optional[Callable] = None) -> Dict[str, float]:
     """COCO evaluation loop: ``eval_step(batch)`` per device batch (which
-    carries its ``image_ids``), the valid detections to ``evaluator``, then
-    accumulate and summarize; returns the 12-metric dict."""
+    carries its ``image_ids``), the valid detections to ``evaluator``, the
+    ranks' predictions merged through ``all_gather_fn`` (``Mesh.
+    all_gather_object`` in a data-parallel run: each rank evaluated a shard
+    of the images), then accumulate and summarize; returns the 12-metric
+    dict, the same on every rank."""
     logger = logger or setup_logger()
     metric_logger = MetricLogger(logger=logger)
     for batch in metric_logger.log_every(loader, print_freq, "Test:"):
@@ -78,7 +85,7 @@ def evaluate(eval_step: Callable, loader: Iterable, evaluator, logger=None,
             preds[int(img_id)] = {k: dets[k][i][valid] for k in ("boxes", "scores", "labels")}
         evaluator.update(preds)
 
-    evaluator.synchronize_between_processes()
+    evaluator.synchronize_between_processes(all_gather_fn)
     evaluator.accumulate()
     stats = evaluator.summarize()
     logger.info(" ".join(f"{k}={v:.4f}" for k, v in stats.items()))

@@ -28,6 +28,20 @@ from salience_detr_torch.ops.boxes import (
 )
 from salience_detr_torch.ops.hungarian import batched_assignment, batched_mixed_assignment, copy_validity
 from salience_detr_torch.ops.losses import sigmoid_focal_loss, vari_sigmoid_focal_loss
+from salience_detr_torch.parallel.mesh import all_reduce_sum
+
+
+class Shard(NamedTuple):
+    """Where a rank's targets sit in the global (micro-)batch of a
+    data-parallel step (``parallel/mesh.py``): the valid gts of every image
+    of the global batch (host integers, from the step's one all-reduce), the
+    rank's first row in it, and the world size.  The CDN layout, the gt
+    normaliser and the salience loss's positives read the global batch
+    through it."""
+
+    counts: Tuple[int, ...]
+    offset: int
+    world: int
 
 
 class Targets(NamedTuple):
@@ -35,6 +49,21 @@ class Targets(NamedTuple):
     boxes: torch.Tensor  # (B, M, 4) normalised cxcywh
     valid: torch.Tensor  # (B, M) bool
     counts: Tuple[int, ...]  # valid gts per image, host integers
+    shard: Optional[Shard] = None  # the global batch, in a data-parallel step
+
+
+def global_counts(targets: Targets) -> Tuple[int, ...]:
+    """The per-image valid gt counts of the global batch (the targets' own
+    outside a data-parallel step)."""
+    return targets.counts if targets.shard is None else targets.shard.counts
+
+
+def normaliser(targets: Targets) -> float:
+    """The gt normaliser ``num_boxes`` of a rank's losses: the global count
+    clamped to at least 1 (the JAX step's), divided by the world size, so
+    that the ranks' gradients averaged by DDP are the global batch's."""
+    n = float(max(sum(global_counts(targets)), 1))
+    return n if targets.shard is None else n / targets.shard.world
 
 
 def _take(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
@@ -249,7 +278,9 @@ class SalienceCriterion:
     ``generator`` to draw them), each level's target becomes (1 - s) *
     target + s * uniform and the positives are the targets above s / 2; the
     JAX package draws them only when given a key, and its train step gives
-    none."""
+    none.  In a data-parallel step (``targets.shard``) the generator draws at
+    the global batch's shape, the rank keeping its rows, and the positives
+    are counted over the global batch."""
 
     def __init__(self, limit_range: Sequence[Tuple[float, float]] = (
                      (-1, 64), (64, 128), (128, 256), (256, 99999)),
@@ -306,13 +337,22 @@ class SalienceCriterion:
                 if uniform is not None:
                     u = uniform[level_idx].to(dev, torch.float32)
                 else:
-                    u = torch.rand(tgt.shape, generator=generator, device=generator.device).to(dev)
+                    # drawn at the global batch's shape, the rank keeping its rows
+                    shard = targets.shard
+                    rows = b if shard is None else len(shard.counts)
+                    u = torch.rand((rows, h * w), generator=generator, device=generator.device).to(dev)
+                    if shard is not None:
+                        u = u[shard.offset:shard.offset + b]
                 tgt = (1 - self.noise_scale) * tgt + self.noise_scale * u
             mask_targets.append(tgt)
             flat_scores.append(mask.reshape(b, h * w))
         mask_targets = torch.cat(mask_targets, 1)
         scores = torch.cat(flat_scores, 1).float()
-        num_pos = (mask_targets > 0.5 * self.noise_scale).sum().float().clamp(min=1.0)
+        num_pos = (mask_targets > 0.5 * self.noise_scale).sum().float()
+        if targets.shard is not None:  # the global batch's positives, clamped, over the world size
+            num_pos = all_reduce_sum(num_pos).clamp(min=1.0) / targets.shard.world
+        else:
+            num_pos = num_pos.clamp(min=1.0)
         loss = sigmoid_focal_loss(scores, mask_targets, num_pos, self.alpha, self.gamma)
         return {"loss_salience": loss * scores.shape[1]}
 

@@ -44,6 +44,14 @@ def cdn_draws(batch: int, capacity: int, num_classes: int, label_noise_prob: flo
     return CDNDraws(flip, rand_labels, sign, rand(batch, capacity, 4))
 
 
+def rows_of(draws: CDNDraws, offset: int, count: int) -> CDNDraws:
+    """Rows [offset, offset + count) of draws made for a larger batch: a
+    rank of a data-parallel step draws at the global batch's shape from the
+    generator every rank seeds alike, and keeps its rows, so each image gets
+    the noise it gets in one process on the whole batch."""
+    return CDNDraws(*(x[offset:offset + count] for x in draws))
+
+
 def cdn_meta(counts: Sequence[int], denoising_nums: int) -> Tuple[int, int]:
     """(m, g) from the per-image valid gt counts: m = max count capped at
     ``denoising_nums``, g = max(denoising_nums // m, 1)."""

@@ -5,7 +5,10 @@ Input contract, as in the JAX package with NCHW images:
 * images: (B, 3, H, W) float, normalized and padded to the canvas;
 * image_sizes: (B, 2) int valid (h, w); every mask derives from it;
 * targets (train): a padded ``criterion.Targets``, with the contrastive-
-  denoising draws (``denoising.CDNDraws``) for the batch.
+  denoising draws (``denoising.CDNDraws``) for the batch.  In a
+  data-parallel step the CDN group shape (m, g) comes from the global
+  batch's gt counts (``targets.shard``), so every rank builds the queries
+  and the attention mask of one process on the whole batch.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from salience_detr_torch.models.bricks.criterion import (
     SetCriterion,
     Targets,
     default_weight_dict,
+    global_counts,
 )
 from salience_detr_torch.models.bricks.denoising import (
     CDNDraws,
@@ -72,7 +76,7 @@ class SalienceDETR(nn.Module):
         if targets is not None:
             if draws is None:
                 raise ValueError("the train forward needs the CDN draws")
-            dn_m, dn_g = cdn_meta(targets.counts, self.denoising_nums)
+            dn_m, dn_g = cdn_meta(global_counts(targets), self.denoising_nums)
             label_query, box_query = self.denoising_generator(
                 targets.labels, targets.boxes, targets.valid, dn_m, dn_g, draws
             )

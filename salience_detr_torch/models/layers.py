@@ -12,8 +12,11 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from salience_detr_torch.parallel.mesh import all_reduce_sum
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -60,17 +63,57 @@ class BatchNorm2d(nn.BatchNorm2d):
     0.9, torch momentum 0.1) with the BIASED batch variance, where
     ``nn.BatchNorm2d`` would use the unbiased one (n / (n - 1) larger).
     In train mode the gradient reaches ``batch_norm``'s backward contiguous
-    (see ``_ContiguousGrad``).  Eval mode is ``nn.BatchNorm2d``'s."""
+    (see ``_ContiguousGrad``).  Eval mode is ``nn.BatchNorm2d``'s.
+
+    Synced over the ranks of a data-parallel step when ``process_group`` is
+    set (:func:`sync_batch_norm`) and holds more than one rank: the per-channel
+    (count, sum x, sum x^2) are all-reduced in float32 (the only collective,
+    an ``all_reduce``, differentiable: its backward all-reduces the
+    statistics' gradients), and the layer normalises with flax's
+    ``var = max(E[x^2] - E[x]^2, 0)`` over the global batch, which is what the
+    JAX step computes on the sharded batch.  A world of one takes the local
+    path above.  ``nn.SyncBatchNorm`` is not used: it refuses CPU tensors, its
+    gloo path all-gathers, and its running variance is the unbiased one."""
+
+    process_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        group = self.process_group
+        if group is not None and dist.get_world_size(group) > 1:
+            return _ContiguousGrad.apply(self._synced(x, group))
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         return _ContiguousGrad.apply(y)
+
+    def _synced(self, x: torch.Tensor, group) -> torch.Tensor:
+        xf = x.float()
+        C = xf.shape[1]
+        count = torch.full((1,), xf.numel() // C, dtype=torch.float32, device=xf.device)
+        stats = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count])
+        stats = all_reduce_sum(stats, differentiable=True, group=group)
+        n = stats[2 * C]
+        mean = stats[:C] / n
+        var = (stats[C:2 * C] / n - mean * mean).clamp(min=0.0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.detach(), self.momentum)
+            self.running_var.lerp_(var.detach(), self.momentum)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
+def sync_batch_norm(model: nn.Module, group) -> int:
+    """Sync every :class:`BatchNorm2d` of ``model`` over ``group`` (None
+    unsyncs); returns how many there are."""
+    layers = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in layers:
+        m.process_group = group
+    return len(layers)
 
 
 class ConvNormAct(nn.Sequential):
@@ -130,12 +173,14 @@ class DropPath(nn.Module):
     (B, 1, ..., 1) Bernoulli mask from ``self.generator`` (set for a step by
     :func:`set_drop_path_generator`; nothing else is drawn from), and the
     kept rows are scaled by 1 / (1 - p).  The identity in eval mode or at
-    p = 0."""
+    p = 0.  In a data-parallel step (``rows`` = (offset, global batch)) the
+    mask is drawn at the global batch's size and the rank keeps its rows."""
 
     def __init__(self, p: float = 0.0):
         super().__init__()
         self.p = float(p)
         self.generator = None
+        self.rows = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p <= 0.0:
@@ -143,19 +188,23 @@ class DropPath(nn.Module):
         if self.generator is None:
             raise RuntimeError("DropPath in train mode needs a generator (set_drop_path_generator)")
         keep = 1.0 - self.p
-        mask = torch.empty((x.shape[0],) + (1,) * (x.dim() - 1), device=x.device, dtype=torch.float32)
+        offset, total = self.rows if self.rows is not None else (0, x.shape[0])
+        mask = torch.empty((total,) + (1,) * (x.dim() - 1), device=x.device, dtype=torch.float32)
         mask.bernoulli_(keep, generator=self.generator)
-        return x * mask.to(x.dtype) / keep
+        return x * mask[offset:offset + x.shape[0]].to(x.dtype) / keep
 
     def extra_repr(self) -> str:
         return f"p={self.p}"
 
 
-def set_drop_path_generator(model: nn.Module, generator) -> None:
-    """Give every ``DropPath`` of ``model`` the generator of the next step."""
+def set_drop_path_generator(model: nn.Module, generator, rows=None) -> None:
+    """Give every ``DropPath`` of ``model`` the generator of the next step,
+    and in a data-parallel step the rank's ``rows`` = (offset, global batch
+    size) of each micro-batch."""
     for m in model.modules():
         if isinstance(m, DropPath):
             m.generator = generator
+            m.rows = rows
 
 
 def linear_drop_rates(sd: float, depths) -> list:

@@ -5,7 +5,8 @@ per-category table.
 
     python -m salience_detr_torch.test --coco-img DIR --coco-ann FILE
         [--model-config FILE] [--torch-checkpoint FILE | --checkpoint FILE]
-        [--batch-size N] [--seed S] [--save-results OUT.json] [--device cuda]
+        [--batch-size N] [--seed S] [--save-results OUT.json] [--device cuda] [--dist-backend nccl|gloo]
+    torchrun --nproc_per_node N -m salience_detr_torch.test --coco-img DIR --coco-ann FILE ...
     python -m salience_detr_torch.test --coco-img DIR --coco-ann FILE --result-file PRED.json
 
 ``--torch-checkpoint`` takes an upstream-layout state dict (a released
@@ -16,6 +17,11 @@ Without either, the weights are random from ``--seed``.  ``--device``
 defaults to ``cuda`` and the CLI raises when that device is missing.  Images
 are decoded with cv2 where it is installed; ``.npy`` files holding uint8 HWC
 RGB arrays are read with numpy everywhere (``data/coco.py``).
+
+Under the launcher (``parallel/mesh.py``) each rank evaluates its shard of
+the one-process batches on ``cuda:LOCAL_RANK`` (or the CPU), the ranks'
+predictions are merged over a gloo group before scoring, every rank holds
+the same stats, and rank 0 alone logs and writes ``--save-results``.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from salience_detr_torch.data.loader import DetectionLoader, DevicePrefetcher, t
 from salience_detr_torch.engine.train import evaluate
 from salience_detr_torch.inference import DEFAULT_CONFIG, load_config
 from salience_detr_torch.models.factory import build_salience_detr, exact_sampling
+from salience_detr_torch.parallel.mesh import init_distributed, shutdown
 from salience_detr_torch.parallel.train_step import make_eval_step
 from salience_detr_torch.utils.coco_eval import CocoEvaluator
 from salience_detr_torch.utils.logging_utils import setup_logger
@@ -51,7 +58,9 @@ def parse_args(argv=None):
     p.add_argument("--save-results", default=None, help="dump predictions JSON here")
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--seed", type=int, default=0, help="init seed when no checkpoint is given")
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", default="cuda", help="cuda (cuda:LOCAL_RANK under the launcher) or cpu")
+    p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                   help="process group backend under the launcher (default nccl on cuda, gloo on cpu)")
     return p.parse_args(argv)
 
 
@@ -100,14 +109,20 @@ def save_results(evaluator: CocoEvaluator, path: str) -> int:
 
 def main(argv=None) -> Optional[Dict[str, float]]:
     args = parse_args(argv)
-    logger = setup_logger()
-    dataset = CocoDetection(args.coco_img, args.coco_ann)
     if args.result_file:
-        return rescore_result_file(dataset.coco, args.result_file)
+        setup_logger()
+        return rescore_result_file(CocoDetection(args.coco_img, args.coco_ann).coco, args.result_file)
+    mesh = init_distributed(args.device, args.dist_backend)
+    try:
+        return evaluate_split(args, mesh)
+    finally:
+        shutdown(mesh)
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("test: device cuda requested but torch.cuda.is_available() is False")
+
+def evaluate_split(args, mesh) -> Dict[str, float]:
+    logger = setup_logger(rank=mesh.rank)
+    dataset = CocoDetection(args.coco_img, args.coco_ann)
+    device = mesh.device
     cfg = load_config(args.model_config)
     if args.torch_checkpoint:
         cfg = exact_sampling(cfg)
@@ -120,9 +135,13 @@ def main(argv=None) -> Optional[Dict[str, float]]:
 
     evaluator = CocoEvaluator(dataset.coco)
     logger.info(f"COCO box matching route: {evaluator.route}")
-    loader = DevicePrefetcher(DetectionLoader(dataset, args.batch_size), functools.partial(to_device, cfg=cfg), device)
-    stats = evaluate(make_eval_step(model, postprocess, cfg.dtype), loader, evaluator, logger=logger)
-    if args.save_results:
+    if mesh.distributed:
+        logger.info(f"data parallel: {mesh.world} ranks, each evaluating its shard of the batches")
+    loader = DevicePrefetcher(DetectionLoader(dataset, args.batch_size, rank=mesh.rank, world=mesh.world),
+                              functools.partial(to_device, cfg=cfg), device)
+    stats = evaluate(make_eval_step(model, postprocess, cfg.dtype), loader, evaluator, logger=logger,
+                     all_gather_fn=mesh.all_gather_object if mesh.distributed else None)
+    if args.save_results and mesh.rank == 0:
         n = save_results(evaluator, args.save_results)
         logger.info(f"Saved {n} predictions to {args.save_results}")
     return stats

@@ -3,7 +3,8 @@
     python -m salience_detr_torch.train --config-file configs/salience_detr_torch/train_config.py
         [--mixed-precision {no,bf16,fp16}] [--seed S] [--accumulate-steps A]
         [--pretrained-backbone F] [--use-deterministic-algorithms]
-        [--dry-run-steps N] [--model-config F] [--device cuda]
+        [--dry-run-steps N] [--model-config F] [--device cuda] [--dist-backend nccl|gloo]
+    torchrun --nproc_per_node N -m salience_detr_torch.train --config-file F ...
 
 Trains the model of the train config's ``model_path`` (or ``--model-config``)
 on a COCO-format split: the ``train_transform`` preset (``strong_album``
@@ -26,9 +27,29 @@ master weights, ``fp16`` with a ``torch.amp.GradScaler``.  ``--device``
 defaults to ``cuda`` and the CLI raises when that device is missing;
 ``--device cpu`` runs everything on the CPU in float32.
 
+Under the launcher (``torchrun``: ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR``, ``MASTER_PORT``) each process is one rank of a data-parallel
+run (``parallel/mesh.py``, ``parallel/train_step.py``): ``--device cuda``
+means ``cuda:LOCAL_RANK`` (it raises when that card is missing), the process
+group is NCCL on the cards and gloo on the CPU (``--dist-backend`` overrides
+it) and raises when it cannot form.  The config's ``batch_size`` is the
+global batch; each rank loads, augments and trains its rows of it, and the
+W ranks compute the one-process step on the global batch.  Rank 0 draws the
+seed (when none is given) and names the output directory for every rank;
+it alone writes the log file, the tracker's files, label_names.txt, the
+checkpoints and the snapshots (the other ranks wait at a barrier after each
+save), and every rank resumes from the same checkpoint.  Each rank evaluates
+a shard of the test split and the predictions are merged before scoring, so
+every rank holds the same stats.  A stop signal to any rank stops every rank
+after the same step.  At the end rank 0 writes ``summary.json`` (the last
+step's metrics averaged over the ranks, the metrics logged every
+``print_freq`` steps, the last eval's stats, the global step, the seed and
+rank 0's loader workers' seconds and samples) into the output directory.
+
     python -m salience_detr_torch.train --steps N [--seed S] [--model-config F]
 
-trains on synthetic batches instead (CUDA only; ``Trainer``): B=4 on the
+trains on synthetic batches instead (CUDA only; ``Trainer``; under the
+launcher each rank trains its rows of each batch): B=4 on the
 800x1344 canvas, bf16 autocast, the optimizer settings of the train config
 (warmup over the N steps), images uniform in [-2, 2] and per image 24, 7, 40
 and 1 gt boxes with random labels, centres uniform in [0.25, 0.7] and sizes
@@ -59,6 +80,7 @@ from salience_detr_torch.engine.train import evaluate, train_one_epoch
 from salience_detr_torch.inference import DEFAULT_CONFIG, load_config
 from salience_detr_torch.models.bricks.criterion import Targets, default_weight_dict
 from salience_detr_torch.models.factory import SalienceDETRConfig, build_criteria, build_salience_detr
+from salience_detr_torch.parallel.mesh import Mesh, init_distributed, mean_over_ranks, shard_batch, shutdown
 from salience_detr_torch.parallel.train_step import make_eval_step, make_train_step
 from salience_detr_torch.utils.config import Config
 
@@ -93,12 +115,15 @@ def synthetic_batch(rng: np.random.Generator, num_classes: int, counts: Sequence
 
 class Trainer:
     """The model, criteria, optimizer and train step of one config, built
-    from a seed; ``generator`` draws the CDN noise on the device."""
+    from a seed; ``generator`` draws the CDN noise on the device.  With a
+    distributed ``mesh`` it is one rank of a data-parallel run: every rank
+    builds the same model and batches from the seed and trains its rows of
+    each batch."""
 
     def __init__(self, cfg: SalienceDETRConfig, device, seed: int = 0, steps_per_epoch: int = 1,
-                 train_cfg: Optional[Dict] = None):
+                 train_cfg: Optional[Dict] = None, mesh: Optional[Mesh] = None):
         tc = train_cfg or Config(str(TRAIN_CONFIG)).to_dict()
-        self.cfg, self.device = cfg, torch.device(device)
+        self.cfg, self.device, self.mesh = cfg, torch.device(device), mesh
         self.max_gt, self.canvas, self.print_freq = tc["max_gt"], tuple(tc["train_canvas"]), tc["print_freq"]
         self.model, _ = build_salience_detr(cfg, self.device, torch.Generator().manual_seed(seed))
         self.criterion, self.salience_criterion = build_criteria(cfg)
@@ -113,15 +138,17 @@ class Trainer:
         self.step = make_train_step(
             self.model, self.criterion, self.salience_criterion, self.optimizer, schedule,
             default_weight_dict(cfg.num_decoder_layers), tc["max_norm"],
-            cfg.dtype if amp else None,
+            cfg.dtype if amp else None, mesh=mesh,
         )
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
     def batches(self, steps: int, seed: int, counts: Sequence[int] = GT_COUNTS) -> Iterator[Dict]:
+        """``steps`` synthetic batches (the rank's rows of each in a
+        data-parallel run)."""
         rng = np.random.default_rng(seed)
         for _ in range(steps):
-            yield synthetic_batch(rng, self.cfg.num_classes, counts, self.canvas, self.max_gt,
-                                  self.device)
+            batch = synthetic_batch(rng, self.cfg.num_classes, counts, self.canvas, self.max_gt, self.device)
+            yield shard_batch(batch, self.mesh) if self.mesh is not None and self.mesh.distributed else batch
 
 
 def parse_args(argv=None):
@@ -140,7 +167,9 @@ def parse_args(argv=None):
                    help="torch.use_deterministic_algorithms (warn only) for the library ops")
     p.add_argument("--dry-run-steps", type=int, default=0, help="stop after N steps of one epoch")
     p.add_argument("--model-config", default=None, help="model config file in place of the config's model_path")
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", default="cuda", help="cuda (cuda:LOCAL_RANK under the launcher) or cpu")
+    p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                   help="process group backend under the launcher (default nccl on cuda, gloo on cpu)")
     p.add_argument("--steps", type=int, default=None,
                    help="train N steps on synthetic batches instead (CUDA only)")
     return p.parse_args(argv)
@@ -173,6 +202,14 @@ def train_coco(args) -> Dict:
     epochs run, the global step, the last step's metrics and the last eval's
     stats, the output directory, the epoch it started from, the train loop's
     wait for each batch and the workers' transform seconds)."""
+    mesh = init_distributed(args.device, args.dist_backend)
+    try:
+        return _train_coco(args, mesh)
+    finally:
+        shutdown(mesh)
+
+
+def _train_coco(args, mesh: Mesh) -> Dict:
     from salience_detr_torch.data.coco import CocoDetection
     from salience_detr_torch.data.loader import DetectionLoader, DevicePrefetcher, TrainLoader, to_device, train_to_device
     from salience_detr_torch.data.transforms import build_preset, simple_copy_paste
@@ -181,12 +218,10 @@ def train_coco(args) -> Dict:
     from salience_detr_torch.utils.coco_utils import get_coco_index_from_dataset
     from salience_detr_torch.utils.env import GracefulShutdown, collect_env_info, seed_everything
     from salience_detr_torch.utils.logging_utils import setup_logger
-    from salience_detr_torch.utils.tracker import TensorBoardTracker
+    from salience_detr_torch.utils.tracker import NullTracker, TensorBoardTracker
     from salience_detr_torch.weights import load_backbone_weights, load_finetune_weights
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("train: device cuda requested but torch.cuda.is_available() is False")
+    device, lead = mesh.device, mesh.rank == 0
     cfg = Config(args.config_file)
     model_path = args.model_config or cfg.model_path
     dtype = DTYPES[args.mixed_precision]
@@ -197,9 +232,11 @@ def train_coco(args) -> Dict:
         torch.use_deterministic_algorithms(True, warn_only=True)
 
     model_name = os.path.splitext(os.path.basename(model_path))[0]
-    output_dir = cfg.get("output_dir") or os.path.join(
-        "checkpoints", model_name, "train", datetime.datetime.now().strftime("%Y-%m-%d-%H_%M_%S"))
-    logger = setup_logger(output=output_dir)
+    output_dir = mesh.broadcast_object(cfg.get("output_dir") or os.path.join(
+        "checkpoints", model_name, "train", datetime.datetime.now().strftime("%Y-%m-%d-%H_%M_%S")))
+    logger = setup_logger(output=output_dir if lead else None, rank=mesh.rank)
+    if mesh.distributed:
+        logger.info(f"data parallel: {mesh.world} ranks, {device} on rank 0, global batch {cfg.batch_size}")
     logger.info(f"Command: {' '.join(sys.argv)}")
     logger.info(f"Config:\n{cfg.pretty()}")
 
@@ -211,7 +248,7 @@ def train_coco(args) -> Dict:
             logger.warning(f"--seed {seed} differs from the checkpoint's {restored['rng']['seed']}: "
                            "the resumed epochs draw other streams than an unbroken run")
         seed = restored["rng"]["seed"] if seed is None else seed
-    seed = seed_everything(seed)
+    seed = seed_everything(mesh.broadcast_object(seed_everything(seed) if lead else None))
     logger.info(f"Environment:\n{collect_env_info()}")
     logger.info(f"seed={seed}")
 
@@ -227,14 +264,16 @@ def train_coco(args) -> Dict:
         train_dataset, cfg.batch_size, canvas_hw=tuple(cfg.get("train_canvas", (800, 1344))),
         max_gt=cfg.get("max_gt", 100), shuffle=True, seed=seed, num_workers=num_workers,
         batch_transform=simple_copy_paste if use_copypaste else None,
+        rank=mesh.rank, world=mesh.world, accumulate_steps=args.accumulate_steps,
     )
-    test_loader = DetectionLoader(test_dataset, cfg.batch_size, num_workers)
+    test_loader = DetectionLoader(test_dataset, cfg.batch_size, num_workers, mesh.rank, mesh.world)
     steps_per_epoch = len(train_loader)
 
     names = {c["id"]: c["name"] for c in train_dataset.coco.cats.values()}
-    with open(os.path.join(output_dir, "label_names.txt"), "w") as f:
-        for i in range(max(names, default=0) + 1):
-            f.write(names.get(i, str(i)) + "\n")
+    if lead:
+        with open(os.path.join(output_dir, "label_names.txt"), "w") as f:
+            for i in range(max(names, default=0) + 1):
+                f.write(names.get(i, str(i)) + "\n")
 
     model, postprocess = build_salience_detr(model_cfg, device, torch.Generator().manual_seed(seed))
     criterion, salience_criterion = build_criteria(model_cfg)
@@ -256,7 +295,7 @@ def train_coco(args) -> Dict:
     step = make_train_step(
         model, criterion, salience_criterion, optimizer, schedule,
         default_weight_dict(model_cfg.num_decoder_layers), cfg.get("max_norm", 0.1),
-        dtype if amp else None, accumulate_steps=args.accumulate_steps, scaler=scaler,
+        dtype if amp else None, accumulate_steps=args.accumulate_steps, scaler=scaler, mesh=mesh,
     )
     eval_step = make_eval_step(model, postprocess, model_cfg.dtype)
 
@@ -272,12 +311,22 @@ def train_coco(args) -> Dict:
         logger.info(f"Resumed from epoch {restored['epoch']} (step {restored['step']}) at epoch {starting_epoch}")
 
     best = HighestCheckpoint(ckpt)
-    tracker = TensorBoardTracker(output_dir)
+    tracker = TensorBoardTracker(output_dir) if lead else NullTracker()
+    gather = mesh.all_gather_object if mesh.distributed else None
     metadata = {"class_names": names, "model_path": model_path, "seed": seed}
     summary = {"output_dir": output_dir, "seed": seed, "starting_epoch": starting_epoch, "epochs": [],
-               "steps_per_epoch": steps_per_epoch, "loader_waits_s": [], "stats": None, "metrics": {}}
+               "steps_per_epoch": steps_per_epoch, "loader_waits_s": [], "stats": None, "metrics": {},
+               "logged": []}
+
+    def log_train(values: Dict[str, float], at: int):
+        """The tracker's train lines, also kept for the summary (fetched
+        every print_freq steps, averaged over the ranks)."""
+        summary["logged"].append({"step": at, **{k[len("loss/"):]: v for k, v in values.items()}})
+        tracker.log(values, at)
+
     try:
         with GracefulShutdown(logger=logger) as stop:
+            step.stop_source = stop
             for epoch in range(starting_epoch, cfg.num_epochs):
                 train_loader.set_epoch(epoch)
                 prefetcher = DevicePrefetcher(train_loader, train_to_device, device)
@@ -286,30 +335,39 @@ def train_coco(args) -> Dict:
                 try:
                     global_step, metrics = train_one_epoch(
                         step, itertools.islice(batches, args.dry_run_steps) if args.dry_run_steps else batches,
-                        generator, epoch, cfg.get("print_freq", 50), global_step, logger, tracker.log, stop,
+                        generator, epoch, cfg.get("print_freq", 50), global_step, logger, log_train,
+                        step.should_stop,
                     )
                 finally:
                     batches.close()
                 summary["loader_waits_s"] += prefetcher.waits
-                summary["metrics"] = {k: float(v) for k, v in metrics.items()}
+                summary["metrics"] = {k: float(v) for k, v in mean_over_ranks(metrics).items()}
                 summary["epochs"].append(epoch)
-                ckpt.save(epoch, checkpoint_state(model, optimizer, step, scaler, epoch, seed),
-                          metadata)
-                if stop.requested:
+                if lead:
+                    ckpt.save(epoch, checkpoint_state(model, optimizer, step, scaler, epoch, seed),
+                              metadata)
+                mesh.barrier()
+                if step.should_stop():
                     logger.warning(f"preemption checkpoint saved at epoch {epoch} (step {step.steps_done}); "
                                    "exiting")
                     break
                 evaluator = CocoEvaluator(get_coco_index_from_dataset(test_dataset))
                 stats = evaluate(eval_step, DevicePrefetcher(test_loader, functools.partial(to_device, cfg=model_cfg), device), evaluator,
-                                 logger=logger, tracker=tracker.log, epoch=epoch)
+                                 logger=logger, tracker=tracker.log, epoch=epoch, all_gather_fn=gather)
                 summary["stats"] = stats
-                best.update({"model": model_state(model), "epoch": epoch, "step": step.steps_done},
-                            stats["AP"], stats["AP50"])
+                if lead:
+                    best.update({"model": model_state(model), "epoch": epoch, "step": step.steps_done},
+                                stats["AP"], stats["AP50"])
+                mesh.barrier()
                 if args.dry_run_steps:
                     break
     finally:
         tracker.close()
     summary.update(global_step=global_step, transform_s=train_loader.transform_s, samples=train_loader.samples)
+    if lead:
+        with open(os.path.join(output_dir, "summary.json"), "w") as f:
+            json.dump({k: summary[k] for k in ("metrics", "logged", "stats", "global_step", "seed", "epochs",
+                                               "transform_s", "samples")}, f)
     logger.info("Training done")
     return summary
 
@@ -317,20 +375,27 @@ def train_coco(args) -> Dict:
 def train_synthetic(args) -> Dict:
     if not torch.cuda.is_available():
         raise SystemExit("salience_detr_torch.train --steps needs a CUDA device")
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    cfg = load_config(args.model_config or DEFAULT_CONFIG)
-    trainer = Trainer(cfg, "cuda", args.seed or 0, steps_per_epoch=args.steps)
-    t0 = time.perf_counter()
-    steps, metrics = train_one_epoch(
-        trainer.step, trainer.batches(args.steps, args.seed or 0), trainer.generator, 0,
-        trainer.print_freq,
-    )
-    torch.cuda.synchronize()
-    result = {"steps": steps, "seconds": time.perf_counter() - t0,
-              "device": torch.cuda.get_device_name(0)}
-    result.update({k: float(v) for k, v in metrics.items()})
-    print(json.dumps(result))
-    return result
+    mesh = init_distributed("cuda", args.dist_backend)
+    try:
+        logging.basicConfig(level=logging.INFO if mesh.rank == 0 else logging.WARNING,
+                            format="%(asctime)s %(message)s")
+        cfg = load_config(args.model_config or DEFAULT_CONFIG)
+        trainer = Trainer(cfg, str(mesh.device), args.seed or 0, steps_per_epoch=args.steps, mesh=mesh)
+        t0 = time.perf_counter()
+        steps, metrics = train_one_epoch(
+            trainer.step, trainer.batches(args.steps, args.seed or 0), trainer.generator, 0,
+            trainer.print_freq,
+        )
+        metrics = mean_over_ranks(metrics)
+        torch.cuda.synchronize()
+        result = {"steps": steps, "seconds": time.perf_counter() - t0, "ranks": mesh.world,
+                  "device": torch.cuda.get_device_name(mesh.device)}
+        result.update({k: float(v) for k, v in metrics.items()})
+        if mesh.rank == 0:
+            print(json.dumps(result))
+        return result
+    finally:
+        shutdown(mesh)
 
 
 def main(argv=None) -> Dict:

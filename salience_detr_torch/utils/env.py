@@ -3,7 +3,10 @@ salience_detr_tpu/utils/env.py): ``collect_env_info`` reports Python, torch,
 CUDA and the card's name and power limit; ``seed_everything`` seeds Python's,
 numpy's and torch's global generators; ``GracefulShutdown`` turns SIGTERM and
 SIGINT into a flag the train loop polls, so that a preempted run finishes its
-step, writes a checkpoint and exits 0."""
+step, writes a checkpoint and exits 0.  In a data-parallel run the flag is
+this process's; the train step's all-reduce of each step carries it to every
+rank (``parallel.train_step.TrainStep.should_stop``), so a signal to any rank
+stops all of them after the same step."""
 
 from __future__ import annotations
 

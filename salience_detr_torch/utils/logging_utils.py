@@ -52,6 +52,12 @@ def setup_logger(
         fh.setFormatter(logging.Formatter(fmt, datefmt=datefmt))
         logger.addHandler(fh)
 
+    if not logger.handlers:  # a rank other than 0 without a file: its errors on stderr
+        eh = logging.StreamHandler(stream=sys.stderr)
+        eh.setLevel(logging.ERROR)
+        eh.setFormatter(logging.Formatter(f"[rank {rank}] " + fmt, datefmt=datefmt))
+        logger.addHandler(eh)
+
     def excepthook(exc_type, exc_value, tb):
         logger.error("Uncaught exception", exc_info=(exc_type, exc_value, tb))
 

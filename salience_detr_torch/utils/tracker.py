@@ -1,6 +1,7 @@
 """Experiment tracker (the port's copy of salience_detr_tpu/utils/tracker.py):
 TensorBoard when ``torch.utils.tensorboard`` imports, else one JSON line per
-``log`` call in ``metrics.jsonl``."""
+``log`` call in ``metrics.jsonl``; ``NullTracker`` for the ranks of a
+data-parallel run other than rank 0, which write no files."""
 
 from __future__ import annotations
 
@@ -35,3 +36,13 @@ class TensorBoardTracker:
             self._writer.close()
         else:
             self._jsonl.close()
+
+
+class NullTracker:
+    """Drops what it is given."""
+
+    def log(self, metrics: Dict[str, float], step: int):
+        pass
+
+    def close(self):
+        pass
