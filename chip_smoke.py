@@ -227,6 +227,7 @@ import functools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -261,6 +262,8 @@ from salience_detr_torch.ops import msda_stages as stages
 from salience_detr_torch.ops import deform_conv as dcn_ops
 from salience_detr_torch.ops.deform_attn import (
     _backward_cuda,
+    _backward_cuda_ordered,
+    backward_design,
     ms_deform_attn,
     ms_deform_attn_backward_plain,
     ms_deform_attn_plain,
@@ -300,6 +303,7 @@ from salience_detr_torch.parallel import train_step as train_step_module
 from salience_detr_torch.train import GT_COUNTS, TRAIN_CONFIG, Trainer
 from salience_detr_torch.utils.checkpoint import CheckpointManager
 from salience_detr_torch.utils.config import Config
+from salience_detr_torch.utils.env import configure_numerics
 from salience_detr_torch.utils.coco_eval import METRIC_NAMES, CocoEvaluator
 
 LEVELS = [(100, 168), (50, 84), (25, 42), (13, 21)]  # 800x1344 canvas, strides 8..64
@@ -2032,18 +2036,25 @@ def train_coco_config(path, img_dir, ann, output_dir, **overrides):
 def run_train_cli(args, forwards):
     """``salience_detr_torch.train.main(args)`` with the launch counts set to
     0 just before and read just after; checks that each train step launched
-    K1, K3, K2 and K4 as the flagship's micro-batches need and each eval
-    forward (``forwards`` after each epoch) K1 and K2; returns (summary,
-    this run's step records, launches)."""
+    K1, K3 (the ordered design with --use-deterministic-algorithms, which is
+    switched off again after the run), K2 and K4 as the flagship's
+    micro-batches need and each eval forward (``forwards`` after each epoch)
+    K1 and K2; returns (summary, this run's step records, launches)."""
     first = len(TimedStep.records)
     for k in native.LAUNCHES:
         native.LAUNCHES[k] = 0
-    summary = train_entry.main(args)
+    try:
+        summary = train_entry.main(args)
+    finally:
+        torch.use_deterministic_algorithms(False)
     torch.cuda.synchronize()
     launches = dict(native.LAUNCHES)
     records = TimedStep.records[first:]
+    step_kernels = dict(TRAIN_STEP_KERNELS)
+    if "--use-deterministic-algorithms" in args:
+        step_kernels["msda_backward_ordered"] = step_kernels.pop("msda_backward")
     for r in records:
-        want = {k: v * r["accumulate"] for k, v in TRAIN_STEP_KERNELS.items()}
+        want = {k: v * r["accumulate"] for k, v in step_kernels.items()}
         finite = r["losses_finite"] and (not r["stepped"] or np.isfinite(r["grad_norm"]))
         if {k: r["launches"][k] for k in want} != want or not finite:
             raise AssertionError(f"train_coco step {r}")
@@ -2068,13 +2079,15 @@ def phase_train_coco(smi):
     orientations; run 1 trains 4 steps of epoch 0, evaluates and
     checkpoints; run 2 resumes from that checkpoint at epoch 1 for 2 steps
     and evaluates; run 3 trains 1 step at --accumulate-steps 2 (two
-    micro-batches of 2); run 4 trains FP16_EPOCHS epochs in fp16 with the
+    micro-batches of 2) with --use-deterministic-algorithms (the ordered
+    K3); run 4 trains FP16_EPOCHS epochs in fp16 with the
     GradScaler, evaluating after each, whose losses must be finite and which
     must take at least one step (it skips a step whose scaled gradients
     overflowed and halves its scale).
     Each step must launch K1 and K3 12 times, K2 and K4 once per
     micro-batch, each eval forward K1 12 times and K2 once.  Returns run 1's
-    launches over its 4 steps."""
+    launches over its 4 steps, run 3's and the host transform ms a
+    sample."""
     import shutil
 
     t0 = time.perf_counter()
@@ -2105,8 +2118,8 @@ def phase_train_coco(smi):
         config = train_coco_config(TRAIN_COCO_DIR / "epoch1.py", img_dir, ann, out, num_epochs=2)
         s2, r2, _ = run_train_cli(["--config-file", config, "--dry-run-steps", "2"], forwards)
         config = train_coco_config(TRAIN_COCO_DIR / "accum.py", img_dir, ann, TRAIN_COCO_DIR / "accum")
-        s3, r3, _ = run_train_cli(["--config-file", config, "--seed", "1", "--dry-run-steps", "1",
-                                   "--accumulate-steps", "2"], forwards)
+        s3, r3, l3 = run_train_cli(["--config-file", config, "--seed", "1", "--dry-run-steps", "1",
+                                    "--accumulate-steps", "2", "--use-deterministic-algorithms"], forwards)
         config = train_coco_config(TRAIN_COCO_DIR / "fp16.py", img_dir, ann, TRAIN_COCO_DIR / "fp16",
                                    num_epochs=FP16_EPOCHS)
         s4, r4, _ = run_train_cli(["--config-file", config, "--seed", "2", "--mixed-precision", "fp16"], forwards)
@@ -2137,7 +2150,8 @@ def phase_train_coco(smi):
     print(f"train_coco: flagship R50 bf16 B=4 detr preset through salience_detr_torch.train.main on "
           f"{len(TRAIN_COCO_SIZES)} .npy images {sorted(set(TRAIN_COCO_SIZES))}; run 1 {len(r1)} steps + eval, "
           f"run 2 resumed at epoch {s2['starting_epoch']} from step {restored['step']} for {len(r2)} steps "
-          f"(global step {s2['global_step']}) + eval, run 3 --accumulate-steps 2 {len(r3)} step, run 4 fp16 "
+          f"(global step {s2['global_step']}) + eval, run 3 --accumulate-steps 2 --use-deterministic-algorithms "
+          f"{len(r3)} step, run 4 fp16 "
           f"{FP16_EPOCHS} epochs, {len(r4)} steps, {FP16_EPOCHS} evals (the scaler stepped {len(fp16_stepped)}, "
           f"scales {[r['scale'] for r in r4]}, "
           f"grad_norm {[round(r['grad_norm'], 3) for r in r4]}); canvases {canvases}; "
@@ -2154,7 +2168,7 @@ def phase_train_coco(smi):
           f"{s1['metrics']['grad_norm']:.4f} eval AP={s1['stats']['AP']:.6f} AR100={s1['stats']['AR100']:.6f}, "
           f"run 2 loss={s2['metrics']['loss']:.4f}, run 3 loss={s3['metrics']['loss']:.4f}, run 4 loss="
           f"{s4['metrics']['loss']:.4f}, all finite; phase_s={time.perf_counter() - t0:.2f}; card: {smi}")
-    return {k: sum(r["launches"][k] for r in r1) for k in native.LAUNCHES}, transform_ms
+    return {k: sum(r["launches"][k] for r in r1) for k in native.LAUNCHES}, l3, transform_ms
 
 
 def phase_train_coco_strong(smi, detr_transform_ms):
@@ -3027,6 +3041,207 @@ def phase_msda_backbone_shapes(smi):
     return out
 
 
+def k3_launchers(value, locs, weights, d_out, levels=LEVELS):
+    """Launch-only calls of both K3 designs of a given library on these
+    inputs (locations and weights cast to f32 once, outputs and the ordered
+    design's workspace allocated once, from this library's size), and that
+    workspace's bytes."""
+    B, S, C = value.shape
+    Q, G = locs.shape[1:3]
+    H, P = weights.shape[2], weights.shape[-1]
+    loc32, attn32 = locs.float().contiguous(), weights.float().contiguous()
+    d_value32 = torch.zeros(B, S, C, device=value.device)
+    d_value = torch.empty(B, S, C, dtype=value.dtype, device=value.device)
+    d_loc, d_attn = torch.empty_like(loc32), torch.empty_like(attn32)
+    table, bf16, stream = native.level_table(levels), int(value.dtype == torch.bfloat16), native.stream_of(value)
+    workspace_bytes = native.load().msda_backward_workspace(table, B, S, Q, C, H, G, P)
+    workspace = torch.empty(workspace_bytes, dtype=torch.uint8, device=value.device)
+
+    def scatter(lib):  # d_value keeps accumulating: the same atomics each call
+        native.check(lib.msda_backward(value.data_ptr(), bf16, table, loc32.data_ptr(), attn32.data_ptr(),
+                                       d_out.data_ptr(), d_value32.data_ptr(), d_loc.data_ptr(),
+                                       d_attn.data_ptr(), B, S, Q, C, H, G, P, stream), "msda_backward")
+
+    def ordered(lib):
+        native.check(lib.msda_backward_ordered(value.data_ptr(), bf16, table, loc32.data_ptr(), attn32.data_ptr(),
+                                               d_out.data_ptr(), d_value.data_ptr(), d_loc.data_ptr(),
+                                               d_attn.data_ptr(), workspace.data_ptr(), B, S, Q, C, H, G, P,
+                                               stream), "msda_backward_ordered")
+
+    return scatter, ordered, workspace_bytes
+
+
+def ordered_bound(value, locs, weights, levels, workspace_bytes):
+    """The ordered K3's bound: K3's (``msda_bounds``) with d_value written in
+    the value dtype, plus the workspace it writes and reads (the entries'
+    keys, ranks and weights and the rows' lists), counted once."""
+    B, S, C = value.shape
+    in_level, nonzero, _ = corner_counts(locs, levels)
+    small = 4 * (locs.numel() + weights.numel())
+    out = B * locs.shape[1] * C * value.element_size()
+    return bound(nbytes(value) + out + 2 * small + B * S * C * value.element_size() + workspace_bytes,
+                 2 * (in_level + nonzero) * (C // locs.shape[2]))
+
+
+def kernel_breakdown(fn, iters=3):
+    """Device ms of each kernel (by name, shortened) per call of ``fn``,
+    from a torch.profiler trace of ``iters`` calls (device tracing only)."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = re.sub(r"^void |\(anonymous namespace\)::", "", e.name)
+            by_name[re.split(r"[<(]", name)[0][:48]] += e.time_range.elapsed_us() / 1e3 / iters
+    return {k: round(v, 4) for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])}
+
+
+def ordered_checks(label, value, locs, weights, d_out, levels, baselines, smi):
+    """The ordered K3 on one input set: against the plain backward at K3's
+    tolerances, two launches bitwise equal (d_value, d_locations,
+    d_weights), through autograd under ``torch.use_deterministic_algorithms``
+    (counted under its own key), and timed in turns with the scatter design
+    (launch only and with the wrappers; with ``baselines``, also against
+    each directory's scatter K3).  Returns (largest error, (ms, plain ms,
+    bound ms, bound by), launch-only ms of both designs)."""
+    first = _backward_cuda_ordered(value, levels, locs, weights, d_out)
+    second = _backward_cuda_ordered(value, levels, locs, weights, d_out)
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(first, second)]
+    if not all(same):
+        raise AssertionError(f"msda_ordered {label}: two launches differ (d_value, d_loc, d_attn equal: {same})")
+    plain = ms_deform_attn_backward_plain(value, levels, locs, weights, d_out)
+    worst, parts = 0.0, []
+    for name, got, want in zip(("d_value", "d_locations", "d_weights"), first, plain):
+        max_abs, scale, bad, atol_rel, rtol = compare_bwd(got, want)
+        parts.append(f"{name}={max_abs:.3e}(max|ref| {scale:.3e}, violations {bad})")
+        if bad or got.dtype != want.dtype:
+            raise AssertionError(f"msda_ordered {label}: {name} disagrees with the plain backward: {bad} elements, "
+                                 f"dtype {got.dtype}")
+        worst = max(worst, max_abs)
+    del plain
+    inputs = [x.clone().requires_grad_() for x in (value, locs, weights)]
+    before = dict(native.LAUNCHES)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        if backward_design() != "ordered":
+            raise AssertionError(f"msda_ordered: the design under deterministic algorithms is {backward_design()}")
+        ms_deform_attn(inputs[0], levels, inputs[1], inputs[2]).backward(d_out)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.synchronize()
+    counted = {k: native.LAUNCHES[k] - before[k] for k in ("msda_backward", "msda_backward_ordered")}
+    if counted != {"msda_backward": 0, "msda_backward_ordered": 1} or not all(
+            torch.equal(x.grad, g) for x, g in zip(inputs, first)):
+        raise AssertionError(f"msda_ordered {label}: autograd launched {counted} or differs from the wrapper")
+    del inputs, first, second
+    scatter, ordered, workspace_bytes = k3_launchers(value, locs, weights, d_out, levels)
+    lib = native.load()
+    launch = [cuda_ms(lambda: run(lib), 10) for run in (scatter, ordered, ordered, scatter)]
+    wrapped = [cuda_ms(lambda: fn(value, levels, locs, weights, d_out), 10)
+               for fn in (_backward_cuda, _backward_cuda_ordered, _backward_cuda_ordered, _backward_cuda)]
+    bb, bby = ordered_bound(value, locs, weights, levels, workspace_bytes)
+    by_kernel = kernel_breakdown(lambda: ordered(lib))
+    base_parts = []
+    for base_dir in baselines:
+        base = baseline_library(base_dir)
+        if hasattr(base, "msda_backward"):
+            turns = [cuda_ms(lambda: run(lib_), 10) for run, lib_ in
+                     ((scatter, base), (ordered, lib), (ordered, lib), (scatter, base))]
+            base_parts.append(f"against {base_dir}'s scatter K3 base/ordered/ordered/base "
+                              f"{[round(x, 4) for x in turns]}")
+    print(f"msda_ordered: {label} G={locs.shape[2]} B={value.shape[0]} Q={locs.shape[1]} S={value.shape[1]} "
+          f"{str(value.dtype)[6:]}: errors against the plain backward {' '.join(parts)}; two launches bitwise "
+          f"equal; launch-only ms scatter/ordered/ordered/scatter {[round(x, 4) for x in launch]}; with the "
+          f"wrappers {[round(x, 4) for x in wrapped]}; {'; '.join(base_parts) + '; ' if base_parts else ''}"
+          f"ordered launch by kernel (profiler) {by_kernel}; "
+          f"workspace {workspace_bytes / 2**20:.1f} MiB; bound_ms={bb:.4f} ({bby}, workspace counted once); "
+          f"card: {smi}")
+    return worst, (statistics.mean(wrapped[1:3]), bb, bby), (statistics.mean(launch[::3]), statistics.mean(launch[1:3]))
+
+
+def phase_msda_ordered(smi, captured=None, baselines=()):
+    """K3's ordered design (no float atomics) against the plain backward at
+    K3's tolerances, bitwise repeatable, and timed in turns with the scatter
+    design, on the inputs the flagship train step gives K3 (encoder layer 0,
+    G=1 Q=11403, and decoder layer 0, G=8 Q=1100, ``captured`` or captured
+    here), those of the R50 5-scale config's train step (exact G=8 encoder,
+    Q=45,570, S=89,250) and the Swin-L config's (exact G=8 encoder, Q=11,403)
+    and uniform inputs.  Returns the kernels line's
+    (error, timing) on the captured flagship encoder, with the plain
+    version's ms there."""
+    t0 = time.perf_counter()
+    captured = captured or capture_train_inputs()
+    sets = [(f"captured flagship {name}", captured[name], LEVELS) for name in ("encoder", "decoder")]
+    for config, label, levels in (("r50_5scale", "5-scale", FIVE_SCALE_LEVELS), ("swin_l", "Swin-L", LEVELS)):
+        train_inputs = capture_train_inputs(backbone_config(config)[0], levels)
+        sets += [(f"captured {label} {name}", train_inputs[name], levels) for name in ("encoder", "decoder")]
+        del train_inputs
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    for G, Q in ((1, 11403), (8, 1100)):
+        value32, locs, weights = uniform_msda_inputs(gen, G, Q)
+        d_out32 = torch.randn(value32.shape[0], Q, value32.shape[2], generator=gen, device="cuda")
+        for dtype in (torch.bfloat16, torch.float32):
+            sets.append((f"uniform {str(dtype)[6:]}", {"value": value32.to(dtype), "locations": locs,
+                                                       "weights": weights, "d_out": d_out32.to(dtype)}, LEVELS))
+    worst, result = 0.0, None
+    for label, c, levels in sets:
+        value, locs, weights, d_out = c["value"], c["locations"], c["weights"], c["d_out"]
+        err, timing, _ = ordered_checks(label, value, locs, weights, d_out, levels, baselines, smi)
+        worst = max(worst, err)
+        if label == "captured flagship encoder":
+            plain_ms = cuda_ms(lambda: ms_deform_attn_backward_plain(value, levels, locs, weights, d_out), 3)
+            result = (timing[0], plain_ms, *timing[1:])
+    del sets
+    torch.cuda.empty_cache()
+    print(f"msda_ordered: phase_s={time.perf_counter() - t0:.2f}")
+    return worst, result
+
+
+def phase_train_repeat(smi):
+    """A one-process flagship train step (``Trainer``, B=4, 800x1344, the
+    synthetic batch of phase train) with ``--use-deterministic-algorithms``'
+    numerics (``utils.env.configure_numerics(True)``) in processes of their
+    own (``salience_detr_torch.tools.repeat_check train``; the setting is
+    global): float32 twice in one process, bf16 twice in one process and
+    once in another.  The losses, every gradient and every parameter after
+    the step must be bitwise equal within each dtype; prints the library ops
+    that ``torch.use_deterministic_algorithms`` warned about."""
+    t0 = time.perf_counter()
+    root = DDP_DIR / "repeat"
+    root.mkdir(parents=True, exist_ok=True)
+    facts = []
+    for dtype, runs in (("f32", (2,)), ("bf16", (2, 1))):
+        outs = [root / f"train_{dtype}_{i}.json" for i in range(len(runs))]
+        for out, n in zip(outs, runs):
+            run_cli(["-m", "salience_detr_torch.tools.repeat_check", "train", "--deterministic", "--dtype", dtype,
+                     "--runs", str(n), "--out", str(out)])
+        proc = subprocess.run([sys.executable, "-m", "salience_detr_torch.tools.repeat_check", "compare",
+                               *map(str, outs)], cwd=str(Path(__file__).resolve().parent), capture_output=True,
+                              text=True)
+        records = [json.loads(out.read_text()) for out in outs]
+        if proc.returncode != 0 or any(r["design"] != "ordered" for r in records):
+            raise AssertionError(f"train_repeat {dtype}: designs {[r['design'] for r in records]}; ops warned "
+                                 f"about {sorted({w for r in records for w in r['warnings']})}; "
+                                 f"{proc.stdout[-6000:]}")
+        a = records[0]["runs"][0]
+        facts.append(f"{dtype} ({sum(runs)} runs in {len(runs)} processes): loss {a['metrics']['loss']!r}, "
+                     f"grad_norm {a['metrics']['grad_norm']!r}, {len(a['grads'])} gradients and "
+                     f"{len(a['params'])} parameters bitwise equal; ops warned about "
+                     f"{sorted({w for r in records for w in r['warnings']})}")
+    print(f"train_repeat: flagship Trainer step with --use-deterministic-algorithms (the ordered K3): "
+          f"{'; '.join(facts)}; phase_s={time.perf_counter() - t0:.2f}; card: {smi}")
+
+
 def phase_backbone_slice():
     """Each backbone family in a small random-weight model, float32, card
     (kernels) against CPU (plain versions): the forward as phase 5 does
@@ -3180,29 +3395,32 @@ def phase_nms_past_budget(smi):
 # variables; where they write (an ignored directory of the checkout)
 DDP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ddp"
 DDP_WORLD, DDP_F32_STEPS, DDP_BF16_STEPS, DDP_STEPS_PER_EPOCH = 2, 2, 2, 4
-# ddp_train's bounds against one process (float32, TF32 off).  Each step's
-# losses and grad_norm on the same weights: step 0 from the seed, each later
-# step from the ranks' own weights, optimizer moments and generator after
-# the step before (one process continues from them), because the card does
-# not repeat itself past an update (K3 adds d_value with float atomics, and
+# ddp_train's bounds against one process (float32, the default numerics of
+# utils.env.configure_numerics).  Each step's losses and grad_norm on the
+# same weights: step 0 from the seed, each later step from the ranks' own
+# weights, optimizer moments and generator after the step before (one
+# process continues from them), because the default numerics do not repeat
+# past an update (K3's scatter design adds d_value with float atomics, and
 # AdamW's first steps move a near-zero gradient entry by about +-lr
 # whichever sign it rounds to).  Step 0 at rtol DDP_STEP0_RTOL; later steps
 # at DDP_STEP_RTOL: at random init scores and costs sit near ties, and a
 # rank's half batch runs other conv and GEMM algorithms than the whole batch,
 # so a top-k, NMS or matching decision may fall the other way on a later
 # batch (PERF.md: up to 1.9e-2 on one loss term at step 1 on the same
-# weights; the tiny CPU tests hold 2e-5).  The parameters after the last step against
-# the one-process run: the norm of the difference over the norm of what the
-# steps moved them, whole model, at DDP_PARAM_GAP (AdamW divides out a
-# gradient's scale, so this reads the update's direction; grad_norm reads
-# the scale; a one-process rerun's own gap is printed beside it); the neck's
-# running statistics elementwise at atol DDP_STATS_ATOL + rtol
-# DDP_STATS_RTOL.  ddp_nccl holds the run without the launcher: the first
-# step at DDP_STEP0_RTOL, the last at DDP_LATER_RTOL (a rerun's own gap
-# reaches 3e-2), the eval's stats at DDP_STATS_GAP and the checkpoint's
-# weights at DDP_WEIGHT_GAP (absolute)
+# weights; the tiny CPU tests hold 2e-5).  --use-deterministic-algorithms
+# makes a run repeat itself bitwise (phase train_repeat), but its numerics
+# run other cuDNN engines at a rank's half batch, and a near-tie falls the
+# other way already at step 0 (1.062e-02 on one loss term, the same in
+# every run, PERF.md), so the ranks are held against one process with the
+# default numerics and these bounds stay where they were.  The parameters
+# after the last step against the one-process run: the norm of the
+# difference over the norm of what the steps moved them, whole model, at
+# DDP_PARAM_GAP (AdamW divides out a gradient's scale, so this reads the
+# update's direction; grad_norm reads the scale; a one-process rerun's own
+# gap is printed beside it); the neck's running statistics elementwise at
+# atol DDP_STATS_ATOL + rtol DDP_STATS_RTOL.  ddp_nccl holds one NCCL rank
+# against the run without the launcher bitwise, both with the flag.
 DDP_STEP0_RTOL, DDP_STEP_RTOL, DDP_PARAM_GAP, DDP_STATS_RTOL, DDP_STATS_ATOL = 1e-4, 5e-2, 0.15, 1e-3, 1e-4
-DDP_LATER_RTOL, DDP_STATS_GAP, DDP_WEIGHT_GAP = 1e-1, 1e-2, 1e-3
 
 
 def ddp_flagship(dtype):
@@ -3226,9 +3444,9 @@ def ddp_rank_main(out):
     rank 0 the model, optimizer and generator after the first step and the
     float32 state after the last)."""
     from salience_detr_torch.parallel.mesh import init_distributed, mean_over_ranks, shutdown
+    from salience_detr_torch.utils.env import configure_numerics
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    configure_numerics()
     out = Path(out)
     mesh = init_distributed("cuda", "gloo")
     try:
@@ -3414,9 +3632,10 @@ def phase_ddp_nccl(smi):
     salience_detr_torch.train) on the train_coco phase's split, float32,
     --dry-run-steps 2 and the epoch's eval: NCCL init, DDP's all-reduce, the
     per-step counts all-reduce and the eval merge on the card; against the
-    same command without the launcher and the same seed: each step's losses
-    and grad_norm (summary.json), the eval's stats and the checkpoint's
-    weights, at the bounds above."""
+    same command without the launcher and the same seed, both with
+    --use-deterministic-algorithms: each step's losses and grad_norm
+    (summary.json), the eval's stats and the checkpoint's weights must be
+    bitwise equal."""
     t0 = time.perf_counter()
     root = DDP_DIR / "nccl"
     img_dir, ann = write_train_split(root / "split")
@@ -3426,7 +3645,7 @@ def phase_ddp_nccl(smi):
         config = train_coco_config(root / f"{name}.py", img_dir, ann, root / name)
         t1 = time.perf_counter()
         proc = run_cli([*launcher, "-m", "salience_detr_torch.train", "--config-file", config, "--seed", "0",
-                        "--dry-run-steps", "2", "--mixed-precision", "no"])
+                        "--dry-run-steps", "2", "--mixed-precision", "no", "--use-deterministic-algorithms"])
         summary = json.loads((root / name / "summary.json").read_text())
         runs[name] = (summary, time.perf_counter() - t1, proc.stdout)
     (nccl, nccl_s, log), (single, single_s, _) = runs["nccl"], runs["single"]
@@ -3443,20 +3662,18 @@ def phase_ddp_nccl(smi):
     b = CheckpointManager(str(root / "single" / "checkpoints")).restore()["model"]
     bitwise = all(torch.equal(a[k], b[k]) for k in b)
     weight_gap = max(float((a[k].float() - b[k].float()).abs().max()) for k in b)
-    if (first_gap > DDP_STEP0_RTOL or last_gap > DDP_LATER_RTOL or stats_gap > DDP_STATS_GAP
-            or weight_gap > DDP_WEIGHT_GAP):
-        raise AssertionError(f"ddp_nccl: against one process: first step {first_gap:.3e}, last step "
+    if first_gap or last_gap or stats_gap or not bitwise or nccl["logged"] != single["logged"]:
+        raise AssertionError(f"ddp_nccl: not bitwise equal to one process: first step {first_gap:.3e}, last step "
                              f"{last_gap:.3e}, stats {stats_gap:.3e}, weights {weight_gap:.3e}")
     print(f"ddp_nccl: salience_detr_torch.train under torch.distributed.run (1 rank, NCCL on cuda:0, gloo side "
           f"group) on {len(TRAIN_COCO_SIZES)} .npy images, float32, 2 steps + eval: losses "
           f"{[round(m['loss'], 6) for m in nccl['logged']]} grad_norm {[round(m['grad_norm'], 6) for m in nccl['logged']]} "
           f"AP {nccl['stats']['AP']:.6f} against one process without the launcher losses "
           f"{[round(m['loss'], 6) for m in single['logged']]} grad_norm "
-          f"{[round(m['grad_norm'], 6) for m in single['logged']]} AP {single['stats']['AP']:.6f}: largest relative "
-          f"metric gap step 0 {first_gap:.3e} (bound {DDP_STEP0_RTOL}), step 1 {last_gap:.3e} (bound "
-          f"{DDP_LATER_RTOL}), stats gap {stats_gap:.3e} (bound {DDP_STATS_GAP}), checkpoint weights bitwise "
-          f"equal {bitwise}, largest |diff| {weight_gap:.3e} (bound {DDP_WEIGHT_GAP}); host transform ms a sample "
-          f"(the detr preset, 8 worker threads; every rank of a data-parallel run prepares every sample) "
+          f"{[round(m['grad_norm'], 6) for m in single['logged']]} AP {single['stats']['AP']:.6f}, both with "
+          f"--use-deterministic-algorithms: largest relative metric gap step 0 {first_gap:.3e}, step 1 "
+          f"{last_gap:.3e}, stats gap {stats_gap:.3e}, checkpoint weights bitwise equal {bitwise} (all must be "
+          f"bitwise); host transform ms a sample (the detr preset, 8 worker threads) "
           f"{1e3 * nccl['transform_s'] / max(nccl['samples'], 1):.3f}; command wall_s launcher "
           f"{nccl_s:.1f} single {single_s:.1f}; phase_s={time.perf_counter() - t0:.2f}; card: {smi}")
     return nccl, single
@@ -3518,13 +3735,14 @@ def phase_ddp_eval(smi):
     launcher's variables, LOCAL_RANK 0 for both) in exact mode
     (--torch-checkpoint, a saved seed-1 exact-mode state dict) on the eval
     phase's split at --batch-size 2, against the same command in one process,
-    made twice (the first process of a call gives last-bit different logits
-    from the later ones, which reorders near ties; PERF.md): the
-    merged result file must equal one of the one-process files exactly, and
-    so must its stats (rescored here on the split and on one whose boxes are
-    that run's top predictions, where the random-weight model scores above
-    zero); rank 0 logs the stats and rank 1 nothing, and one result file is
-    written, by rank 0."""
+    made three times (``repeat_check eval``, which records each module
+    output of the first batch): the three one-process result files and the
+    merged one must be byte-equal (ROADMAP C-26: cuDNN's attention gave the
+    first process of a call other bits), and so must the merged file's
+    stats (rescored here on the split and on one whose boxes are the top
+    predictions, where the random-weight model scores above zero); rank 0
+    logs the stats and rank 1 nothing, and one result file is written, by
+    rank 0."""
     t0 = time.perf_counter()
     root = DDP_DIR / "eval"
     img_dir, ann = write_eval_split(root / "split")
@@ -3536,12 +3754,15 @@ def phase_ddp_eval(smi):
     torch.cuda.empty_cache()
     args = ["-m", "salience_detr_torch.test", "--coco-img", str(img_dir), "--coco-ann", str(ann),
             "--torch-checkpoint", str(ckpt), "--batch-size", "2"]
-    for d in ("one", "again", "ranks"):
+    singles = ("one", "again", "third")
+    for d in (*singles, "ranks"):
         (root / d).mkdir()
-    t1 = time.perf_counter()
-    run_cli(args + ["--save-results", str(root / "one" / "predictions.json")])
-    one_s = time.perf_counter() - t1
-    run_cli(args + ["--save-results", str(root / "again" / "predictions.json")])
+    one_s = []
+    for d in singles:  # each records its first batch's module outputs
+        t1 = time.perf_counter()
+        run_cli(["-m", "salience_detr_torch.tools.repeat_check", "eval", "--out", str(root / d / "record.json"),
+                 "--", *args[2:], "--save-results", str(root / d / "predictions.json")])
+        one_s.append(time.perf_counter() - t1)
     t1 = time.perf_counter()
     done = ddp_check.launch(args + ["--dist-backend", "gloo", "--save-results",
                                     str(root / "ranks" / "predictions.json")], DDP_WORLD, one_device=True,
@@ -3550,16 +3771,23 @@ def phase_ddp_eval(smi):
     files = sorted(p.name for p in (root / "ranks").iterdir())
     if files != ["predictions.json"]:
         raise AssertionError(f"ddp_eval: result files {files}")
-    runs = {d: root / d / "predictions.json" for d in ("one", "again")}
+    runs = {d: root / d / "predictions.json" for d in singles}
     ranks = root / "ranks" / "predictions.json"
     gaps = {d: prediction_gap(path, ranks) for d, path in runs.items()}
-    equal = [d for d, g in gaps.items() if g[0] == 0]
+    records = subprocess.run([sys.executable, "-m", "salience_detr_torch.tools.repeat_check", "compare",
+                              *(str(root / d / "record.json") for d in singles)],
+                             cwd=str(Path(__file__).resolve().parent), capture_output=True, text=True)
     logged = [x for x in done[0].stdout.splitlines() if " AP=" in x]
     print(f"ddp_eval_facts: the merged predictions against each one-process run (images that differ, largest "
-          f"score and box gaps) {gaps}; the two one-process runs {prediction_gap(runs['one'], runs['again'])}")
-    if not equal or not logged or done[1].stdout.strip():
-        raise AssertionError(f"ddp_eval: merged predictions equal no one-process run ({gaps}); rank 0 logged "
-                             f"{logged[-1:]}; rank 1 printed {done[1].stdout[-500:]}")
+          f"score and box gaps) {gaps}; the one-process runs' first batches and result files: "
+          f"{records.stdout.strip()}")
+    same = all(ranks.read_bytes() == path.read_bytes() for path in runs.values())
+    if not same or records.returncode != 0 or any(g[0] for g in gaps.values()) or not logged \
+            or done[1].stdout.strip():
+        raise AssertionError(f"ddp_eval: the merged and the one-process result files byte-equal {same}; "
+                             f"merged predictions against "
+                             f"them {gaps}; rank 0 logged {logged[-1:]}; rank 1 printed {done[1].stdout[-500:]}")
+    equal = list(singles)
     ref = runs[equal[0]]
     scored = predictions_as_ground_truth(ann, ref, root / "top3_as_gt.json")
     stats = {split: (rescored(a, ranks), rescored(a, ref)) for split, a in (("split", ann), ("top3", scored))}
@@ -3570,9 +3798,325 @@ def phase_ddp_eval(smi):
           f"card, {len(EVAL_SIZES)} images in {forwards} batches of <=2 (rank r the batches r, r + 2, ...): the "
           f"merged result file equals one-process run {equal} bitwise, its stats equal exactly (split AP "
           f"{stats['split'][0]['AP']:.6f}; on its top-3 predictions as ground truth AP {stats['top3'][0]['AP']:.6f} "
-          f"AR100 {stats['top3'][0]['AR100']:.6f}); one result file; wall_s one process {one_s:.1f}, ranks "
+          f"AR100 {stats['top3'][0]['AR100']:.6f}); one result file; wall_s one process "
+          f"{[round(x, 1) for x in one_s]}, ranks "
           f"{ranks_s:.1f} (process start and model build included); phase_s={time.perf_counter() - t0:.2f}; "
           f"card: {smi}")
+
+
+# phase ddp_cards: W = min(4, cards) NCCL ranks, one a card (LOCAL_RANK = r)
+CARDS_DIR = DDP_DIR.parent / "chip_smoke_cards"
+CARDS_F32_STEPS, CARDS_BF16_STEPS = 2, 2
+SCALE_IMAGES, SCALE_WARMUP, SCALE_TIMED = 4, 2, 6  # images a card, warm-up and timed bf16 steps
+
+
+def state_digest(model) -> str:
+    """SHA-1 of the parameters and the neck's BatchNorm statistics
+    (``ddp_state``), in order."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for name, t in ddp_state(model).items():
+        h.update(name.encode())
+        h.update(t.contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def nccl_overlap(prof):
+    """From a device trace: the NCCL kernels' ms and the ms of them during
+    which another kernel ran (the backward's, on the compute stream)."""
+    from torch.autograd import DeviceType
+
+    spans = [(e.time_range.start, e.time_range.end, "nccl" in e.name.lower())
+             for e in prof.events() if e.device_type == DeviceType.CUDA]
+    merged = []
+    for start, end, _ in sorted(s for s in spans if not s[2]):
+        if merged and start <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], end)
+        else:
+            merged.append([start, end])
+    nccl_us = overlap_us = 0.0
+    for start, end, is_nccl in spans:
+        if not is_nccl:
+            continue
+        nccl_us += end - start
+        overlap_us += sum(max(0, min(end, b) - max(start, a)) for a, b in merged)
+    return nccl_us / 1e3, overlap_us / 1e3
+
+
+def cards_rank_main(out):
+    """One rank of phase ddp_cards (``chip_smoke.py --cards-rank DIR``, with
+    the launcher's variables; DIR/spec.json names the mode).  ``train``:
+    the flagship ``Trainer`` with the process group, CARDS_F32_STEPS
+    float32 then CARDS_BF16_STEPS bf16 steps on the rows of the synthetic
+    global batches (GT_COUNTS), each step's metrics averaged over the ranks,
+    each rank's state digest after each step, the bf16 steps' launches;
+    rank 0 writes the float32 state.  ``scale``: bf16 steps of
+    SCALE_IMAGES images a rank, timed after a warm-up, then two steps
+    traced on rank 0 for the NCCL kernels and their overlap."""
+    from salience_detr_torch.parallel.mesh import init_distributed, mean_over_ranks, shutdown
+    from salience_detr_torch.utils.env import configure_numerics
+
+    out = Path(out)
+    spec = json.loads((out / "spec.json").read_text())
+    configure_numerics(spec["deterministic"])
+    mesh = init_distributed("cuda", spec["backend"])
+    try:
+        record = {"device": str(mesh.device), "world": mesh.world, "design": backward_design()}
+        if spec["mode"] == "train":
+            for dtype, steps, key in ((torch.float32, CARDS_F32_STEPS, "f32"), (torch.bfloat16, CARDS_BF16_STEPS,
+                                                                                   "bf16")):
+                trainer = Trainer(ddp_flagship(dtype), mesh.device, seed=0, steps_per_epoch=DDP_STEPS_PER_EPOCH,
+                                  mesh=mesh)
+                metrics, digests, launches = [], [], []
+                for batch in trainer.batches(steps, seed=0):
+                    before = dict(native.LAUNCHES)
+                    m = trainer.step(batch, trainer.generator)
+                    torch.cuda.synchronize()
+                    launches.append({k: native.LAUNCHES[k] - before[k] for k in native.LAUNCHES})
+                    metrics.append({k: float(v) for k, v in mean_over_ranks(m).items()})
+                    digests.append(state_digest(trainer.model))
+                record[key] = {"metrics": metrics, "digests": digests, "launches": launches,
+                               "ranks_equal": [len(set(d)) == 1 for d in zip(*mesh.all_gather_object(digests))]}
+                if dtype == torch.float32 and mesh.rank == 0:
+                    torch.save(ddp_state(trainer.model), out / "state.pt")
+                del trainer
+                torch.cuda.empty_cache()
+        else:
+            from torch.profiler import ProfilerActivity, profile
+
+            trainer = Trainer(ddp_flagship(torch.bfloat16), mesh.device, seed=0,
+                              steps_per_epoch=SCALE_WARMUP + SCALE_TIMED + 2, mesh=mesh)
+            counts = GT_COUNTS * (SCALE_IMAGES * mesh.world // len(GT_COUNTS))
+            batches = list(trainer.batches(SCALE_WARMUP + SCALE_TIMED + 2, seed=2, counts=counts))
+            for batch in batches[:SCALE_WARMUP]:
+                trainer.step(batch, trainer.generator)
+            torch.cuda.synchronize()
+            mesh.barrier()
+            wall, device = [], []
+            for batch in batches[SCALE_WARMUP:SCALE_WARMUP + SCALE_TIMED]:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                trainer.step(batch, trainer.generator)
+                end.record()
+                torch.cuda.synchronize()
+                wall.append(1e3 * (time.perf_counter() - t0))
+                device.append(start.elapsed_time(end))
+            mesh.barrier()
+            nccl = (0.0, 0.0)
+            if mesh.rank == 0:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for batch in batches[-2:]:
+                        trainer.step(batch, trainer.generator)
+                    torch.cuda.synchronize()
+                nccl = tuple(x / 2 for x in nccl_overlap(prof))
+            else:
+                for batch in batches[-2:]:
+                    trainer.step(batch, trainer.generator)
+                torch.cuda.synchronize()
+            record.update(wall_ms=wall, device_ms=device, nccl_ms=nccl[0], nccl_overlap_ms=nccl[1],
+                          grad_bytes=4 * sum(p.numel() for p in trainer.model.parameters() if p.requires_grad),
+                          images=len(batches[0]["images"]))
+        (out / f"rank{mesh.rank}.json").write_text(json.dumps(record))
+    finally:
+        shutdown(mesh)
+
+
+def launch_cards(out, spec, world, one_device):
+    """``cards_rank_main`` as ``world`` ranks, one a card (or sharing card 0)."""
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "spec.json").write_text(json.dumps(spec))
+    t0 = time.perf_counter()
+    ddp_check.launch([str(Path(__file__).resolve()), "--cards-rank", str(out)], world, one_device=one_device,
+                     timeout=900, cwd=str(Path(__file__).resolve().parent))
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)], time.perf_counter() - t0
+
+
+def loader_share(split, preset, copypaste, world, root):
+    """One epoch of the written split through ``TrainLoader`` in ``world``
+    gloo ranks on the host sharing the preparation
+    (``ddp_check loader``): each rank's samples prepared and host
+    transform ms a sample."""
+    img_dir, ann = split
+    root.mkdir(parents=True, exist_ok=True)
+    spec = root / "spec.json"
+    spec.write_text(json.dumps({
+        "img_dir": str(img_dir), "ann": str(ann), "preset": preset, "copypaste": copypaste, "batch": 4,
+        "canvas": [800, 1344], "max_gt": 100, "seed": 0, "num_workers": 8, "accumulate": 1, "stop_after": 1,
+    }))
+    ddp_check.launch(["-m", "salience_detr_torch.tools.ddp_check", "loader", "--spec", str(spec), "--out", str(root)],
+                     world, timeout=900, cwd=str(Path(__file__).resolve().parent))
+    ranks = [np.load(root / f"rank{r}.npz") for r in range(world)]
+    return ([int(r["e1_samples"]) for r in ranks],
+            [round(1e3 * float(r["e1_transform_s"]) / max(int(r["e1_samples"]), 1), 3) for r in ranks])
+
+
+def phase_ddp_cards(smi, one_card=False):
+    """Data-parallel over W = min(4, cards) NCCL ranks, one a card
+    (``torch.cuda.device_count() >= 2``; on one card it prints why it did
+    not run; ``one_card``, the rehearsal, runs it as 2 gloo ranks sharing
+    card 0, whose times are not scaling):
+
+    * train: the flagship ``Trainer`` (``cards_rank_main`` train) on the
+      global batch GT_COUNTS against one process, both with the default
+      numerics: step 0 within DDP_STEP0_RTOL, the later step and the
+      parameters at ddp_train's bounds; every rank's state digest equal to
+      rank 0's after every step;
+    * rerun: the same W-rank run twice with --use-deterministic-algorithms'
+      numerics, bitwise equal (metrics and digests), each bf16 step
+      launching 12 K1, 12 K3 (the ordered design), 1 K2 and 1 K4, and its
+      gap to the one process printed (the deterministic numerics run other
+      cuDNN engines at a rank's batch, which flip near-tie decisions);
+    * train CLI: ``torch.distributed.run --nproc_per_node W -m
+      salience_detr_torch.train --use-deterministic-algorithms`` on the
+      train_coco split, 2 steps and the eval, twice: summaries and
+      checkpoints bitwise equal;
+    * eval CLI: ``salience_detr_torch.test`` (exact mode) as W ranks: the
+      merged result file byte-equal to one process's;
+    * scaling: bf16 steps of SCALE_IMAGES images a card at W = 1, 2, 4 (up
+      to the cards there are): a rank's step ms (median of SCALE_TIMED),
+      img/s, efficiency against W = 1, the NCCL kernels' device ms a step
+      and their overlap with other kernels (rank 0's trace), the float32
+      gradient bytes a step;
+    * loader: one epoch of the train_coco split through the shared
+      ``TrainLoader`` at W ranks on the host, detr and strong_album with
+      copy-paste: samples prepared a rank and host ms a sample."""
+    cards = torch.cuda.device_count()
+    if cards < 2 and not one_card:
+        print(f"ddp_cards: not run: {cards} CUDA card(s) here, the phase needs 2 or more "
+              f"(chiprun --chips 4 -- python3 chip_smoke.py --phases ddp_cards)")
+        return None
+    t0 = time.perf_counter()
+    import shutil
+
+    if CARDS_DIR.exists():
+        shutil.rmtree(CARDS_DIR)
+    world, backend = (2, "gloo") if one_card else (min(4, cards), "nccl")
+    dist_args = ["--dist-backend", backend]
+
+    # train: one process and the ranks with the default numerics, then the
+    # ranks twice with --use-deterministic-algorithms' numerics
+    trainer = Trainer(ddp_flagship(torch.float32), "cuda", seed=0, steps_per_epoch=DDP_STEPS_PER_EPOCH)
+    init = ddp_state(trainer.model)
+    want = [{k: float(v) for k, v in trainer.step(batch, trainer.generator).items()}
+            for batch in trainer.batches(CARDS_F32_STEPS, seed=0)]
+    want_state = ddp_state(trainer.model)
+    del trainer
+    torch.cuda.empty_cache()
+    runs = [launch_cards(CARDS_DIR / f"train{i}", {"mode": "train", "backend": backend, "deterministic": i > 0},
+                         world, one_card) for i in range(3)]
+    (first, first_s), (det, _), (det_again, _) = runs
+    got_state = torch.load(CARDS_DIR / "train0" / "state.pt", weights_only=True)
+    same_runs = [{k: r[k] for k in ("f32", "bf16")} for r in det] == [{k: r[k] for k in ("f32", "bf16")}
+                                                                       for r in det_again]
+    ranks_equal = all(all(r[k]["ranks_equal"]) for run in (first, det) for r in run for k in ("f32", "bf16"))
+    step_gaps = [max(abs(g[k] - v) / max(abs(v), 1e-12) for k, v in w.items())
+                 for w, g in zip(want, first[0]["f32"]["metrics"])]
+    det_gaps = [max(abs(g[k] - v) / max(abs(v), 1e-12) for k, v in w.items())
+                for w, g in zip(want, det[0]["f32"]["metrics"])]
+    stats = [n for n in want_state if n.endswith(("running_mean", "running_var"))]
+    diff = sum(float((got_state[n] - w).double().norm()) ** 2 for n, w in want_state.items() if n not in stats)
+    moved = sum(float((w - init[n]).double().norm()) ** 2 for n, w in want_state.items() if n not in stats)
+    param_gap = math.sqrt(diff / moved)
+    per_step = {k: 0 for k in native.LAUNCHES}
+    per_step.update({"msda": 12, "msda_backward_ordered": 12, "grid_nms": 1, "hungarian": 1})
+    launches_ok = all(l == per_step for r in det for l in r["bf16"]["launches"])
+    finite = all(math.isfinite(v) for run in (first, det) for r in run for k in ("f32", "bf16")
+                 for m in r[k]["metrics"] for v in m.values())
+    print(f"ddp_cards_train: flagship R50 as {world} {backend} ranks ({[r['device'] for r in first]}), B=4 global "
+          f"({4 // world} a rank) gts {GT_COUNTS}; float32 losses {[m['loss'] for m in first[0]['f32']['metrics']]!r} "
+          f"against one process {[m['loss'] for m in want]!r}: largest relative metric gap by step "
+          f"{[f'{g:.3e}' for g in step_gaps]} (bounds {DDP_STEP0_RTOL}, {DDP_STEP_RTOL}); parameters after "
+          f"{CARDS_F32_STEPS} steps {param_gap:.3e} of what they moved (bound {DDP_PARAM_GAP}); with "
+          f"--use-deterministic-algorithms (K3 design {det[0]['design']}) by step {[f'{g:.3e}' for g in det_gaps]} "
+          f"from the same one process, and the rerun bitwise equal {same_runs}; ranks' state digests equal after "
+          f"every step {ranks_equal}; bf16 launches a step on each rank (deterministic) "
+          f"{ {k: v for k, v in det[0]['bf16']['launches'][0].items() if v} }; ranks' command {first_s:.1f} s")
+    if (step_gaps[0] > DDP_STEP0_RTOL or any(g > DDP_STEP_RTOL for g in step_gaps[1:]) or param_gap > DDP_PARAM_GAP
+            or not ranks_equal or not same_runs or not launches_ok or not finite):
+        raise AssertionError("ddp_cards: the W-rank train run is beyond its bounds, differs between ranks or "
+                             "between its deterministic runs, or launched other kernels (ddp_cards_train line)")
+
+    # the train CLI under the launcher, twice, deterministic
+    img_dir, ann = write_train_split(CARDS_DIR / "split")
+    n_train = len(CocoDetection(str(img_dir), str(ann), train=True))  # images with annotations
+    cli = []
+    for i in range(2):
+        out_dir = CARDS_DIR / f"cli{i}"
+        config = train_coco_config(CARDS_DIR / f"cli{i}.py", img_dir, ann, out_dir)
+        t1 = time.perf_counter()
+        train_args = ["-m", "salience_detr_torch.train", "--config-file", config, "--seed", "0", "--dry-run-steps",
+                      "2", "--use-deterministic-algorithms", *dist_args]
+        if one_card:  # the launcher would give rank 1 cuda:1
+            ddp_check.launch(train_args, world, one_device=True, timeout=900,
+                             cwd=str(Path(__file__).resolve().parent))
+        else:
+            run_cli(["-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(world), *train_args])
+        summary = json.loads((out_dir / "summary.json").read_text())
+        cli.append((summary, CheckpointManager(str(out_dir / "checkpoints")).restore(), time.perf_counter() - t1))
+    keys = ("metrics", "logged", "stats", "global_step", "samples")
+    same_summary = all(cli[0][0][k] == cli[1][0][k] for k in keys)
+    a, b = cli[0][1], cli[1][1]
+    same_ckpt = all(torch.equal(a["model"][k], b["model"][k]) for k in a["model"]) and \
+        str(a["optimizer"]) == str(b["optimizer"])
+    if not same_summary or not same_ckpt or cli[0][0]["global_step"] != 2:
+        raise AssertionError(f"ddp_cards: two deterministic train CLI runs differ (summaries equal "
+                             f"{same_summary}, checkpoints equal {same_ckpt})")
+
+    # the eval CLI as W ranks against one process
+    eval_img, eval_ann = write_eval_split(CARDS_DIR / "eval_split")
+    model, _ = build_salience_detr(exact_sampling(load_config(DEFAULT_CONFIG)), torch.device("cuda"),
+                                   torch.Generator().manual_seed(1))
+    ckpt = CARDS_DIR / "exact_seed1.pth"
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, ckpt)
+    del model
+    torch.cuda.empty_cache()
+    args = ["-m", "salience_detr_torch.test", "--coco-img", str(eval_img), "--coco-ann", str(eval_ann),
+            "--torch-checkpoint", str(ckpt), "--batch-size", "2"]
+    run_cli(args + ["--save-results", str(CARDS_DIR / "eval_one.json")])
+    ddp_check.launch(args + [*dist_args, "--save-results", str(CARDS_DIR / "eval_ranks.json")], world,
+                     one_device=one_card, timeout=900, cwd=str(Path(__file__).resolve().parent))
+    eval_equal = (CARDS_DIR / "eval_one.json").read_bytes() == (CARDS_DIR / "eval_ranks.json").read_bytes()
+    if not eval_equal:
+        raise AssertionError(f"ddp_cards: the {world}-rank eval's merged result file differs from one process's: "
+                             f"{prediction_gap(CARDS_DIR / 'eval_one.json', CARDS_DIR / 'eval_ranks.json')}")
+    print(f"ddp_cards_cli: the train CLI under torch.distributed.run --nproc_per_node {world} "
+          f"--use-deterministic-algorithms, 2 steps + eval, twice: summaries equal {same_summary} (losses "
+          f"{[m['loss'] for m in cli[0][0]['logged']]!r}, AP {cli[0][0]['stats']['AP']!r}), checkpoints bitwise "
+          f"equal {same_ckpt}, wall_s {[round(c[2], 1) for c in cli]}, samples prepared (rank 0) "
+          f"{cli[0][0]['samples']} of {n_train}; the eval CLI (exact mode) as {world} ranks: the merged "
+          f"result file byte-equal to one process's {eval_equal}")
+
+    # scaling: 4 images a card at W = 1, 2, 4
+    scale = {}
+    for w in ([1, 2] if one_card else [x for x in (1, 2, 4) if x <= cards]):
+        ranks, _ = launch_cards(CARDS_DIR / f"scale{w}", {"mode": "scale", "backend": backend,
+                                                          "deterministic": False}, w, one_card)
+        step_ms = max(statistics.median(r["wall_ms"]) for r in ranks)
+        scale[w] = {"step_ms": round(step_ms, 3), "device_ms": round(statistics.median(ranks[0]["device_ms"]), 3),
+                    "img_s": round(SCALE_IMAGES * w * 1e3 / step_ms, 3), "nccl_ms": round(ranks[0]["nccl_ms"], 3),
+                    "nccl_overlap_ms": round(ranks[0]["nccl_overlap_ms"], 3)}
+        grad_bytes = ranks[0]["grad_bytes"]
+    for w, row in scale.items():
+        row["efficiency"] = round(row["img_s"] / (w * scale[1]["img_s"]), 4)
+    print(f"ddp_cards_scaling: flagship R50 bf16, {SCALE_IMAGES} images a card, {backend}; by W: {scale} (step_ms: "
+          f"the slowest rank's median wall of {SCALE_TIMED} steps after {SCALE_WARMUP}; device_ms rank 0's events; "
+          f"nccl_ms: rank 0's NCCL kernels a step, nccl_overlap_ms of them beside another kernel, from a "
+          f"torch.profiler trace of 2 steps); float32 gradient bytes a step {grad_bytes}"
+          f"{' (one card shared: not scaling)' if one_card else ''}")
+
+    # the loader's shared preparation over the host, one epoch of the split
+    parts = []
+    for preset, copypaste in (("detr", False), ("strong_album", True)):
+        samples, ms = loader_share((img_dir, ann), preset, copypaste, world, CARDS_DIR / f"loader_{preset}")
+        parts.append(f"{preset}{' + copy-paste' if copypaste else ''}: samples prepared by rank {samples} of "
+                     f"{n_train} (every rank prepared all {n_train} before), host ms a sample by rank {ms}")
+    print(f"ddp_cards_loader: one epoch of the {n_train}-image split through TrainLoader at {world} "
+          f"ranks, global batch 4, 8 worker threads a rank: {'; '.join(parts)}")
+    print(f"ddp_cards: {world} {backend} ranks: train, rerun, train CLI, eval CLI, scaling and loader held; "
+          f"phase_s={time.perf_counter() - t0:.2f}; card: {smi}")
+    return scale
 
 
 def kernel_entry(name, source, replaces, launches, err, timing):
@@ -3590,19 +4134,28 @@ def main(argv=None):
                              "kernels are timed in turns with these on the captured inputs and the "
                              "phases' other inputs")
     parser.add_argument("--ddp-rank", default=None, metavar="DIR", help=argparse.SUPPRESS)
-    parser.add_argument("--phases", nargs="+", default=None, choices=("ddp_train", "ddp_nccl", "ddp_eval"),
+    parser.add_argument("--cards-rank", default=None, metavar="DIR", help=argparse.SUPPRESS)
+    parser.add_argument("--ddp-cards-on-one-card", action="store_true",
+                        help="rehearse phase ddp_cards on one card: 2 gloo ranks share it (no scaling figure)")
+    parser.add_argument("--phases", nargs="+", default=None,
+                        choices=("msda_ordered", "train_repeat", "ddp_train", "ddp_nccl", "ddp_eval", "ddp_cards"),
                         help="run the device and build phases and these alone, and print no result line")
     args = parser.parse_args(argv)
     if args.ddp_rank is not None:
         return ddp_rank_main(args.ddp_rank)
+    if args.cards_rank is not None:
+        return cards_rank_main(args.cards_rank)
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    configure_numerics()
     if args.phases is not None:
         for name in args.phases:
-            globals()[f"phase_{name}"](smi)
+            if name == "ddp_cards":
+                phase_ddp_cards(smi, args.ddp_cards_on_one_card)
+            else:
+                globals()[f"phase_{name}"](smi)
+            torch.cuda.empty_cache()
         print(f"wall_s_total={time.perf_counter() - t_start:.1f}")
         return 0
     msda_err, msda_t = phase_msda()
@@ -3616,6 +4169,7 @@ def main(argv=None):
     train_launches = phase_train(smi)
     captured = capture_train_inputs()
     phase_msda_captured(smi, args.baseline_csrc, captured)
+    ordered_err, ordered_t = phase_msda_ordered(smi, captured, args.baseline_csrc)
     assignment = captured.pop("assignment")
     nms_t, hung_t = phase_nms_assignment_captured(smi, args.baseline_csrc, assignment)
     del captured
@@ -3623,7 +4177,7 @@ def main(argv=None):
     del assignment
     keep_t = phase_nms_keep(smi, args.baseline_csrc)
     eval_launches = phase_eval(smi)
-    coco_launches, detr_transform_ms = phase_train_coco(smi)
+    coco_launches, ordered_launches, detr_transform_ms = phase_train_coco(smi)
     strong_launches = phase_train_coco_strong(smi, detr_transform_ms)
     dcn_fwd_err, dcn_bwd_err, dcn_t, fused_err, fused_t = phase_deform_conv(smi, args.baseline_csrc)
     phase_dcn_captured(smi, args.baseline_csrc)
@@ -3642,9 +4196,11 @@ def main(argv=None):
     for name in ("swin_l", "convnext_l", "focalnet_l", "r50_5scale"):
         backbone_launches[f"train_{name}"] = phase_backbone_train(smi, name)
     backbone_launches["eval_swin_l"] = phase_eval_swin(smi)
+    phase_train_repeat(smi)
     ddp_ranks = phase_ddp_train(smi)
     phase_ddp_nccl(smi)
     phase_ddp_eval(smi)
+    phase_ddp_cards(smi)
     print("backbone launches " + "; ".join(
         f"{k} {{{', '.join(f'{n}: {v}' for n, v in l.items() if v)}}}" for k, l in backbone_launches.items()))
     print(f"serve launches {serve_launches}; train launches {train_launches}; "
@@ -3665,6 +4221,11 @@ def main(argv=None):
                      coco_launches["grid_nms"], 0.0, nms_t),
         kernel_entry("msda_backward", "msda_backward.cu", "salience_detr_tpu/ops/deform_attn.py:666",
                      coco_launches["msda_backward"], bwd_err, bwd_t),
+        # K3's ordered design (no float atomics), the train CLI's run 3 with
+        # --use-deterministic-algorithms; timed on the captured flagship
+        # encoder inputs, its workspace counted in the bound
+        kernel_entry("msda_backward_ordered", "msda_backward.cu", "salience_detr_tpu/ops/deform_attn.py:666",
+                     ordered_launches["msda_backward_ordered"], ordered_err, ordered_t),
         # K4: the train CLI's steps (train_coco run 1, train_coco_strong) and
         # the mixed criterion's step, timed on the captured costs at C = 1
         kernel_entry("assignment_forward", "hungarian.cu",

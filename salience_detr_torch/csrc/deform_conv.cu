@@ -71,17 +71,13 @@
 #include <stdint.h>
 
 #include "msda_common.cuh"
+#include "row_lists.cuh"
 
 namespace {
 
 constexpr int kTaps = 9;
 constexpr int kCorners = 4;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kItemThreads = 256;
-constexpr int kScanThreads = 1024;  // 32 warps: block_exclusive_scan relies on it
-constexpr int kScanPerThread = 4;
-constexpr int kScanTile = kScanThreads * kScanPerThread;
-constexpr int kNoKey = INT_MAX;
 constexpr int kBatch = 4;  // entries a gather warp takes at a time: 4 rows in flight
 // blocks of the gather that must fit an SM: 4 (at most 64 registers a
 // thread) where a lane holds 8 channels, which measured faster than 75
@@ -120,12 +116,6 @@ __device__ __forceinline__ Tap load_tap(const float* __restrict__ offsets,
   b = static_cast<int>(pix / (static_cast<int64_t>(Wo) * Ho));
   const float2 off = __ldg(reinterpret_cast<const float2*>(offsets) + item);
   return make_tap(off.x, off.y, __ldg(mask + item), ho, wo, k, stride, H, W);
-}
-
-__device__ __forceinline__ int warp_min(int v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = min(v, __shfl_xor_sync(kFull, v, off));
-  return v;
 }
 
 // The pixel's 18 offsets and 9 masks, "slots" 0-17 and 18-26, spread over
@@ -290,72 +280,6 @@ dcn_count_kernel(const float* __restrict__ offsets, const float* __restrict__ ma
   }
 }
 
-// the exclusive prefix of v over a block of kScanThreads threads; *total
-// receives the block's sum
-__device__ __forceinline__ int block_exclusive_scan(int v, int* total) {
-  __shared__ int warp_sums[32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int n = __shfl_up_sync(kFull, incl, d);
-    if (lane >= d) incl += n;
-  }
-  if (lane == 31) warp_sums[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int s = warp_sums[lane];
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int n = __shfl_up_sync(kFull, s, d);
-      if (lane >= d) s += n;
-    }
-    warp_sums[lane] = s;
-  }
-  __syncthreads();
-  const int base = warp ? warp_sums[warp - 1] : 0;
-  *total = warp_sums[31];
-  __syncthreads();  // warp_sums is free for the next call
-  return base + incl - v;
-}
-
-// 2a. the sum of each tile of kScanTile counts
-__global__ void __launch_bounds__(kScanThreads)
-dcn_scan_sums_kernel(const int* __restrict__ counts, int64_t n, int* __restrict__ sums) {
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * kScanTile + threadIdx.x * kScanPerThread;
-  int v = 0;
-#pragma unroll
-  for (int i = 0; i < kScanPerThread; ++i) v += first + i < n ? counts[first + i] : 0;
-  int total;
-  block_exclusive_scan(v, &total);
-  if (threadIdx.x == 0) sums[blockIdx.x] = total;
-}
-
-// 2b. each tile adds the sums of the tiles before it and scans its counts:
-// offs[p] = the first slot of pixel p's list
-__global__ void __launch_bounds__(kScanThreads)
-dcn_scan_offsets_kernel(const int* __restrict__ counts, int64_t n, const int* __restrict__ sums,
-                        int* __restrict__ offs) {
-  int before = 0;
-  for (int j = threadIdx.x; j < static_cast<int>(blockIdx.x); j += kScanThreads) before += sums[j];
-  int prefix;
-  block_exclusive_scan(before, &prefix);
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * kScanTile + threadIdx.x * kScanPerThread;
-  int v[kScanPerThread], mine = 0;
-#pragma unroll
-  for (int i = 0; i < kScanPerThread; ++i) {
-    v[i] = first + i < n ? counts[first + i] : 0;
-    mine += v[i];
-  }
-  int total;
-  int run = prefix + block_exclusive_scan(mine, &total);
-#pragma unroll
-  for (int i = 0; i < kScanPerThread; ++i) {
-    if (first + i < n) offs[first + i] = run;
-    run += v[i];
-  }
-}
-
 // 3. place: each in-image corner's key at its rank in its pixel's list
 __global__ void __launch_bounds__(kItemThreads)
 dcn_place_kernel(const float* __restrict__ offsets, const float* __restrict__ mask,
@@ -398,37 +322,6 @@ __device__ __forceinline__ float reduce_n(float (&v)[N], int lane) {
 #pragma unroll
   for (int off = 16 / N; off > 0; off /= 2) c += __shfl_xor_sync(kFull, c, off);
   return c;
-}
-
-// ascending bitonic sort of the warp's 32 * KPL keys, key j * 32 + lane in
-// k[j] of that lane
-template <int KPL>
-__device__ __forceinline__ void warp_sort(int (&k)[KPL]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int size = 2; size <= 32 * KPL; size <<= 1) {
-#pragma unroll
-    for (int d = size >> 1; d > 0; d >>= 1) {
-#pragma unroll
-      for (int j = 0; j < KPL; ++j) {
-        const bool up = ((j * 32 + lane) & size) == 0;
-        if (d >= 32) {
-          const int jd = d >> 5;
-          if ((j & jd) == 0) {
-            const int a = k[j], b = k[j | jd];
-            if (up ? a > b : a < b) {
-              k[j] = b;
-              k[j | jd] = a;
-            }
-          }
-        } else {
-          const int other = __shfl_xor_sync(kFull, k[j], d);
-          const bool lower = (lane & d) == 0;
-          k[j] = lower == up ? min(k[j], other) : max(k[j], other);
-        }
-      }
-    }
-  }
 }
 
 // The gather's state for one warp: this lane's channels of the pixel's x row
@@ -771,8 +664,8 @@ extern "C" int deform_conv_backward_gather(const void* x, int x_dtype, const voi
   dcn_zero_kernel<<<pixel_blocks, kItemThreads, 0, s>>>(w.counts, w.npix);
   dcn_count_kernel<<<item_blocks, kItemThreads, 0, s>>>(off, msk, w.counts, w.rank, w.wcoef, B, H,
                                                          W, Ho, Wo, stride);
-  dcn_scan_sums_kernel<<<w.nscan, kScanThreads, 0, s>>>(w.counts, w.npix, w.sums);
-  dcn_scan_offsets_kernel<<<w.nscan, kScanThreads, 0, s>>>(w.counts, w.npix, w.sums, w.offs);
+  scan_sums_kernel<<<w.nscan, kScanThreads, 0, s>>>(w.counts, w.npix, w.sums);
+  scan_offsets_kernel<<<w.nscan, kScanThreads, 0, s>>>(w.counts, w.npix, w.sums, w.offs);
   dcn_place_kernel<<<item_blocks, kItemThreads, 0, s>>>(off, msk, w.offs, w.rank, w.keys, B, H, W,
                                                          Ho, Wo, stride);
   const int gathered = x_dtype == kBFloat16 ? dispatch_gather<__nv_bfloat16>(w, x, d_cols, d_x, C, s)

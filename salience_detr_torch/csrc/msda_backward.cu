@@ -19,30 +19,49 @@
 // Out-of-level corners are neither read nor written; the floor is piecewise
 // constant and contributes nothing.
 //
-// What bounds it on an H100: the d_value scatter.  Every corner adds C
-// floats into d_value with atomics (reductions in L2): at the flagship's
-// first encoder layer (B=4, Q=11403, L=P=4, C=256) up to 187M float adds into
-// a 91 MB f32 buffer, and neighbouring queries of the head-shared encoder
-// sample the same corners, so the adds collide.  The gathers (the corner
-// rows re-read for the dot products) are the same bytes the forward reads.
+// Two designs write d_value; d_locations and d_weights are the same in both
+// (a warp per (b, q) reduces them across its lanes with shuffles and writes
+// each once, without atomics).
 //
-// What this design does about it: one warp per (b, q), each corner row read
-// once for all heads; the lanes hold the channels in chunks of VW = 4 (or
-// C / 32) floats, chunk k of lane l at channels k * 32 * VW + l * VW, so that
-// each warp-wide vector reduction (sm_90's float4 / float2 atomicAdd, one
-// RED of 16 B per lane) covers 32 * VW * 4 contiguous bytes: at C = 256, 2
-// instructions of 512 B per corner, where a lane owning 8 adjacent channels
-// needed 8 scalar instructions touching 32 sectors each.  A corner whose
-// attn * cw is exactly 0 (a sixth of the in-level corners of the encoder's
-// first layer at init, where most sampling points sit on pixel centres)
-// adds nothing and is not scattered; its row is still read for d_locations.  d_weights and d_locations reduce across the lanes (and
-// chunks) of a head or location group with warp shuffles and are written
-// once, without atomics.  Sums are f32; the atomics add in no fixed order,
-// so d_value differs from run to run in its last bits.  One block per
-// (image, head, query tile) that added the two coarsest levels into a
-// private f32 slice in shared memory was measured and lost at G = 1
-// (PERF.md): shared-memory f32 atomics are compare-and-swap loops on this
-// card.
+// The scatter (msda_backward): every in-level corner adds its C floats into
+// a zeroed f32 d_value with vector atomics (reductions in L2).  One warp per
+// (b, q), each corner row read once for all heads; the lanes hold the
+// channels in chunks of VW = 4 (or C / 32) floats, chunk k of lane l at
+// channels k * 32 * VW + l * VW, so that each warp-wide vector reduction
+// (sm_90's float4 / float2 atomicAdd, one RED of 16 B per lane) covers 32 *
+// VW * 4 contiguous bytes.  A corner whose attn * cw is exactly 0 adds
+// nothing and is not scattered.  The atomics add in no fixed order, so
+// d_value differs from run to run in its last bits.  At the flagship's
+// first encoder layer (B=4, Q=11403, L=P=4, C=256) that is up to 187M float
+// adds into a 91 MB buffer, and neighbouring queries of the head-shared
+// encoder sample the same corners, so the adds collide.  A block per
+// (image, head, query tile) adding the two coarsest levels into a private
+// f32 slice in shared memory was measured and lost at G = 1 (PERF.md):
+// shared-memory f32 atomics are compare-and-swap loops on this card.
+//
+// The ordered design (msda_backward_ordered): a pull with no atomic add of
+// a float, bitwise repeatable.  Entries are the in-level corners of every
+// item (b, q, g, l, p) with a nonzero bilinear weight cw, keyed item * 4 +
+// corner; a row is (b, s, g), the C / G channels of location group g at
+// value token s (the whole token at G = 1, one head at G = H).  Launches:
+//   1. count: a thread per item takes each entry's rank in its row's list
+//      from an int atomic on the row's count (a warp's peers at one row
+//      share one atomic), and keeps cw at the entry's key;
+//   2-3. scan: the counts' exclusive prefix sum gives each list its slot;
+//   4. place: a thread per item writes its keys at their slots;
+//   5. gather: a warp per row sorts a list of at most kShortMax keys in
+//      registers and sums attn * cw * d_out[b, q, its channels] in key
+//      order, 4 or 8 rows of d_out in flight, then writes the row once in the
+//      value's dtype; a longer row is handed on;
+//   6. gather of the long rows (the coarse levels of the head-shared
+//      encoder, about 600 entries a row at the flagship's first layer): a
+//      block per row sorts its list (in shared memory up to kSortShared keys,
+//      in place in global memory beyond), its warps sum contiguous eighths
+//      of the sorted list, and the eight partial sums are added in order;
+//   7. d_locations and d_weights: the scatter design's kernel without its
+//      scatter.
+// Whatever ranks the atomics hand out, every sum runs in key order (or in a
+// fixed split of it), so the result depends on the inputs alone.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,6 +69,7 @@
 
 #include "levels.cuh"
 #include "msda_common.cuh"
+#include "row_lists.cuh"
 
 namespace {
 
@@ -112,9 +132,9 @@ __device__ __forceinline__ void group_sum(float (&v)[NCH], int width) {
 
 // value (B, S, C), loc (B, Q, G, L, P, 2) f32, attn (B, Q, H, L, P) f32,
 // d_out (B, Q, C) in the value dtype; d_value (B, S, C) f32, zeroed by the
-// caller; d_loc (B, Q, G, L, P, 2) f32 and d_attn (B, Q, H, L, P) f32, every
-// element written here.  C = 32 * VW * NCH.
-template <typename T, int VW, int NCH>
+// caller (unused without kScatter); d_loc (B, Q, G, L, P, 2) f32 and d_attn
+// (B, Q, H, L, P) f32, every element written here.  C = 32 * VW * NCH.
+template <typename T, int VW, int NCH, bool kScatter>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 msda_backward_kernel(const T* __restrict__ value, const LevelTable levels,
                      const float* __restrict__ loc, const float* __restrict__ attn,
@@ -174,7 +194,7 @@ msda_backward_kernel(const T* __restrict__ value, const LevelTable levels,
             gx[k] = fmaf(dx ? wy : -wy, dot, gx[k]);
             gy[k] = fmaf(dy ? wx : -wx, dot, gy[k]);
             const float aw = a * (wx * wy);
-            if (aw != 0.f) {  // adding +-0 changes nothing
+            if (kScatter && aw != 0.f) {  // adding +-0 changes nothing
               float add[VW];
 #pragma unroll
               for (int i = 0; i < VW; ++i) add[i] = aw * go[k][i];
@@ -200,38 +220,396 @@ msda_backward_kernel(const T* __restrict__ value, const LevelTable levels,
   }
 }
 
-template <typename T, int VW, int NCH>
+template <typename T, int VW, int NCH, bool kScatter>
 void launch(const void* value, const LevelTable& levels, const void* loc, const void* attn,
             const void* d_out, void* d_value, void* d_loc, void* d_attn, int B, int S, int Q,
             int H, int G, int P, cudaStream_t stream) {
   const int64_t warps = static_cast<int64_t>(B) * Q;
   const unsigned blocks = static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  msda_backward_kernel<T, VW, NCH><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+  msda_backward_kernel<T, VW, NCH, kScatter><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
       static_cast<const T*>(value), levels, static_cast<const float*>(loc),
       static_cast<const float*>(attn), static_cast<const T*>(d_out),
       static_cast<float*>(d_value), static_cast<float*>(d_loc), static_cast<float*>(d_attn), B,
       S, Q, H, G, P);
 }
 
-template <typename T>
+template <typename T, bool kScatter>
 int dispatch(const void* value, const LevelTable& levels, const void* loc, const void* attn,
              const void* d_out, void* d_value, void* d_loc, void* d_attn, int B, int S, int Q,
              int C, int H, int G, int P, cudaStream_t stream) {
   switch (C) {
     case 32:
-      launch<T, 1, 1>(value, levels, loc, attn, d_out, d_value, d_loc, d_attn, B, S, Q, H, G, P,
+      launch<T, 1, 1, kScatter>(value, levels, loc, attn, d_out, d_value, d_loc, d_attn, B, S, Q, H, G, P,
                       stream);
       break;
     case 64:
-      launch<T, 2, 1>(value, levels, loc, attn, d_out, d_value, d_loc, d_attn, B, S, Q, H, G, P,
+      launch<T, 2, 1, kScatter>(value, levels, loc, attn, d_out, d_value, d_loc, d_attn, B, S, Q, H, G, P,
                       stream);
       break;
     case 256:
-      launch<T, 4, 2>(value, levels, loc, attn, d_out, d_value, d_loc, d_attn, B, S, Q, H, G, P,
+      launch<T, 4, 2, kScatter>(value, levels, loc, attn, d_out, d_value, d_loc, d_attn, B, S, Q, H, G, P,
                       stream);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------- the ordered design
+
+constexpr int kItemThreads = 256;
+// entries a gather warp takes at a time: rows of d_out in flight (8 where a
+// lane holds at most 2 channels, 4 where it holds 4 or 8)
+template <int CPL>
+constexpr int kBatch = CPL <= 2 ? 8 : 4;
+constexpr int kShortMax = 128;     // the longest list a warp sorts in registers
+constexpr int kSortShared = 4096;  // the longest list a block sorts in shared memory
+constexpr int kLongThreads = 256;
+constexpr int kLongWarps = kLongThreads / 32;
+constexpr int kLongBlocks = 1024;  // blocks of the long-row gather, block i taking rows i, i + 1024, ...
+
+// The shape of one call as the ordered kernels index it.  An item is (b, q,
+// g, l, p), numbered ((bq * G + g) * L + l) * P + p, which is also its
+// location pair's index in loc; a row is (b, s, g), numbered (b * S + s) * G
+// + g, and holds channels [g * C / G, (g + 1) * C / G) of token s.  Keys
+// (4 an item) and rows stay below 2^31 (ordered_fits), so the kernels index
+// them in 32-bit unsigned arithmetic: a 64-bit division is many times the
+// instructions.  With one head a group (G = H, the decoder) an item's
+// attention weight is its attn element `item`, and the count folds it into
+// the entry's weight.
+struct Dims {
+  int64_t items, rows;
+  int S, Q, C, H, G, L, P;
+  bool fold;  // G == H
+};
+
+// The in-level corners of one item: its level's size and first token, the
+// point's corners, and the row of its image and group at token 0.
+struct ItemCorners {
+  Bilinear pt;
+  int lh, lw, ls;
+  int64_t row0;  // the row of token s is row0 + s * G
+};
+
+__device__ __forceinline__ ItemCorners item_corners(const LevelTable& levels,
+                                                    const float* __restrict__ loc, unsigned item,
+                                                    const Dims& d) {
+  const unsigned l = item / d.P % d.L;
+  const unsigned bqg = item / (d.L * d.P);
+  const unsigned g = bqg % d.G;
+  const unsigned b = bqg / d.G / d.Q;
+  const int lh = levels.h[l], lw = levels.w[l];
+  const float2 xy = __ldg(reinterpret_cast<const float2*>(loc) + item);
+  return {bilinear(xy, lh, lw), lh, lw, levels.start[l], (static_cast<int64_t>(b) * d.S) * d.G + g};
+}
+
+// Whether corner (dy, dx) of the item is an entry (inside its level, with a
+// nonzero weight); if so, its row and its weight cw = wx * wy as the scatter
+// design computes it.
+__device__ __forceinline__ bool corner_entry(const ItemCorners& it, int dy, int dx, int G,
+                                             int64_t& row, float& cw) {
+  const int cy = it.pt.y0 + dy, cx = it.pt.x0 + dx;
+  if (cy < 0 || cy >= it.lh || cx < 0 || cx >= it.lw) return false;
+  const float wy = dy ? it.pt.fy : 1.f - it.pt.fy;
+  const float wx = dx ? it.pt.fx : 1.f - it.pt.fx;
+  cw = wx * wy;
+  row = it.row0 + static_cast<int64_t>(it.ls + cy * it.lw + cx) * G;
+  return cw != 0.f;
+}
+
+// 1. count: per entry one count at its row, whose old value is the entry's
+// rank in the row's list, and its weight (cw, or attn * cw folded), both at
+// its key.  The lanes of a warp that count at one row are served by one
+// atomic of their number, each taking its rank among them in lane order.
+__global__ void __launch_bounds__(kItemThreads)
+msda_count_kernel(const LevelTable levels, const float* __restrict__ loc,
+                  const float* __restrict__ attn, int* __restrict__ counts,
+                  int* __restrict__ rank, float* __restrict__ wcoef, const Dims d) {
+  const unsigned item = blockIdx.x * kItemThreads + threadIdx.x;
+  const bool live = item < d.items;
+  const int lane = threadIdx.x & 31;
+  ItemCorners it{{-4, -4, 0.f, 0.f}, 1, 1, 0, 0};  // no corner inside its level
+  float a = 1.f;
+  if (live) {
+    it = item_corners(levels, loc, item, d);
+    if (d.fold) a = __ldg(attn + item);
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    int64_t row = 0;
+    float cw = 0.f;
+    bool entry = live && corner_entry(it, c >> 1, c & 1, d.G, row, cw);
+    if (d.fold) {
+      cw = a * cw;  // the product the gather would form: attn * cw
+      entry = entry && cw != 0.f;
+    }
+    const unsigned counting = __ballot_sync(kFull, entry);
+    if (!entry) continue;
+    int* at = counts + row;
+    const unsigned peers = __match_any_sync(counting, reinterpret_cast<unsigned long long>(at));
+    const int leader = __ffs(peers) - 1;
+    int base = 0;
+    if (lane == leader) base = atomicAdd(at, __popc(peers));
+    base = __shfl_sync(peers, base, leader);
+    const unsigned key = item * 4 + c;
+    rank[key] = base + __popc(peers & ((1u << lane) - 1));
+    wcoef[key] = cw;
+  }
+}
+
+// 4. place: each entry's key at its rank in its row's list (an entry is
+// what the count took: its weight there is nonzero)
+__global__ void __launch_bounds__(kItemThreads)
+msda_place_kernel(const LevelTable levels, const float* __restrict__ loc,
+                  const int* __restrict__ offs, const int* __restrict__ rank,
+                  const float* __restrict__ wcoef, int* __restrict__ keys, const Dims d) {
+  const unsigned item = blockIdx.x * kItemThreads + threadIdx.x;
+  if (item >= d.items) return;
+  const ItemCorners it = item_corners(levels, loc, item, d);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    int64_t row;
+    float cw;
+    if (!corner_entry(it, c >> 1, c & 1, d.G, row, cw)) continue;
+    const unsigned key = item * 4 + c;
+    if (d.fold && __ldg(wcoef + key) == 0.f) continue;
+    keys[__ldg(offs + row) + __ldg(rank + key)] = static_cast<int>(key);
+  }
+}
+
+// One lane's share of a row's sum: CPL channels of head h, at channel c0
+// of the token (a lane past the group's C / G channels holds none).
+template <typename T, int CPL>
+struct RowSum {
+  float acc[CPL];
+  int64_t out;  // the lane's first element of d_value
+  unsigned bq_stride, LP;  // items per (b, q): G * L * P; per (b, q, g): L * P
+  int c0, h;
+  bool active;
+
+  __device__ __forceinline__ RowSum(int64_t row, int lane, const Dims& d) {
+    const int CG = d.C / d.G;
+    c0 = static_cast<int>(row % d.G) * CG + lane * CPL;
+    out = row / d.G * d.C + c0;
+    active = lane * CPL < CG;
+    h = c0 / (d.C / d.H);
+    LP = d.L * d.P;
+    bq_stride = d.G * LP;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) acc[i] = 0.f;
+  }
+
+  // N entries (keys ascending, kNoKey for none): acc += (attn * cw) *
+  // d_out[b, q, the lane's channels], one fma a channel, the N rows of d_out
+  // loaded before any is added; an entry whose attn * cw is 0 adds nothing,
+  // as in the scatter design
+  template <int N>
+  __device__ __forceinline__ void take(const int (&key)[N], const T* __restrict__ d_out,
+                                       const float* __restrict__ attn,
+                                       const float* __restrict__ wcoef, const Dims& d) {
+    float go[N][CPL], aw[N];
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      aw[e] = 0.f;
+      if (key[e] != kNoKey && active) {
+        const unsigned item = static_cast<unsigned>(key[e]) >> 2;
+        const unsigned bq = item / bq_stride;
+        const float w = __ldg(wcoef + key[e]);
+        aw[e] = d.fold ? w : __ldg(attn + (static_cast<int64_t>(bq) * d.H + h) * LP + item % LP) * w;
+        load_chunk<T, CPL>(d_out + static_cast<int64_t>(bq) * d.C + c0, go[e]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      if (aw[e] != 0.f) {
+#pragma unroll
+        for (int i = 0; i < CPL; ++i) acc[i] = fmaf(aw[e], go[e][i], acc[i]);
+      }
+    }
+  }
+
+  // the entries list[lo, hi) in order (the same on every lane)
+  __device__ __forceinline__ void take_range(const int* list, int lo, int hi,
+                                             const T* __restrict__ d_out,
+                                             const float* __restrict__ attn,
+                                             const float* __restrict__ wcoef, const Dims& d) {
+    constexpr int N = kBatch<CPL>;
+    for (int t = lo; t < hi; t += N) {
+      int key[N];
+#pragma unroll
+      for (int e = 0; e < N; ++e) key[e] = t + e < hi ? list[t + e] : kNoKey;
+      take<N>(key, d_out, attn, wcoef, d);
+    }
+  }
+};
+
+// a list of at most 32 * KPL keys: sorted in registers, then taken in order
+template <typename T, int CPL, int KPL>
+__device__ __forceinline__ void sum_sorted(RowSum<T, CPL>& s, const int* __restrict__ list, int n,
+                                           const T* __restrict__ d_out,
+                                           const float* __restrict__ attn,
+                                           const float* __restrict__ wcoef, const Dims& d,
+                                           int lane) {
+  int k[KPL];
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) k[j] = j * 32 + lane < n ? __ldg(list + j * 32 + lane) : kNoKey;
+  warp_sort<KPL>(k);
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    if (j * 32 >= n) break;
+    constexpr int N = kBatch<CPL>;
+    for (int l = 0; l < 32; l += N) {
+      int key[N];
+#pragma unroll
+      for (int e = 0; e < N; ++e) key[e] = __shfl_sync(kFull, k[j], l + e);
+      if (key[0] == kNoKey) break;
+      s.template take<N>(key, d_out, attn, wcoef, d);
+    }
+  }
+}
+
+// 5. gather: a warp per row of at most kShortMax entries, written once in
+// T; a longer row's index is appended to long_rows for kernel 6
+template <typename T, int CPL>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+msda_gather_kernel(const T* __restrict__ d_out, const float* __restrict__ attn,
+                   const int* __restrict__ counts, const int* __restrict__ offs,
+                   const int* __restrict__ keys, const float* __restrict__ wcoef,
+                   T* __restrict__ d_value, int* __restrict__ nlong, int* __restrict__ long_rows,
+                   const Dims d) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / 32;
+  if (row >= d.rows) return;  // whole warps leave together
+  const int lane = threadIdx.x & 31;
+  const int n = __ldg(counts + row);
+  if (n > kShortMax) {
+    if (lane == 0) long_rows[atomicAdd(nlong, 1)] = static_cast<int>(row);
+    return;
+  }
+  RowSum<T, CPL> s(row, lane, d);
+  const int* list = keys + __ldg(offs + row);
+  if (n <= 32) {
+    sum_sorted<T, CPL, 1>(s, list, n, d_out, attn, wcoef, d, lane);
+  } else if (n <= 64) {
+    sum_sorted<T, CPL, 2>(s, list, n, d_out, attn, wcoef, d, lane);
+  } else {
+    sum_sorted<T, CPL, 4>(s, list, n, d_out, attn, wcoef, d, lane);
+  }
+  if (s.active) store_chunk<T, CPL>(d_value + s.out, s.acc);
+}
+
+// 6. the long rows: a block a row, kLongBlocks blocks striding over the
+// rows kernel 5 handed on.  The list is sorted by the whole block, in shared
+// memory up to kSortShared keys and in place in global memory beyond; warp
+// w sums the w-th eighth of the sorted list; warp 0 adds the eighths in
+// order and writes the row.
+template <typename T, int CPL>
+__global__ void __launch_bounds__(kLongThreads)
+msda_gather_long_kernel(const T* __restrict__ d_out, const float* __restrict__ attn,
+                        const int* __restrict__ counts, const int* __restrict__ offs,
+                        int* keys, const float* __restrict__ wcoef, T* __restrict__ d_value,
+                        const int* __restrict__ nlong, const int* __restrict__ long_rows,
+                        const Dims d) {
+  __shared__ int sorted[kSortShared];
+  __shared__ float part[kLongWarps][32][CPL];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rows = *nlong;
+  for (int r = blockIdx.x; r < rows; r += gridDim.x) {
+    const int64_t row = long_rows[r];
+    const int n = counts[row];
+    int* list = keys + offs[row];
+    int* a = n <= kSortShared ? sorted : list;
+    if (a == sorted) {
+      for (int i = threadIdx.x; i < n; i += kLongThreads) sorted[i] = list[i];
+    }
+    __syncthreads();
+    block_sort(a, n);
+    RowSum<T, CPL> s(row, lane, d);
+    const int seg = (n + kLongWarps - 1) / kLongWarps;
+    s.take_range(a, min(n, warp * seg), min(n, (warp + 1) * seg), d_out, attn, wcoef, d);
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) part[warp][lane][i] = s.acc[i];
+    __syncthreads();
+    if (warp == 0 && s.active) {
+      for (int w = 1; w < kLongWarps; ++w) {
+#pragma unroll
+        for (int i = 0; i < CPL; ++i) s.acc[i] += part[w][lane][i];
+      }
+      store_chunk<T, CPL>(d_value + s.out, s.acc);
+    }
+    __syncthreads();  // sorted and part are free for the next row
+  }
+}
+
+// The ordered design's scratch, carved from one workspace in this order,
+// each part 16-byte aligned: counts, offs and long_rows (an int a row), the
+// scan's tile sums, the long-row count, then the keys, each entry's rank
+// and its cw (an int or float a key, 4 keys an item).
+struct Workspace {
+  int *counts, *offs, *long_rows, *sums, *nlong, *keys, *rank;
+  float* wcoef;
+  int64_t nkeys, bytes;
+  int nscan;
+};
+
+inline int64_t align16(int64_t n) { return (n + 15) / 16 * 16; }
+
+inline Workspace plan_workspace(void* base, const Dims& d) {
+  Workspace w{};
+  w.nkeys = d.items * 4;
+  w.nscan = static_cast<int>((d.rows + kScanTile - 1) / kScanTile);
+  char* p = static_cast<char*>(base);
+  int64_t at = 0;
+  auto take = [&](int64_t bytes) {
+    char* q = p == nullptr ? nullptr : p + at;
+    at += align16(bytes);
+    return reinterpret_cast<int*>(q);
+  };
+  w.counts = take(4 * d.rows);
+  w.offs = take(4 * d.rows);
+  w.long_rows = take(4 * d.rows);
+  w.sums = take(4 * static_cast<int64_t>(w.nscan));
+  w.nlong = take(4);
+  w.keys = take(4 * w.nkeys);
+  w.rank = take(4 * w.nkeys);
+  w.wcoef = reinterpret_cast<float*>(take(4 * w.nkeys));
+  w.bytes = at;
+  return w;
+}
+
+inline Dims make_dims(const LevelTable& levels, int B, int S, int Q, int C, int H, int G, int P) {
+  const int L = levels.num_levels;
+  return {static_cast<int64_t>(B) * Q * G * L * P, static_cast<int64_t>(B) * S * G, S, Q, C, H, G,
+          L, P, G == H};
+}
+
+// keys and list slots are int32; rows are stored as int32 in long_rows
+inline bool ordered_fits(const Dims& d) { return d.items * 4 < INT_MAX && d.rows < INT_MAX; }
+
+template <typename T, int CPL>
+void launch_gathers(const Workspace& w, const Dims& d, const void* d_out, const float* attn,
+                    void* d_value, cudaStream_t s) {
+  const unsigned blocks = static_cast<unsigned>((d.rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  msda_gather_kernel<T, CPL><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
+      static_cast<const T*>(d_out), attn, w.counts, w.offs, w.keys, w.wcoef,
+      static_cast<T*>(d_value), w.nlong, w.long_rows, d);
+  msda_gather_long_kernel<T, CPL><<<kLongBlocks, kLongThreads, 0, s>>>(
+      static_cast<const T*>(d_out), attn, w.counts, w.offs, w.keys, w.wcoef,
+      static_cast<T*>(d_value), w.nlong, w.long_rows, d);
+}
+
+// the gather's channels a lane: the group's C / G channels over 32 lanes,
+// at least one (a narrower group leaves lanes idle)
+template <typename T>
+int dispatch_gathers(const Workspace& w, const Dims& d, const void* d_out, const float* attn,
+                     void* d_value, cudaStream_t s) {
+  const int CG = d.C / d.G;
+  switch (CG >= 32 ? CG / 32 : 1) {
+    case 1: launch_gathers<T, 1>(w, d, d_out, attn, d_value, s); break;
+    case 2: launch_gathers<T, 2>(w, d, d_out, attn, d_value, s); break;
+    case 4: launch_gathers<T, 4>(w, d, d_out, attn, d_value, s); break;
+    case 8: launch_gathers<T, 8>(w, d, d_out, attn, d_value, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -248,9 +626,65 @@ extern "C" int msda_backward(const void* value, int value_is_bf16, LevelTable le
   if (static_cast<int64_t>(B) * Q == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (value_is_bf16) {
-    return dispatch<__nv_bfloat16>(value, levels, loc, attn, d_out, d_value, d_loc, d_attn, B,
+    return dispatch<__nv_bfloat16, true>(value, levels, loc, attn, d_out, d_value, d_loc, d_attn, B,
                                    S, Q, C, H, G, P, s);
   }
-  return dispatch<float>(value, levels, loc, attn, d_out, d_value, d_loc, d_attn, B, S, Q, C,
+  return dispatch<float, true>(value, levels, loc, attn, d_out, d_value, d_loc, d_attn, B, S, Q, C,
                          H, G, P, s);
+}
+
+// Bytes of the workspace msda_backward_ordered needs at this shape, or -1
+// for a shape it does not take.
+extern "C" int64_t msda_backward_workspace(LevelTable levels, int B, int S, int Q, int C, int H,
+                                           int G, int P) {
+  if (!shapes_ok(levels, S, C, H, G) || B < 0 || Q < 0 || P <= 0) return -1;
+  const Dims d = make_dims(levels, B, S, Q, C, H, G, P);
+  if (!ordered_fits(d)) return -1;
+  return plan_workspace(nullptr, d).bytes;
+}
+
+// The ordered design: as msda_backward, but d_value (B, S, C) is in the
+// value's dtype and every element is written here (no zeroing needed);
+// workspace: msda_backward_workspace bytes, 16-byte aligned, any contents.
+// Eight operations on the stream: a memset of the counts, count, two scan
+// passes, place, the two gathers, and the d_locations / d_weights kernel.
+extern "C" int msda_backward_ordered(const void* value, int value_is_bf16, LevelTable levels,
+                                     const void* loc, const void* attn, const void* d_out,
+                                     void* d_value, void* d_loc, void* d_attn, void* workspace,
+                                     int B, int S, int Q, int C, int H, int G, int P,
+                                     void* stream) {
+  if (!shapes_ok(levels, S, C, H, G) || P <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Dims d = make_dims(levels, B, S, Q, C, H, G, P);
+  if (!ordered_fits(d)) return static_cast<int>(cudaErrorInvalidValue);
+  if (d.rows == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Workspace w = plan_workspace(workspace, d);
+  const float* locf = static_cast<const float*>(loc);
+  const float* attnf = static_cast<const float*>(attn);
+  // counts, offs, long_rows, sums and nlong are contiguous: zero them all
+  cudaError_t err = cudaMemsetAsync(w.counts, 0, reinterpret_cast<char*>(w.keys) -
+                                                     reinterpret_cast<char*>(w.counts), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned item_blocks = static_cast<unsigned>((d.items + kItemThreads - 1) / kItemThreads);
+  if (d.items > 0) {
+    msda_count_kernel<<<item_blocks, kItemThreads, 0, s>>>(levels, locf, attnf, w.counts, w.rank, w.wcoef,
+                                                           d);
+  }
+  scan_sums_kernel<<<w.nscan, kScanThreads, 0, s>>>(w.counts, d.rows, w.sums);
+  scan_offsets_kernel<<<w.nscan, kScanThreads, 0, s>>>(w.counts, d.rows, w.sums, w.offs);
+  if (d.items > 0) {
+    msda_place_kernel<<<item_blocks, kItemThreads, 0, s>>>(levels, locf, w.offs, w.rank, w.wcoef, w.keys,
+                                                           d);
+  }
+  const int gathered = value_is_bf16
+                           ? dispatch_gathers<__nv_bfloat16>(w, d, d_out, attnf, d_value, s)
+                           : dispatch_gathers<float>(w, d, d_out, attnf, d_value, s);
+  if (gathered != 0) return gathered;
+  if (static_cast<int64_t>(B) * Q == 0) return static_cast<int>(cudaSuccess);
+  if (value_is_bf16) {
+    return dispatch<__nv_bfloat16, false>(value, levels, loc, attn, d_out, nullptr, d_loc, d_attn,
+                                          B, S, Q, C, H, G, P, s);
+  }
+  return dispatch<float, false>(value, levels, loc, attn, d_out, nullptr, d_loc, d_attn, B, S, Q,
+                                C, H, G, P, s);
 }

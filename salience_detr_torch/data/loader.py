@@ -12,12 +12,20 @@ data-parallel run (``rank`` of ``world``) it yields the rank's rows of each
 global batch (``parallel.mesh.shard_rows``, micro-batch by micro-batch), and
 the ranks' batches concatenated in that order equal the one-process batch
 byte for byte.  A batch's members are known only once every earlier sample is
-augmented (the pools are by the augmented orientation), so every rank
-prepares every sample, as the one-process loader does: the per-sample host
-work is W times the one-process loader's over the W ranks.  Copy-paste
+augmented (the pools are by the augmented orientation).  With an
+``exchange`` (``Mesh.loader_exchange``: every rank's object, over a gloo
+group of the loader's own) rank r prepares the positions i = r (mod W) of
+the epoch's order and, chunk by chunk, the ranks exchange each prepared
+sample's summary (its orientation and its instance count), so that every
+rank knows every batch's members.  A rank then prepares again those of its
+rows, and of the samples its rows paste from, that another rank prepared
+(a sample's augmentation draws from (seed, epoch, index), so it comes out
+byte-equal): about 2/W of the one-process work a rank instead of all of
+it.  Without an exchange every rank prepares every sample.  Copy-paste
 (``simple_copy_paste``) rolls the global batch: every rank draws every
-pair's selection in order and composites only its rows' pairs, and packing
-and the copies to the card are the rank's rows alone.
+pair's selection in order (from the summaries where it holds no sample) and
+composites only its rows' pairs, and packing and the copies to the card are
+the rank's rows alone.
 
 ``DetectionLoader`` (eval) decodes the dataset's samples in dataset order on
 a few threads and groups them by orientation (landscape w >= h, portrait),
@@ -43,6 +51,7 @@ in the consumer.
 
 from __future__ import annotations
 
+import itertools
 import queue
 import random
 import threading
@@ -128,21 +137,43 @@ def _one_intra_op_thread():
     torch.set_num_threads(1)  # per thread: the workers' resizes do not share a pool
 
 
+def sample_summary(sample: dict, landscape: bool) -> Tuple[bool, Optional[int]]:
+    """What the ranks exchange about a prepared sample: its canvas's
+    orientation and its instance count (None without masks), all that the
+    pools and copy-paste's draws read of a sample another rank holds."""
+    return landscape, len(sample["masks"]) if "masks" in sample else None
+
+
+def stand_in(summary: Tuple[bool, Optional[int]]) -> dict:
+    """A batch member this rank neither packs nor pastes from: what the batch
+    transform's draws read of it (an empty mask stack of its instance
+    count)."""
+    n = summary[1]
+    return {} if n is None else {"masks": np.zeros((n, 0, 0), bool)}
+
+
 class TrainLoader:
     """Iterable over fixed-shape train batches with orientation bucketing.
 
     ``batch_transform(samples, rng) -> samples`` runs on each pooled batch
     before packing, with an rng drawn from (seed, epoch, batch index); in a
     data-parallel run it is called with ``rows=`` the rank's rows and
-    returns those rows' samples.  ``batch_size`` is the global batch.
-    ``transform_s`` and ``samples`` accumulate the seconds the workers spent
-    loading and augmenting samples and how many they prepared."""
+    returns those rows' samples, and its ``partners(rows, n)`` names the
+    other members it reads whole (a transform without it reads them all).
+    ``batch_size`` is the global batch.  ``exchange(obj) -> [every rank's
+    obj]`` shares the preparation between the ranks (module docstring).
+    ``transform_s`` and ``samples`` accumulate the seconds this rank's
+    workers spent loading and augmenting samples and how many they
+    prepared."""
 
     def __init__(self, dataset, batch_size: int, canvas_hw: Tuple[int, int] = (800, 1344),
                  max_gt: int = 100, shuffle: bool = True, seed: int = 0, num_workers: int = 8,
                  drop_last: bool = True, batch_transform: Optional[Callable] = None,
-                 rank: int = 0, world: int = 1, accumulate_steps: int = 1):
+                 rank: int = 0, world: int = 1, accumulate_steps: int = 1,
+                 exchange: Optional[Callable[[object], List[object]]] = None):
         self.rows = shard_rows(batch_size, rank, world, accumulate_steps) if world > 1 else None
+        self.rank, self.world = rank, world
+        self.exchange = exchange if world > 1 else None
         self.dataset = dataset
         self.batch_size = batch_size
         self.canvas_land = (min(canvas_hw), max(canvas_hw))
@@ -180,55 +211,107 @@ class TrainLoader:
             s = fit_to_canvas(s, canvas)
         return s, time.perf_counter() - t0
 
-    def _pack(self, pool, canvas, batch_idx: int):
+    def _take(self, future) -> dict:
+        """A prepared sample, its seconds and count added in the consuming
+        thread."""
+        s, spent = future.result()
+        self.transform_s += spent
+        self.samples += 1
+        return s
+
+    def _needed(self, n: int) -> List[int]:
+        """The members of a batch of ``n`` this rank reads whole: its rows and
+        the members its rows' transform reads."""
+        if self.rows is None or (self.batch_transform is not None
+                                 and not hasattr(self.batch_transform, "partners")):
+            return list(range(n))
+        extra = self.batch_transform.partners(self.rows, n) if self.batch_transform is not None else []
+        return sorted(set(self.rows) | set(extra))
+
+    def _pack(self, pool: List[int], canvas, batch_idx: int, order: List[int], local: Dict[int, dict],
+              summaries: List, ex: ThreadPoolExecutor):
+        """The batch of the positions ``pool``: the members this rank reads
+        whole from ``local`` or prepared again here, stand-ins for the rest."""
+        needed = self._needed(len(pool))
+        again = {pool[j]: ex.submit(self._prepare, order[pool[j]]) for j in needed if pool[j] not in local}
+        for pos, future in again.items():
+            local[pos] = self._take(future)
+        samples = [stand_in(summaries[pos]) for pos in pool]
+        for j in needed:
+            samples[j] = local[pool[j]]
+        for pos in pool:
+            local.pop(pos, None)
         if self.batch_transform is not None:
             rng = random.Random((self.seed * 7_368_787 + self.epoch) * 7_368_787 + batch_idx)
             if self.rows is None:
-                pool = self.batch_transform(list(pool), rng)
+                samples = self.batch_transform(samples, rng)
             else:
-                pool = self.batch_transform(list(pool), rng, rows=self.rows)
+                samples = self.batch_transform(samples, rng, rows=self.rows)
         elif self.rows is not None:
-            pool = [pool[i] for i in self.rows]
-        return pack_batch(pool, canvas, self.max_gt)
-
-    def _samples(self, order: List[int]) -> Iterator[dict]:
-        """The samples of ``order``, in order, at most 2 * num_workers in flight."""
-        def take(future) -> dict:
-            s, spent = future.result()
-            self.transform_s += spent
-            self.samples += 1
-            return s
-
-        with ThreadPoolExecutor(self.num_workers, initializer=_one_intra_op_thread) as ex:
-            pending = deque()
-            for idx in order:
-                pending.append(ex.submit(self._prepare, idx))
-                if len(pending) >= 2 * self.num_workers:
-                    yield take(pending.popleft())
-            while pending:
-                yield take(pending.popleft())
+            samples = [samples[i] for i in self.rows]
+        return pack_batch(samples, canvas, self.max_gt)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         order = list(range(len(self.dataset)))
         if self.shuffle:
             random.Random(self.seed + self.epoch).shuffle(order)
-        pools: Dict[Tuple[int, int], List[dict]] = {self.canvas_land: [], self.canvas_port: []}
+        n = len(order)
+        stride, first = (self.world, self.rank) if self.exchange is not None else (1, 0)
+        window = 2 * self.num_workers  # this rank's samples in flight
+        chunk = window * stride  # positions between two exchanges
+        summaries: List = [None] * n
+        local: Dict[int, dict] = {}  # position -> a sample this rank prepared
+        pools: Dict[Tuple[int, int], List[int]] = {self.canvas_land: [], self.canvas_port: []}
         batch_idx = 0
-        for s in self._samples(order):
-            canvas = self._canvas_for(s)
-            pool = pools[canvas]
-            pool.append(s)
-            if len(pool) == self.batch_size:
-                yield self._pack(pool, canvas, batch_idx)
-                batch_idx += 1
-                pool.clear()
-        if not self.drop_last:
-            for canvas, pool in pools.items():
-                if pool:
-                    while len(pool) < self.batch_size:  # duplicates keep the batch size
-                        pool.append(pool[-1])
-                    yield self._pack(pool, canvas, batch_idx)
-                    batch_idx += 1
+        with ThreadPoolExecutor(self.num_workers, initializer=_one_intra_op_thread) as ex:
+            own = iter(range(first, n, stride))
+            pending = deque()
+
+            def submit(count):
+                for pos in itertools.islice(own, count):
+                    pending.append((pos, ex.submit(self._prepare, order[pos])))
+
+            submit(window)
+            for start in range(0, n, chunk):
+                mine = []
+                while pending and pending[0][0] < start + chunk:
+                    pos, future = pending.popleft()
+                    local[pos] = self._take(future)
+                    mine.append((pos, sample_summary(local[pos], self._canvas_for(local[pos]) == self.canvas_land)))
+                    submit(1)
+                if self.exchange is None:
+                    parts = [(mine, False)]
+                else:
+                    parts = self.exchange((mine, False))
+                    if any(closing for _, closing in parts):
+                        return  # a rank's consumer stopped: none needs a batch of this chunk
+                for part, _ in parts:
+                    for pos, s in part:
+                        summaries[pos] = s
+                for pos in range(start, min(n, start + chunk)):
+                    canvas = self.canvas_land if summaries[pos][0] else self.canvas_port
+                    pool = pools[canvas]
+                    pool.append(pos)
+                    if len(pool) == self.batch_size:
+                        batch = self._pack(pool, canvas, batch_idx, order, local, summaries, ex)
+                        batch_idx += 1
+                        pool.clear()
+                        try:
+                            yield batch
+                        except GeneratorExit:
+                            # the consumer stopped (a dry run, a preemption): every rank stops at
+                            # the same step, and one exchange more tells any rank still
+                            # preparing that none needs another batch
+                            if self.exchange is not None and start + chunk < n:
+                                self.exchange(([], True))
+                            raise
+            if not self.drop_last:
+                for canvas, pool in pools.items():
+                    if pool:
+                        while len(pool) < self.batch_size:  # duplicates keep the batch size
+                            pool.append(pool[-1])
+                        yield self._pack(pool, canvas, batch_idx, order, local, summaries, ex)
+                        batch_idx += 1
 
 
 def collate(samples: List[dict]) -> Dict:
@@ -384,8 +467,9 @@ class DevicePrefetcher:
 
         def worker():
             end = _END
+            batches = iter(self.loader)
             try:
-                for batch in self.loader:
+                for batch in batches:
                     if cuda:
                         with torch.cuda.device(self.device), torch.cuda.stream(side):
                             out = self._to_device(batch)
@@ -398,6 +482,12 @@ class DevicePrefetcher:
             except Exception as e:  # raised again in the consumer
                 end = _Failed(e)
             finally:
+                close = getattr(batches, "close", None)
+                try:
+                    if close is not None:  # a generator's clean-up (the train loader's last exchange)
+                        close()
+                except Exception as e:
+                    end = end if isinstance(end, _Failed) else _Failed(e)
                 offer(end)
 
         thread = threading.Thread(target=worker, daemon=True)

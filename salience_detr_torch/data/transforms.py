@@ -576,7 +576,9 @@ def simple_copy_paste(samples: List[Sample], rng: random.Random,
     the JAX function's order, then the pairs are composited in threads
     (numpy releases the GIL for the image-sized work).  With ``rows`` (a
     rank's rows of the global batch) every pair's selection is still drawn,
-    in order, but only the rows' pairs are composited and returned."""
+    in order, but only the rows' pairs are composited and returned: the
+    other members need only their ``masks``' length (the loader passes
+    stand-ins for them), and a row's partner (``partners``) is read whole."""
     rolled = samples[-1:] + samples[:-1]
     pairs = []
     for target, paste in zip(samples, rolled):
@@ -591,6 +593,14 @@ def simple_copy_paste(samples: List[Sample], rng: random.Random,
         pairs = [pairs[i] for i in rows]
     with ThreadPoolExecutor(len(pairs), initializer=torch.set_num_threads, initargs=(1,)) as ex:
         return list(ex.map(lambda pair: _copy_paste_one(*pair), pairs))
+
+
+def _rolled_partners(rows: Sequence[int], n: int) -> List[int]:
+    """The members that ``rows`` of a batch of ``n`` paste from."""
+    return [(r - 1) % n for r in rows]
+
+
+simple_copy_paste.partners = _rolled_partners  # the members the loader must hold whole
 
 
 def _copy_paste_one(sample: Sample, paste: Sample, sel: Optional[List[int]]) -> Sample:

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from salience_detr_torch.ops.deform_attn import compute_sampling_locations, ms_deform_attn, ms_deform_attn_q8
 
@@ -90,6 +91,11 @@ class MultiheadAttention(nn.Module):
     JAX code fills those logits with -1e30), shape (Q, K) or (B, Q, K).  It is
     inverted once here for SDPA, whose boolean mask means attend.  Every row
     must keep at least one key: the CDN mask lets each dead slot see itself.
+
+    Under ``torch.use_deterministic_algorithms`` SDPA runs its math
+    formulation (two matmuls around a softmax, and their autograd): the
+    fused kernels' backward (flash, memory-efficient, cuDNN) adds in no
+    fixed order unless the setting raises rather than warns.
     """
 
     def __init__(self, embed_dim: int, num_heads: int):
@@ -112,8 +118,10 @@ class MultiheadAttention(nn.Module):
         attend = None
         if attn_mask is not None:
             attend = ~(attn_mask[:, None] if attn_mask.dim() == 3 else attn_mask)
-        out = F.scaled_dot_product_attention(
-            heads(query, w_q, b_q), heads(key, w_k, b_k), heads(value, w_v, b_v),
-            attn_mask=attend,
-        )
+        args = (heads(query, w_q, b_q), heads(key, w_k, b_k), heads(value, w_v, b_v))
+        if torch.are_deterministic_algorithms_enabled():
+            with sdpa_kernel(SDPBackend.MATH):
+                out = F.scaled_dot_product_attention(*args, attn_mask=attend)
+        else:
+            out = F.scaled_dot_product_attention(*args, attn_mask=attend)
         return self.out_proj(out.transpose(1, 2).reshape(B, Q, C))

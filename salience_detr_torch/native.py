@@ -35,7 +35,7 @@ NVCC_FLAGS = (
 MAX_LEVELS = 16  # kLevelsMax in csrc/levels.cuh
 
 LAUNCHES = {
-    "msda": 0, "msda_backward": 0, "grid_nms": 0, "hungarian": 0, "nms_keep": 0,
+    "msda": 0, "msda_backward": 0, "msda_backward_ordered": 0, "grid_nms": 0, "hungarian": 0, "nms_keep": 0,
     # DCNv2 (ops/deform_conv.py: the columns, their backward, the fused 16-bit
     # forward) and the int8 head-shared MSDA
     "deform_conv": 0, "deform_conv_backward": 0, "deform_conv_fused": 0,
@@ -135,7 +135,8 @@ def build(csrc_dir: Path = CSRC_DIR) -> Path:
 
 def bind_msda(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of the MSDA entry points (msda_forward,
-    msda_backward, cuda_error_string) on ``lib``."""
+    msda_backward, cuda_error_string, and where ``lib`` has them
+    msda_backward_ordered and msda_backward_workspace) on ``lib``."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.msda_forward.argtypes = [
         ptr, i32, LevelTable, ptr, ptr, ptr,
@@ -147,6 +148,14 @@ def bind_msda(lib: ctypes.CDLL) -> ctypes.CDLL:
         i32, i32, i32, i32, i32, i32, i32, ptr,
     ]
     lib.msda_backward.restype = i32
+    if hasattr(lib, "msda_backward_ordered"):
+        lib.msda_backward_ordered.argtypes = [
+            ptr, i32, LevelTable, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+            i32, i32, i32, i32, i32, i32, i32, ptr,
+        ]
+        lib.msda_backward_ordered.restype = i32
+        lib.msda_backward_workspace.argtypes = [LevelTable, i32, i32, i32, i32, i32, i32, i32]
+        lib.msda_backward_workspace.restype = ctypes.c_int64
     lib.cuda_error_string.argtypes = [i32]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -12,7 +12,10 @@ the exact per-head sampling of ``ms_deform_attn_core`` /
   backward kernel ``csrc/msda_backward.cu``; both run on any device;
 * :func:`ms_deform_attn` is the differentiable wrapper of the two kernels (a
   ``torch.autograd.Function``): on CPU tensors its forward and backward are
-  the plain versions, on CUDA tensors they launch the kernels or raise.
+  the plain versions, on CUDA tensors they launch the kernels or raise.  The
+  backward has two designs for d_value (:func:`backward_design` picks one):
+  the scatter of float atomics, and the ordered pull, bitwise repeatable,
+  which runs under ``torch.use_deterministic_algorithms``.
 
 Semantics: grid_sample with align_corners=False and zero padding; corners
 outside their level get weight 0 and are never read (nor written by the
@@ -223,19 +226,27 @@ def _forward_cuda(value, spatial_shapes, locations, weights):
     return out
 
 
-def _backward_cuda(value, spatial_shapes, locations, weights, d_out):
-    """K3: d_value accumulates by f32 atomics into a zeroed scratch buffer,
-    cast once to the value dtype; d_locations and d_weights are written
-    directly, in float32."""
-    B, S, C, Q, G, L, P, H = _check_kernel_inputs(value, spatial_shapes, locations, weights)
+def _backward_inputs(value, spatial_shapes, locations, weights, d_out):
+    dims = _check_kernel_inputs(value, spatial_shapes, locations, weights)
+    B, S, C, Q, G, L, P, H = dims
     if tuple(d_out.shape) != (B, Q, C) or d_out.device != value.device:
         raise ValueError(f"ms_deform_attn backward: d_out {tuple(d_out.shape)} != {(B, Q, C)}")
     loc = locations.to(torch.float32).contiguous()
     attn = weights.to(torch.float32).contiguous()
     grad = d_out.to(value.dtype).contiguous()
-    d_value = torch.zeros((B, S, C), dtype=torch.float32, device=value.device)
     d_loc = torch.empty((B, Q, G, L, P, 2), dtype=torch.float32, device=value.device)
     d_attn = torch.empty((B, Q, H, L, P), dtype=torch.float32, device=value.device)
+    return dims, loc, attn, grad, d_loc, d_attn
+
+
+def _backward_cuda(value, spatial_shapes, locations, weights, d_out):
+    """K3, the scatter design: d_value accumulates by f32 atomics into a
+    zeroed scratch buffer, cast once to the value dtype; d_locations and
+    d_weights are written directly, in float32.  d_value's last bits vary
+    from run to run."""
+    (B, S, C, Q, G, L, P, H), loc, attn, grad, d_loc, d_attn = _backward_inputs(
+        value, spatial_shapes, locations, weights, d_out)
+    d_value = torch.zeros((B, S, C), dtype=torch.float32, device=value.device)
     lib = native.load()
     with torch.cuda.device(value.device):
         err = lib.msda_backward(
@@ -249,9 +260,49 @@ def _backward_cuda(value, spatial_shapes, locations, weights, d_out):
     return d_value.to(value.dtype), d_loc.to(locations.dtype), d_attn.to(weights.dtype)
 
 
+def _backward_cuda_ordered(value, spatial_shapes, locations, weights, d_out):
+    """K3, the ordered design: every d_value row summed in key order by one
+    warp or block and written once in the value dtype, with no float
+    atomics, so the result is bitwise repeatable; its scratch (the entries'
+    keys, ranks and weights, about 12 bytes an in-level corner) comes from
+    the caching allocator.  d_locations and d_weights as in the scatter
+    design."""
+    (B, S, C, Q, G, L, P, H), loc, attn, grad, d_loc, d_attn = _backward_inputs(
+        value, spatial_shapes, locations, weights, d_out)
+    lib = native.load()
+    table = native.level_table(spatial_shapes)
+    nbytes = lib.msda_backward_workspace(table, B, S, Q, C, H, G, P)
+    if nbytes < 0:
+        raise ValueError(f"ms_deform_attn backward: the ordered design takes no B={B} Q={Q} G={G} L={L} "
+                         f"P={P} (its keys are int32)")
+    workspace = torch.empty(nbytes, dtype=torch.uint8, device=value.device)
+    d_value = torch.empty((B, S, C), dtype=value.dtype, device=value.device)
+    with torch.cuda.device(value.device):
+        err = lib.msda_backward_ordered(
+            value.data_ptr(), int(value.dtype == torch.bfloat16), table, loc.data_ptr(),
+            attn.data_ptr(), grad.data_ptr(), d_value.data_ptr(), d_loc.data_ptr(),
+            d_attn.data_ptr(), workspace.data_ptr(), B, S, Q, C, H, G, P, native.stream_of(value),
+        )
+    native.check(err, "msda_backward_ordered")
+    native.LAUNCHES["msda_backward_ordered"] += 1
+    return d_value, d_loc.to(locations.dtype), d_attn.to(weights.dtype)
+
+
+BACKWARD_DESIGNS = {"scatter": _backward_cuda, "ordered": _backward_cuda_ordered}
+
+
+def backward_design() -> str:
+    """K3's design for this process's next backward, the one place it is
+    chosen: "ordered" (bitwise repeatable) when
+    ``torch.are_deterministic_algorithms_enabled()`` (the train CLI's
+    ``--use-deterministic-algorithms``), else "scatter"."""
+    return "ordered" if torch.are_deterministic_algorithms_enabled() else "scatter"
+
+
 class _MSDeformAttn(torch.autograd.Function):
-    """Forward K1 / backward K3 on CUDA tensors, the plain versions on CPU
-    tensors; nothing on CUDA gives way to a plain version."""
+    """Forward K1 / backward K3 (the design :func:`backward_design` names)
+    on CUDA tensors, the plain versions on CPU tensors; nothing on CUDA gives
+    way to a plain version or to the other design."""
 
     @staticmethod
     def forward(ctx, value, locations, weights, spatial_shapes):
@@ -268,7 +319,7 @@ class _MSDeformAttn(torch.autograd.Function):
         if value.device.type == "cpu":
             grads = ms_deform_attn_backward_plain(*args)
         else:
-            grads = _backward_cuda(*args)
+            grads = BACKWARD_DESIGNS[backward_design()](*args)
         return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None)
 
 

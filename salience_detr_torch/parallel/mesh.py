@@ -15,7 +15,9 @@ each holding a slice of every global batch, with the collectives below:
 * :class:`Mesh` (:func:`make_mesh`) holds the rank, the world size, the
   device and a gloo side group for host tensors and pickled objects, so that
   neither the per-step gt counts nor the evaluator's predictions pass
-  through the card.
+  through the card, and a second gloo group for the train loader's
+  exchanges, which run on the prefetcher's thread beside the main thread's
+  collectives.
 * :func:`shard_batch` takes the rank's rows of a global batch: with A
   micro-batches, micro-batch ``a`` is rows [a B / A, (a + 1) B / A) of the
   global batch (the JAX step's split), and the rank holds slice ``rank`` of
@@ -43,13 +45,15 @@ LAUNCHER_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT
 @dataclass(frozen=True)
 class Mesh:
     """The data-parallel layout of this process: ``rank`` of ``world``, its
-    ``device``, and ``host_group``, a gloo group over the same ranks for host
-    tensors and objects (None in a single process)."""
+    ``device``, ``host_group``, a gloo group over the same ranks for host
+    tensors and objects, and ``data_group``, another for the train loader's
+    thread (both None in a single process)."""
 
     rank: int = 0
     world: int = 1
     device: torch.device = torch.device("cpu")
     host_group: Any = None
+    data_group: Any = None
 
     @property
     def distributed(self) -> bool:
@@ -71,6 +75,13 @@ class Mesh:
             return [obj]
         out = [None] * self.world
         dist.all_gather_object(out, obj, group=self.host_group)
+        return out
+
+    def loader_exchange(self, obj) -> List[Any]:
+        """Every rank's ``obj``, in rank order, over the loader's own group:
+        ``TrainLoader``'s ``exchange``, called from the prefetcher's thread."""
+        out = [None] * self.world
+        dist.all_gather_object(out, obj, group=self.data_group)
         return out
 
     def broadcast_object(self, obj, src: int = 0):
@@ -135,7 +146,8 @@ def init_distributed(device: str = "cuda", backend: Optional[str] = None,
     if not dist.is_initialized():
         dist.init_process_group(backend, init_method="env://", rank=rank, world_size=world, timeout=timeout)
     host_group = dist.new_group(backend="gloo", timeout=timeout) if backend != "gloo" else dist.group.WORLD
-    return Mesh(rank, world, dev, host_group)
+    data_group = dist.new_group(backend="gloo", timeout=timeout)
+    return Mesh(rank, world, dev, host_group, data_group)
 
 
 def make_mesh(device: str = "cuda", backend: Optional[str] = None) -> Mesh:

@@ -42,6 +42,7 @@ from salience_detr_torch.models.factory import build_salience_detr, exact_sampli
 from salience_detr_torch.parallel.mesh import init_distributed, shutdown
 from salience_detr_torch.parallel.train_step import make_eval_step
 from salience_detr_torch.utils.coco_eval import CocoEvaluator
+from salience_detr_torch.utils.env import configure_numerics
 from salience_detr_torch.utils.logging_utils import setup_logger
 
 
@@ -94,12 +95,13 @@ def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 
 def save_results(evaluator: CocoEvaluator, path: str) -> int:
-    """The evaluator's predictions (xywh) as a COCO result JSON; returns
-    their count."""
+    """The evaluator's predictions (xywh) as a COCO result JSON, image by
+    image in id order (so that a data-parallel run's merged predictions
+    write the same file as one process's); returns their count."""
     results = [
         {"image_id": int(img_id), "category_id": int(label), "bbox": [float(v) for v in box],
          "score": float(score)}
-        for img_id, pred in evaluator.predictions.items()
+        for img_id, pred in sorted(evaluator.predictions.items(), key=lambda kv: int(kv[0]))
         for box, score, label in zip(pred["boxes"], pred["scores"], pred["labels"])
     ]
     with open(path, "w") as f:
@@ -120,6 +122,7 @@ def main(argv=None) -> Optional[Dict[str, float]]:
 
 
 def evaluate_split(args, mesh) -> Dict[str, float]:
+    configure_numerics()
     logger = setup_logger(rank=mesh.rank)
     dataset = CocoDetection(args.coco_img, args.coco_ann)
     device = mesh.device

@@ -4,11 +4,14 @@ on the whole batch.
 
     python -m salience_detr_torch.tools.ddp_check bn --inputs F.npz --out DIR [--device cpu|cuda]
     python -m salience_detr_torch.tools.ddp_check step --spec DIR --out DIR [--device cpu|cuda]
+    python -m salience_detr_torch.tools.ddp_check loader --spec F.json --out DIR
 
 Each process is one rank, started with the launcher's variables (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``; :func:`launch`
-sets them, ``torchrun`` does too).  ``--backend`` picks the process group
-(gloo by default here: it runs several ranks on the CPU or on one card).
+sets them, one rank a card or every rank on card 0, and ``torchrun`` does
+too).  ``--backend`` picks the process group (gloo by default here: it runs
+several ranks on the CPU or on one card; NCCL takes one rank a card), and
+``--deterministic`` the numerics of ``--use-deterministic-algorithms``.
 
 * ``bn``: ``F.npz`` holds x and dy (B, C, H, W) float32 and the layer's
   weight, bias and running statistics; rank r takes the r-th of W equal
@@ -30,6 +33,14 @@ sets them, ``torchrun`` does too).  ``--backend`` picks the process group
   each step, and the model's state dict after the steps.  Without the
   launcher's variables :func:`run_step` is the one-process step on the whole
   batches, the reference.
+* ``loader``: ``F.json`` names a COCO-format split and the ``TrainLoader``'s
+  settings (preset, copy-paste, global batch, canvas, max_gt, seed, workers,
+  accumulate steps, ``stop_after``); every rank iterates epoch 0 with the
+  ranks sharing the preparation (``Mesh.loader_exchange``), stopping after
+  ``stop_after`` batches when it is set (the generator closed, as the
+  prefetcher closes it), then the whole of epoch 1, and writes
+  ``rank<r>.npz``: each epoch's batches (``e<epoch>_<batch>_<key>``), their
+  count, and the samples it prepared in each epoch and their seconds.
 """
 
 from __future__ import annotations
@@ -47,6 +58,7 @@ import numpy as np
 import torch
 
 from salience_detr_torch.parallel.mesh import Mesh, init_distributed, mean_over_ranks, shard_batch, shutdown
+from salience_detr_torch.utils.env import configure_numerics
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -197,21 +209,59 @@ def step_rank(spec: str, out: str, device: str, backend: str):
         shutdown(mesh)
 
 
+def loader_rank(spec: str, out: str):
+    from salience_detr_torch.data.coco import CocoDetection
+    from salience_detr_torch.data.loader import TrainLoader
+    from salience_detr_torch.data.transforms import build_preset, simple_copy_paste
+
+    mesh = init_distributed("cpu", "gloo")
+    try:
+        cfg = json.loads(Path(spec).read_text())
+        dataset = CocoDetection(cfg["img_dir"], cfg["ann"], transforms=build_preset(cfg["preset"]), train=True,
+                                return_masks=cfg["copypaste"])
+        loader = TrainLoader(dataset, cfg["batch"], canvas_hw=tuple(cfg["canvas"]), max_gt=cfg["max_gt"],
+                             seed=cfg["seed"], num_workers=cfg["num_workers"],
+                             batch_transform=simple_copy_paste if cfg["copypaste"] else None, rank=mesh.rank,
+                             world=mesh.world, accumulate_steps=cfg["accumulate"], exchange=mesh.loader_exchange)
+        arrays = {}
+        for epoch in (0, 1):
+            loader.set_epoch(epoch)
+            before, seconds = loader.samples, loader.transform_s
+            batches = iter(loader)
+            got = []
+            for batch in batches:
+                got.append(batch)
+                if epoch == 0 and len(got) == cfg.get("stop_after"):
+                    break
+            batches.close()
+            arrays[f"e{epoch}_samples"] = np.asarray(loader.samples - before)
+            arrays[f"e{epoch}_transform_s"] = np.asarray(loader.transform_s - seconds)
+            arrays[f"e{epoch}_batches"] = np.asarray(len(got))
+            arrays.update({f"e{epoch}_{i}_{k}": v for i, b in enumerate(got) for k, v in b.items()})
+        np.savez(Path(out) / f"rank{mesh.rank}.npz", **arrays)
+    finally:
+        shutdown(mesh)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("mode", choices=("bn", "step"))
+    p.add_argument("mode", choices=("bn", "step", "loader"))
     p.add_argument("--inputs", help="bn: the .npz of x, dy and the layer's tensors")
-    p.add_argument("--spec", help="step: the directory of the run's config, state, batches and draws")
+    p.add_argument("--spec", help="step: the directory of the run's config, state, batches and draws; "
+                                  "loader: the split and loader settings (.json)")
     p.add_argument("--out", required=True)
     p.add_argument("--device", default="cpu")
     p.add_argument("--backend", default="gloo", choices=("gloo", "nccl"))
     p.add_argument("--threads", type=int, default=2, help="torch intra-op threads of each rank")
+    p.add_argument("--deterministic", action="store_true",
+                   help="--use-deterministic-algorithms' numerics (the ordered MSDA backward)")
     args = p.parse_args(argv)
     torch.set_num_threads(args.threads)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    configure_numerics(args.deterministic)
     if args.mode == "bn":
         bn_rank(args.inputs, args.out, args.device, args.backend)
+    elif args.mode == "loader":
+        loader_rank(args.spec, args.out)
     else:
         step_rank(args.spec, args.out, args.device, args.backend)
 

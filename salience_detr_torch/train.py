@@ -33,8 +33,10 @@ run (``parallel/mesh.py``, ``parallel/train_step.py``): ``--device cuda``
 means ``cuda:LOCAL_RANK`` (it raises when that card is missing), the process
 group is NCCL on the cards and gloo on the CPU (``--dist-backend`` overrides
 it) and raises when it cannot form.  The config's ``batch_size`` is the
-global batch; each rank loads, augments and trains its rows of it, and the
-W ranks compute the one-process step on the global batch.  Rank 0 draws the
+global batch; each rank augments 1/W of the samples, the ranks exchange
+their orientations, and each trains its rows of every batch (augmented
+again where another rank prepared them); the W ranks compute the
+one-process step on the global batch.  Rank 0 draws the
 seed (when none is given) and names the output directory for every rank;
 it alone writes the log file, the tracker's files, label_names.txt, the
 checkpoints and the snapshots (the other ranks wait at a barrier after each
@@ -80,6 +82,7 @@ from salience_detr_torch.engine.train import evaluate, train_one_epoch
 from salience_detr_torch.inference import DEFAULT_CONFIG, load_config
 from salience_detr_torch.models.bricks.criterion import Targets, default_weight_dict
 from salience_detr_torch.models.factory import SalienceDETRConfig, build_criteria, build_salience_detr
+from salience_detr_torch.ops.deform_attn import backward_design
 from salience_detr_torch.parallel.mesh import Mesh, init_distributed, mean_over_ranks, shard_batch, shutdown
 from salience_detr_torch.parallel.train_step import make_eval_step, make_train_step
 from salience_detr_torch.utils.config import Config
@@ -164,7 +167,8 @@ def parse_args(argv=None):
                    help="ImageNet .pth (torchvision names) loaded into the backbone; overrides the "
                         "config's backbone_weights")
     p.add_argument("--use-deterministic-algorithms", action="store_true",
-                   help="torch.use_deterministic_algorithms (warn only) for the library ops")
+                   help="bitwise repeatable training: torch.use_deterministic_algorithms (warn only) for "
+                        "the library ops and the ordered MSDA backward (utils/env.py configure_numerics)")
     p.add_argument("--dry-run-steps", type=int, default=0, help="stop after N steps of one epoch")
     p.add_argument("--model-config", default=None, help="model config file in place of the config's model_path")
     p.add_argument("--device", default="cuda", help="cuda (cuda:LOCAL_RANK under the launcher) or cpu")
@@ -216,7 +220,7 @@ def _train_coco(args, mesh: Mesh) -> Dict:
     from salience_detr_torch.utils.checkpoint import CheckpointManager, HighestCheckpoint
     from salience_detr_torch.utils.coco_eval import CocoEvaluator
     from salience_detr_torch.utils.coco_utils import get_coco_index_from_dataset
-    from salience_detr_torch.utils.env import GracefulShutdown, collect_env_info, seed_everything
+    from salience_detr_torch.utils.env import GracefulShutdown, collect_env_info, configure_numerics, seed_everything
     from salience_detr_torch.utils.logging_utils import setup_logger
     from salience_detr_torch.utils.tracker import NullTracker, TensorBoardTracker
     from salience_detr_torch.weights import load_backbone_weights, load_finetune_weights
@@ -227,9 +231,7 @@ def _train_coco(args, mesh: Mesh) -> Dict:
     dtype = DTYPES[args.mixed_precision]
     model_cfg = dataclasses.replace(load_config(model_path), dtype=dtype)
     amp = device.type == "cuda" and dtype != torch.float32
-    if args.use_deterministic_algorithms:
-        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-        torch.use_deterministic_algorithms(True, warn_only=True)
+    configure_numerics(args.use_deterministic_algorithms)
 
     model_name = os.path.splitext(os.path.basename(model_path))[0]
     output_dir = mesh.broadcast_object(cfg.get("output_dir") or os.path.join(
@@ -251,6 +253,7 @@ def _train_coco(args, mesh: Mesh) -> Dict:
     seed = seed_everything(mesh.broadcast_object(seed_everything(seed) if lead else None))
     logger.info(f"Environment:\n{collect_env_info()}")
     logger.info(f"seed={seed}")
+    logger.info(f"MSDA backward: the {backward_design()} design")
 
     # copy-paste composites by instance masks: the dataset loads them and
     # the loader runs it on each pooled batch
@@ -265,6 +268,7 @@ def _train_coco(args, mesh: Mesh) -> Dict:
         max_gt=cfg.get("max_gt", 100), shuffle=True, seed=seed, num_workers=num_workers,
         batch_transform=simple_copy_paste if use_copypaste else None,
         rank=mesh.rank, world=mesh.world, accumulate_steps=args.accumulate_steps,
+        exchange=mesh.loader_exchange if mesh.distributed else None,
     )
     test_loader = DetectionLoader(test_dataset, cfg.batch_size, num_workers, mesh.rank, mesh.world)
     steps_per_epoch = len(train_loader)
@@ -377,6 +381,9 @@ def train_synthetic(args) -> Dict:
         raise SystemExit("salience_detr_torch.train --steps needs a CUDA device")
     mesh = init_distributed("cuda", args.dist_backend)
     try:
+        from salience_detr_torch.utils.env import configure_numerics
+
+        configure_numerics(args.use_deterministic_algorithms)
         logging.basicConfig(level=logging.INFO if mesh.rank == 0 else logging.WARNING,
                             format="%(asctime)s %(message)s")
         cfg = load_config(args.model_config or DEFAULT_CONFIG)

@@ -1,7 +1,8 @@
-"""Environment report, seeding and preemption handling (port of
+"""Environment report, numerics, seeding and preemption handling (port of
 salience_detr_tpu/utils/env.py): ``collect_env_info`` reports Python, torch,
-CUDA and the card's name and power limit; ``seed_everything`` seeds Python's,
-numpy's and torch's global generators; ``GracefulShutdown`` turns SIGTERM and
+CUDA and the card's name and power limit; ``configure_numerics`` is the one
+place the train and eval CLIs set how the card computes; ``seed_everything``
+seeds Python's, numpy's and torch's global generators; ``GracefulShutdown`` turns SIGTERM and
 SIGINT into a flag the train loop polls, so that a preempted run finishes its
 step, writes a checkpoint and exits 0.  In a data-parallel run the flag is
 this process's; the train step's all-reduce of each step carries it to every
@@ -41,6 +42,39 @@ def collect_env_info() -> str:
         if os.environ.get(var):
             lines.append(f"{var}={os.environ[var]}")
     return "\n".join(lines)
+
+
+def configure_numerics(deterministic: bool = False) -> None:
+    """The numerics of this process, shared by the train and eval CLIs (and
+    the smoke run that drives them):
+
+    * no cuDNN attention behind ``F.scaled_dot_product_attention``: on the
+      H100 PyTorch picks it for the decoder's self-attention, and it gave
+      other bits in the first process on a fresh machine than in every
+      later one (the eval's results then differed between processes); the
+      flash and memory-efficient kernels it falls back to compute a forward
+      the same way in every process;
+    * float32 matmuls and convolutions in float32, not TF32 (the JAX
+      package computes float32 at full precision, and the kernels' plain
+      versions do); cuDNN's algorithms from its heuristics, never from
+      timing.
+
+    ``deterministic`` (the train CLI's ``--use-deterministic-algorithms``)
+    also makes every op of a train step repeatable:
+    ``torch.use_deterministic_algorithms`` (warning, not raising, on an op
+    without a deterministic implementation), cuBLAS's fixed workspace
+    (``CUBLAS_WORKSPACE_CONFIG``, read when cuBLAS starts), and, where the
+    library's kernels add in no fixed order even then, the port's ordered
+    formulations: the MSDA backward's ordered design
+    (``ops.deform_attn.backward_design``) and SDPA's math formulation in the
+    dense attention (``models.bricks.attention.MultiheadAttention``)."""
+    if deterministic:
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cuda.enable_cudnn_sdp(False)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
 
 
 def seed_everything(seed: Optional[int] = None) -> int:

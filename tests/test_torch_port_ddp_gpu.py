@@ -7,10 +7,15 @@ the card (rtol 1e-5 / atol 1e-5, TF32 off); and 2 train steps of a small
 model on the card (the MSDA, grid-NMS and assignment kernels), data-parallel
 against the one-process step on the whole batches, the CDN draws made by
 each rank's generator at the global shape: metrics at rtol 1e-4 / atol 1e-5
-and every state tensor within 1e-3 of what the steps moved plus an ulp (the
-MSDA backward's float atomics add in another order on each run).  This
-file imports torch, numpy and the port only: it runs on the card's machine
-with ``--noconftest``."""
+and every state tensor within 1e-3 of what the steps moved plus an ulp (a
+rank's half batch runs other convolution and GEMM algorithms than the whole
+batch, which round otherwise, and without ``--use-deterministic-algorithms``
+the MSDA backward's scatter design adds in no fixed order).  On a host of
+two or more cards (it skips on fewer) the same steps as W = min(4, cards)
+NCCL ranks, one a card, with the deterministic numerics, against one
+process, at the same bounds, the ranks' states bitwise equal.  This file
+imports torch, numpy and the port only: it runs on the card's machine with
+``--noconftest``."""
 
 import json
 
@@ -120,6 +125,36 @@ def test_ddp_step_of_the_small_model_on_the_card(cuda, tmp_path):
     for name, want in one["state"].items():
         got = ranks[0]["state"][name]
         assert torch.equal(got, ranks[1]["state"][name]), name
+        if not want.is_floating_point():
+            assert torch.equal(got, want), name
+            continue
+        moved = float((want.float() - init[name].float()).abs().max())
+        ulp = float(want.abs().max()) * 2.0**-23
+        assert float((got.float() - want.float()).abs().max()) <= 1e-3 * moved + ulp + 1e-7, name
+
+
+@pytest.mark.gpu
+def test_ddp_step_across_cards(cuda, tmp_path):
+    world = min(4, torch.cuda.device_count())
+    if world < 2:
+        pytest.skip("needs two or more CUDA devices")
+    spec, init = small_spec(tmp_path / "spec")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        one = ddp_check.run_step(str(spec), Mesh(device=cuda))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out = tmp_path / "ranks"
+    out.mkdir()
+    ddp_check.launch(["-m", "salience_detr_torch.tools.ddp_check", "step", "--spec", str(spec), "--out", str(out),
+                      "--device", "cuda", "--backend", "nccl", "--deterministic"], world=world, timeout=600)
+    ranks = [torch.load(out / f"rank{r}.pt", weights_only=True) for r in range(world)]
+    for step, (want, got) in enumerate(zip(one["metrics"], ranks[0]["metrics"])):
+        for k, v in want.items():
+            np.testing.assert_allclose(got[k], v, rtol=1e-4, atol=1e-5, err_msg=f"step {step} {k}")
+    for name, want in one["state"].items():
+        got = ranks[0]["state"][name]
+        assert all(torch.equal(got, r["state"][name]) for r in ranks[1:]), name
         if not want.is_floating_point():
             assert torch.equal(got, want), name
             continue

@@ -12,6 +12,8 @@ import torch
 
 from salience_detr_torch import native
 from salience_detr_torch.ops.deform_attn import (
+    _backward_cuda_ordered,
+    backward_design,
     ms_deform_attn,
     ms_deform_attn_backward_plain,
     ms_deform_attn_plain,
@@ -59,7 +61,7 @@ def test_library_path_tracks_the_sources():
         "msda_q8.cu",
     }
     assert set(native.LAUNCHES) == {
-        "msda", "msda_backward", "grid_nms", "hungarian", "nms_keep",
+        "msda", "msda_backward", "msda_backward_ordered", "grid_nms", "hungarian", "nms_keep",
         "gather_sum", "weighted_reduce", "corner_collapse_blocked", "corner_collapse_packed",
         "deform_conv", "deform_conv_backward", "deform_conv_fused", "msda_q8_quantize", "msda_q8_sample",
     }
@@ -383,6 +385,12 @@ def shaped_inputs(case, device, dtype, G, C, H=8, B=2, Q=8500, P=4, seed=5):
             xs = (torch.tensor([0, wd // 2, wd - 1])[pick[..., 0]] + 0.5) / wd
             ys = (torch.tensor([0, h // 2, h - 1])[pick[..., 1]] + 0.5) / h
             locs[:, :, :, lvl, :, 0], locs[:, :, :, lvl, :, 1] = xs, ys
+    elif case == "one_pixel":
+        # every point of an image on one pixel centre of each level: a single
+        # row takes all Q * P entries, past what a block sorts in shared memory
+        locs = torch.empty(B, Q, G, L, P, 2)
+        for lvl, (h, wd) in enumerate(levels):
+            locs[:, :, :, lvl, :, 0], locs[:, :, :, lvl, :, 1] = (wd // 3 + 0.5) / wd, (h // 2 + 0.5) / h
     elif case == "outside":  # beyond every level on at least one axis
         locs = torch.rand(B, Q, G, L, P, 2, generator=g) * 1.4 - 0.2
         far = torch.rand(B, Q, G, L, P, generator=g) * 2 + 1.3  # x * w - 0.5 >= w on every level
@@ -430,6 +438,43 @@ def test_msda_kernels_match_plain_on_shaped_inputs(cuda, case, G, C, dtype):
     if case == "outside":
         assert not bool(out.detach().float().abs().any())
         assert all(not bool(x.grad.float().abs().any()) for x in inputs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [32, 256])
+@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("case", ["uniform", "clustered", "one_pixel", "outside", "large_levels"])
+def test_msda_backward_ordered_matches_plain_and_repeats(cuda, case, G, C, dtype):
+    """K3's ordered design (under ``torch.use_deterministic_algorithms``, no
+    float atomics): through autograd it launches once under its own key,
+    two launches are bitwise equal, and it holds K3's tolerances against
+    the plain backward, on the shaped inputs (rows of thousands of
+    entries) and on one pixel (a row of Q * P entries, sorted in global
+    memory)."""
+    levels, value, locs, w = shaped_inputs(case, cuda, dtype, G, C)
+    d_out = torch.randn(value.shape[0], locs.shape[1], C, device=cuda).to(dtype)
+    inputs = [x.clone().requires_grad_() for x in (value, locs, w)]
+    before = dict(native.LAUNCHES)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        assert backward_design() == "ordered"
+        ms_deform_attn(inputs[0], levels, inputs[1], inputs[2]).backward(d_out)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["msda_backward_ordered"] == before["msda_backward_ordered"] + 1
+    assert native.LAUNCHES["msda_backward"] == before["msda_backward"]
+    again = _backward_cuda_ordered(value, levels, locs, w, d_out)
+    for name, x, g in zip(("d_value", "d_locations", "d_weights"), inputs, again):
+        assert torch.equal(x.grad, g), name
+    grads = ms_deform_attn_backward_plain(value, levels, locs, w, d_out)
+    for name, x, ref in zip(("d_value", "d_locations", "d_weights"), inputs, grads):
+        assert x.grad.dtype == ref.dtype, name
+        share, rtol = MSDA_GRAD_TOL[dtype] if name == "d_value" else MSDA_GRAD_TOL[torch.float32]
+        ref = ref.float()
+        torch.testing.assert_close(x.grad.float(), ref, rtol=rtol,
+                                   atol=share * float(ref.abs().max()) + 1e-30, msg=name)
 
 
 @pytest.mark.gpu
