@@ -3985,7 +3985,7 @@ def phase_ddp_cards(smi, one_card=False):
     cards = torch.cuda.device_count()
     if cards < 2 and not one_card:
         print(f"ddp_cards: not run: {cards} CUDA card(s) here, the phase needs 2 or more "
-              f"(chiprun --chips 4 -- python3 chip_smoke.py --phases ddp_cards)")
+              f"(on a host with four cards: python3 chip_smoke.py --phases ddp_cards)")
         return None
     t0 = time.perf_counter()
     import shutil
