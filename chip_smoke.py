@@ -295,7 +295,7 @@ from salience_detr_torch.ops.nms import (
 )
 from salience_detr_torch.parallel import mesh as ddp_mesh
 from salience_detr_torch.parallel.train_step import make_eval_step
-from salience_detr_torch.timing import card_line, cuda_ms, queued_ms
+from salience_detr_torch.timing import card_line, cuda_ms, cuda_times, queued_ms
 from salience_detr_torch.tools import ddp_check
 from salience_detr_torch.tools import msda_stages as stage_tool
 from salience_detr_torch import train as train_entry
@@ -3041,11 +3041,74 @@ def phase_msda_backbone_shapes(smi):
     return out
 
 
+NUMERICS_TIMED = 5  # numerics_cost: timed steps or forwards a turn, after one untimed
+
+
+def torch_default_numerics():
+    """PyTorch's own settings for what ``configure_numerics`` sets: cuDNN's
+    attention on, TF32 in cuDNN's convolutions, none in cuBLAS, no cuDNN
+    benchmark."""
+    torch.backends.cuda.enable_cudnn_sdp(True)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+
+
+NUMERICS_SETTINGS = {
+    # what a CLI process runs: PyTorch's defaults, then configure_numerics
+    "cli": lambda: (torch_default_numerics(), configure_numerics()),
+    # the checks' setting: also no TF32
+    "exact": lambda: configure_numerics(exact_float32=True),
+    "default": torch_default_numerics,
+}
+
+
+def phase_numerics_cost(smi):
+    """What ``utils.env.configure_numerics`` costs on the flagship: a bf16
+    and a float32 ``Trainer`` step and a bf16 eval forward
+    (``Predictor.forward``, B=4) as a CLI process computes them (cuDNN's
+    attention off, C-26's repair), with TF32 off as well (the checks'
+    ``exact_float32``), and under PyTorch's defaults, in turns (cli, exact,
+    default, default, exact, cli), each turn the device-time median of
+    NUMERICS_TIMED after one untimed."""
+    t0 = time.perf_counter()
+    order = ("cli", "exact", "default", "default", "exact", "cli")
+    medians = {}
+    try:
+        for label, dtype in (("train bf16", torch.bfloat16), ("train f32", torch.float32)):
+            trainer = Trainer(ddp_flagship(dtype), "cuda", seed=0, steps_per_epoch=100)
+            batch = next(trainer.batches(1, seed=0))
+            turns = []
+            for setting in order:
+                NUMERICS_SETTINGS[setting]()
+                turns.append(statistics.median(cuda_times(lambda: trainer.step(batch, trainer.generator),
+                                                          NUMERICS_TIMED)))
+            medians[label] = turns
+            del trainer, batch
+            torch.cuda.empty_cache()
+        predictor = Predictor(load_config(DEFAULT_CONFIG), None, "cuda", seed=0)
+        inputs = preprocess(make_requests(TIMED_BATCH, 7), predictor.cfg, "cuda")
+        turns = []
+        for setting in order:
+            NUMERICS_SETTINGS[setting]()
+            turns.append(statistics.median(cuda_times(lambda: predictor.forward(*inputs), NUMERICS_TIMED)))
+        medians["eval forward bf16"] = turns
+    finally:
+        NUMERICS_SETTINGS["exact"]()  # this script's own setting
+    parts = []
+    for label, turns in medians.items():
+        mean = {k: statistics.mean(t for t, o in zip(turns, order) if o == k) for k in NUMERICS_SETTINGS}
+        parts.append(f"{label} ms {'/'.join(order)} {[round(t, 3) for t in turns]} (over default: cli "
+                     f"{mean['cli'] / mean['default']:.4f}, exact {mean['exact'] / mean['default']:.4f})")
+    print(f"numerics_cost: flagship R50, device ms (median of {NUMERICS_TIMED} a turn): {'; '.join(parts)}; "
+          f"phase_s={time.perf_counter() - t0:.2f}; card: {smi}")
+
+
 def k3_launchers(value, locs, weights, d_out, levels=LEVELS):
     """Launch-only calls of both K3 designs of a given library on these
-    inputs (locations and weights cast to f32 once, outputs and the ordered
-    design's workspace allocated once, from this library's size), and that
-    workspace's bytes."""
+    inputs (locations and weights cast to f32 once, outputs allocated once,
+    the ordered design's workspace once a library, from that library's
+    size), and this build's workspace bytes."""
     B, S, C = value.shape
     Q, G = locs.shape[1:3]
     H, P = weights.shape[2], weights.shape[-1]
@@ -3054,8 +3117,13 @@ def k3_launchers(value, locs, weights, d_out, levels=LEVELS):
     d_value = torch.empty(B, S, C, dtype=value.dtype, device=value.device)
     d_loc, d_attn = torch.empty_like(loc32), torch.empty_like(attn32)
     table, bf16, stream = native.level_table(levels), int(value.dtype == torch.bfloat16), native.stream_of(value)
-    workspace_bytes = native.load().msda_backward_workspace(table, B, S, Q, C, H, G, P)
-    workspace = torch.empty(workspace_bytes, dtype=torch.uint8, device=value.device)
+    workspaces = {}
+
+    def workspace(lib):
+        if id(lib) not in workspaces:
+            size = lib.msda_backward_workspace(table, B, S, Q, C, H, G, P)
+            workspaces[id(lib)] = torch.empty(size, dtype=torch.uint8, device=value.device)
+        return workspaces[id(lib)]
 
     def scatter(lib):  # d_value keeps accumulating: the same atomics each call
         native.check(lib.msda_backward(value.data_ptr(), bf16, table, loc32.data_ptr(), attn32.data_ptr(),
@@ -3065,22 +3133,29 @@ def k3_launchers(value, locs, weights, d_out, levels=LEVELS):
     def ordered(lib):
         native.check(lib.msda_backward_ordered(value.data_ptr(), bf16, table, loc32.data_ptr(), attn32.data_ptr(),
                                                d_out.data_ptr(), d_value.data_ptr(), d_loc.data_ptr(),
-                                               d_attn.data_ptr(), workspace.data_ptr(), B, S, Q, C, H, G, P,
-                                               stream), "msda_backward_ordered")
+                                               d_attn.data_ptr(), workspace(lib).data_ptr(), B, S, Q, C, H, G,
+                                               P, stream), "msda_backward_ordered")
 
-    return scatter, ordered, workspace_bytes
+    return scatter, ordered, workspace(native.load()).numel()
 
 
-def ordered_bound(value, locs, weights, levels, workspace_bytes):
-    """The ordered K3's bound: K3's (``msda_bounds``) with d_value written in
-    the value dtype, plus the workspace it writes and reads (the entries'
-    keys, ranks and weights and the rows' lists), counted once."""
+def ordered_bound(value, locs, weights, levels):
+    """The ordered K3's bound: the function's own bytes and operations, as
+    ``msda_bounds`` counts K3's, with d_value written in the value dtype.
+    The entries' workspace is the design's, not the function's: its bytes
+    are reported beside the bound (``workspace_ms``), never in it."""
     B, S, C = value.shape
     in_level, nonzero, _ = corner_counts(locs, levels)
     small = 4 * (locs.numel() + weights.numel())
     out = B * locs.shape[1] * C * value.element_size()
-    return bound(nbytes(value) + out + 2 * small + B * S * C * value.element_size() + workspace_bytes,
+    return bound(nbytes(value) + out + 2 * small + B * S * C * value.element_size(),
                  2 * (in_level + nonzero) * (C // locs.shape[2]))
+
+
+def workspace_ms(workspace_bytes):
+    """What the ordered K3's workspace would cost at the card's memory rate,
+    each byte written once and read once."""
+    return 2 * workspace_bytes / HBM_BYTES_PER_MS
 
 
 def kernel_breakdown(fn, iters=3):
@@ -3149,7 +3224,7 @@ def ordered_checks(label, value, locs, weights, d_out, levels, baselines, smi):
     launch = [cuda_ms(lambda: run(lib), 10) for run in (scatter, ordered, ordered, scatter)]
     wrapped = [cuda_ms(lambda: fn(value, levels, locs, weights, d_out), 10)
                for fn in (_backward_cuda, _backward_cuda_ordered, _backward_cuda_ordered, _backward_cuda)]
-    bb, bby = ordered_bound(value, locs, weights, levels, workspace_bytes)
+    bb, bby = ordered_bound(value, locs, weights, levels)
     by_kernel = kernel_breakdown(lambda: ordered(lib))
     base_parts = []
     for base_dir in baselines:
@@ -3159,12 +3234,16 @@ def ordered_checks(label, value, locs, weights, d_out, levels, baselines, smi):
                      ((scatter, base), (ordered, lib), (ordered, lib), (scatter, base))]
             base_parts.append(f"against {base_dir}'s scatter K3 base/ordered/ordered/base "
                               f"{[round(x, 4) for x in turns]}")
+        if hasattr(base, "msda_backward_ordered"):
+            turns = [cuda_ms(lambda: ordered(lib_), 10) for lib_ in (base, lib, lib, base)]
+            base_parts.append(f"against {base_dir}'s ordered K3 base/new/new/base {[round(x, 4) for x in turns]}")
     print(f"msda_ordered: {label} G={locs.shape[2]} B={value.shape[0]} Q={locs.shape[1]} S={value.shape[1]} "
           f"{str(value.dtype)[6:]}: errors against the plain backward {' '.join(parts)}; two launches bitwise "
           f"equal; launch-only ms scatter/ordered/ordered/scatter {[round(x, 4) for x in launch]}; with the "
           f"wrappers {[round(x, 4) for x in wrapped]}; {'; '.join(base_parts) + '; ' if base_parts else ''}"
           f"ordered launch by kernel (profiler) {by_kernel}; "
-          f"workspace {workspace_bytes / 2**20:.1f} MiB; bound_ms={bb:.4f} ({bby}, workspace counted once); "
+          f"bound_ms={bb:.4f} ({bby}); workspace {workspace_bytes / 2**20:.1f} MiB, written and read once "
+          f"{workspace_ms(workspace_bytes):.4f} ms at the memory rate (not in the bound); "
           f"card: {smi}")
     return worst, (statistics.mean(wrapped[1:3]), bb, bby), (statistics.mean(launch[::3]), statistics.mean(launch[1:3]))
 
@@ -3408,11 +3487,15 @@ DDP_WORLD, DDP_F32_STEPS, DDP_BF16_STEPS, DDP_STEPS_PER_EPOCH = 2, 2, 2, 4
 # so a top-k, NMS or matching decision may fall the other way on a later
 # batch (PERF.md: up to 1.9e-2 on one loss term at step 1 on the same
 # weights; the tiny CPU tests hold 2e-5).  --use-deterministic-algorithms
-# makes a run repeat itself bitwise (phase train_repeat), but its numerics
-# run other cuDNN engines at a rank's half batch, and a near-tie falls the
-# other way already at step 0 (1.062e-02 on one loss term, the same in
-# every run, PERF.md), so the ranks are held against one process with the
-# default numerics and these bounds stay where they were.  The parameters
+# makes a run repeat itself bitwise (phase train_repeat), but not equal to
+# one process: in either numerics the first module output whose rows part
+# from the whole batch's is the salience predictor's last Linear (a GEMM
+# whose row count is the batch's, 4.2e-7 of its magnitude), and the
+# salience top-k after it selects other tokens (the encoder's class head
+# then parts by 9.0e-2); with the flag that moves a loss term by 1.062e-02
+# at step 0 (``repeat_check ranks``, PERF.md), so the ranks are held
+# against one process with the default numerics and these bounds stay
+# where they were.  The parameters
 # after the last step against the one-process run: the norm of the
 # difference over the norm of what the steps moved them, whole model, at
 # DDP_PARAM_GAP (AdamW divides out a gradient's scale, so this reads the
@@ -3446,7 +3529,7 @@ def ddp_rank_main(out):
     from salience_detr_torch.parallel.mesh import init_distributed, mean_over_ranks, shutdown
     from salience_detr_torch.utils.env import configure_numerics
 
-    configure_numerics()
+    configure_numerics(exact_float32=True)
     out = Path(out)
     mesh = init_distributed("cuda", "gloo")
     try:
@@ -3859,7 +3942,7 @@ def cards_rank_main(out):
 
     out = Path(out)
     spec = json.loads((out / "spec.json").read_text())
-    configure_numerics(spec["deterministic"])
+    configure_numerics(spec["deterministic"], exact_float32=True)
     mesh = init_distributed("cuda", spec["backend"])
     try:
         record = {"device": str(mesh.device), "world": mesh.world, "design": backward_design()}
@@ -3966,8 +4049,9 @@ def phase_ddp_cards(smi, one_card=False):
     * rerun: the same W-rank run twice with --use-deterministic-algorithms'
       numerics, bitwise equal (metrics and digests), each bf16 step
       launching 12 K1, 12 K3 (the ordered design), 1 K2 and 1 K4, and its
-      gap to the one process printed (the deterministic numerics run other
-      cuDNN engines at a rank's batch, which flip near-tie decisions);
+      gap to the one process printed (a rank's batch rounds the salience
+      predictor's GEMM otherwise, and the salience top-k then flips a
+      near-tie: ROADMAP C-27);
     * train CLI: ``torch.distributed.run --nproc_per_node W -m
       salience_detr_torch.train --use-deterministic-algorithms`` on the
       train_coco split, 2 steps and the eval, twice: summaries and
@@ -4138,7 +4222,8 @@ def main(argv=None):
     parser.add_argument("--ddp-cards-on-one-card", action="store_true",
                         help="rehearse phase ddp_cards on one card: 2 gloo ranks share it (no scaling figure)")
     parser.add_argument("--phases", nargs="+", default=None,
-                        choices=("msda_ordered", "train_repeat", "ddp_train", "ddp_nccl", "ddp_eval", "ddp_cards"),
+                        choices=("msda_ordered", "train_repeat", "ddp_train", "ddp_nccl", "ddp_eval", "ddp_cards",
+                                 "numerics_cost"),
                         help="run the device and build phases and these alone, and print no result line")
     args = parser.parse_args(argv)
     if args.ddp_rank is not None:
@@ -4148,11 +4233,13 @@ def main(argv=None):
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
-    configure_numerics()
+    configure_numerics(exact_float32=True)  # the card held against the CPU and against other processes
     if args.phases is not None:
         for name in args.phases:
             if name == "ddp_cards":
                 phase_ddp_cards(smi, args.ddp_cards_on_one_card)
+            elif name == "msda_ordered":
+                phase_msda_ordered(smi, baselines=args.baseline_csrc)
             else:
                 globals()[f"phase_{name}"](smi)
             torch.cuda.empty_cache()
@@ -4223,7 +4310,8 @@ def main(argv=None):
                      coco_launches["msda_backward"], bwd_err, bwd_t),
         # K3's ordered design (no float atomics), the train CLI's run 3 with
         # --use-deterministic-algorithms; timed on the captured flagship
-        # encoder inputs, its workspace counted in the bound
+        # encoder inputs; its bound counts the function's bytes, not the
+        # design's workspace
         kernel_entry("msda_backward_ordered", "msda_backward.cu", "salience_detr_tpu/ops/deform_attn.py:666",
                      ordered_launches["msda_backward_ordered"], ordered_err, ordered_t),
         # K4: the train CLI's steps (train_coco run 1, train_coco_strong) and

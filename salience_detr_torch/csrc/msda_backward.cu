@@ -39,29 +39,32 @@
 // f32 slice in shared memory was measured and lost at G = 1 (PERF.md):
 // shared-memory f32 atomics are compare-and-swap loops on this card.
 //
-// The ordered design (msda_backward_ordered): a pull with no atomic add of
-// a float, bitwise repeatable.  Entries are the in-level corners of every
-// item (b, q, g, l, p) with a nonzero bilinear weight cw, keyed item * 4 +
-// corner; a row is (b, s, g), the C / G channels of location group g at
-// value token s (the whole token at G = 1, one head at G = H).  Launches:
-//   1. count: a thread per item takes each entry's rank in its row's list
-//      from an int atomic on the row's count (a warp's peers at one row
-//      share one atomic), and keeps cw at the entry's key;
-//   2-3. scan: the counts' exclusive prefix sum gives each list its slot;
-//   4. place: a thread per item writes its keys at their slots;
-//   5. gather: a warp per row sorts a list of at most kShortMax keys in
-//      registers and sums attn * cw * d_out[b, q, its channels] in key
-//      order, 4 or 8 rows of d_out in flight, then writes the row once in the
-//      value's dtype; a longer row is handed on;
-//   6. gather of the long rows (the coarse levels of the head-shared
-//      encoder, about 600 entries a row at the flagship's first layer): a
-//      block per row sorts its list (in shared memory up to kSortShared keys,
-//      in place in global memory beyond), its warps sum contiguous eighths
-//      of the sorted list, and the eight partial sums are added in order;
+// The ordered design (msda_backward_ordered): a pull with no atomic add,
+// bitwise repeatable.  Entries are the in-level corners of every item (b,
+// q, g, l, p) with a nonzero bilinear weight cw, keyed item * 4 + corner; a
+// row is (b, s, g), the C / G channels of location group g at value token s
+// (the whole token at G = 1, one head at G = H).  Launches:
+//   1. entries: a thread per key writes the key's row (or none) and cw
+//      (attn * cw at G = H);
+//   2-4. a stable sort of the entries by row, least significant digit
+//      first, one pass a digit of up to kDigitBitsMax bits (three passes at
+//      the flagship's and the 5-scale encoder's shapes): each block counts
+//      the digit values of its tile of consecutive positions, the scan over
+//      (value, tile) gives every (value, tile) its first slot, and each
+//      block stages its tile's entries by value in position order in shared
+//      memory and writes each value's run to consecutive slots.  The keys
+//      enter in key order and every pass keeps the order of equal digits,
+//      so each row's entries leave the sort in key order with no sort of
+//      their own, however long the row;
+//   5. bounds: each row's first and end slot in the sorted entries;
+//   6. gather: a team of lanes per row (32 lanes at G = 1, 4 at G = H = 8)
+//      sums attn * cw * d_out[b, q, its channels] over the row's entries in
+//      key order and writes the row once in the value's dtype; the coarsest
+//      level's rows, the longest (about 600 entries at the flagship's first
+//      encoder layer), are taken first;
 //   7. d_locations and d_weights: the scatter design's kernel without its
 //      scatter.
-// Whatever ranks the atomics hand out, every sum runs in key order (or in a
-// fixed split of it), so the result depends on the inputs alone.
+// Every sum runs in key order, so the result depends on the inputs alone.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -259,15 +262,13 @@ int dispatch(const void* value, const LevelTable& levels, const void* loc, const
 // ---------------------------------------------------------------- the ordered design
 
 constexpr int kItemThreads = 256;
-// entries a gather warp takes at a time: rows of d_out in flight (8 where a
-// lane holds at most 2 channels, 4 where it holds 4 or 8)
-template <int CPL>
-constexpr int kBatch = CPL <= 2 ? 8 : 4;
-constexpr int kShortMax = 128;     // the longest list a warp sorts in registers
-constexpr int kSortShared = 4096;  // the longest list a block sorts in shared memory
-constexpr int kLongThreads = 256;
-constexpr int kLongWarps = kLongThreads / 32;
-constexpr int kLongBlocks = 1024;  // blocks of the long-row gather, block i taking rows i, i + 1024, ...
+constexpr int kSortWarps = 8;                   // warps a block of the sort passes
+constexpr int kSortRounds = 8;                  // a sort warp takes 32 * kSortRounds consecutive positions
+constexpr int kTile = kSortWarps * 32 * kSortRounds;  // a block's positions: 2048
+constexpr int kDigitBitsMax = 8;                // a pass sorts on at most 256 digit values
+constexpr int kDigitsMax = 1 << kDigitBitsMax;
+static_assert(kDigitsMax == kSortWarps * 32, "a thread a digit value");
+constexpr int kBatch = 8;                       // entries a gather team has in flight
 
 // The shape of one call as the ordered kernels index it.  An item is (b, q,
 // g, l, p), numbered ((bq * G + g) * L + l) * P + p, which is also its
@@ -276,11 +277,11 @@ constexpr int kLongBlocks = 1024;  // blocks of the long-row gather, block i tak
 // (4 an item) and rows stay below 2^31 (ordered_fits), so the kernels index
 // them in 32-bit unsigned arithmetic: a 64-bit division is many times the
 // instructions.  With one head a group (G = H, the decoder) an item's
-// attention weight is its attn element `item`, and the count folds it into
-// the entry's weight.
+// attention weight is its attn element `item`, and the entry kernel folds
+// it into the entry's weight.
 struct Dims {
   int64_t items, rows;
-  int S, Q, C, H, G, L, P;
+  int B, S, Q, C, H, G, L, P;
   bool fold;  // G == H
 };
 
@@ -304,252 +305,266 @@ __device__ __forceinline__ ItemCorners item_corners(const LevelTable& levels,
   return {bilinear(xy, lh, lw), lh, lw, levels.start[l], (static_cast<int64_t>(b) * d.S) * d.G + g};
 }
 
-// Whether corner (dy, dx) of the item is an entry (inside its level, with a
-// nonzero weight); if so, its row and its weight cw = wx * wy as the scatter
-// design computes it.
-__device__ __forceinline__ bool corner_entry(const ItemCorners& it, int dy, int dx, int G,
-                                             int64_t& row, float& cw) {
-  const int cy = it.pt.y0 + dy, cx = it.pt.x0 + dx;
-  if (cy < 0 || cy >= it.lh || cx < 0 || cx >= it.lw) return false;
-  const float wy = dy ? it.pt.fy : 1.f - it.pt.fy;
-  const float wx = dx ? it.pt.fx : 1.f - it.pt.fx;
-  cw = wx * wy;
-  row = it.row0 + static_cast<int64_t>(it.ls + cy * it.lw + cx) * G;
-  return cw != 0.f;
-}
-
-// 1. count: per entry one count at its row, whose old value is the entry's
-// rank in the row's list, and its weight (cw, or attn * cw folded), both at
-// its key.  The lanes of a warp that count at one row are served by one
-// atomic of their number, each taking its rank among them in lane order.
+// 1. entries: a thread per key (item * 4 + corner).  The corner is an
+// entry when it lies inside its level with a nonzero weight cw = wx * wy
+// (attn * cw, folded at G = H, nonzero); the key's row is written (-1 for
+// no entry) and its weight (0 for none).
 __global__ void __launch_bounds__(kItemThreads)
-msda_count_kernel(const LevelTable levels, const float* __restrict__ loc,
-                  const float* __restrict__ attn, int* __restrict__ counts,
-                  int* __restrict__ rank, float* __restrict__ wcoef, const Dims d) {
-  const unsigned item = blockIdx.x * kItemThreads + threadIdx.x;
-  const bool live = item < d.items;
-  const int lane = threadIdx.x & 31;
-  ItemCorners it{{-4, -4, 0.f, 0.f}, 1, 1, 0, 0};  // no corner inside its level
-  float a = 1.f;
-  if (live) {
-    it = item_corners(levels, loc, item, d);
-    if (d.fold) a = __ldg(attn + item);
-  }
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    int64_t row = 0;
-    float cw = 0.f;
-    bool entry = live && corner_entry(it, c >> 1, c & 1, d.G, row, cw);
-    if (d.fold) {
-      cw = a * cw;  // the product the gather would form: attn * cw
-      entry = entry && cw != 0.f;
-    }
-    const unsigned counting = __ballot_sync(kFull, entry);
-    if (!entry) continue;
-    int* at = counts + row;
-    const unsigned peers = __match_any_sync(counting, reinterpret_cast<unsigned long long>(at));
-    const int leader = __ffs(peers) - 1;
-    int base = 0;
-    if (lane == leader) base = atomicAdd(at, __popc(peers));
-    base = __shfl_sync(peers, base, leader);
-    const unsigned key = item * 4 + c;
-    rank[key] = base + __popc(peers & ((1u << lane) - 1));
-    wcoef[key] = cw;
-  }
-}
-
-// 4. place: each entry's key at its rank in its row's list (an entry is
-// what the count took: its weight there is nonzero)
-__global__ void __launch_bounds__(kItemThreads)
-msda_place_kernel(const LevelTable levels, const float* __restrict__ loc,
-                  const int* __restrict__ offs, const int* __restrict__ rank,
-                  const float* __restrict__ wcoef, int* __restrict__ keys, const Dims d) {
-  const unsigned item = blockIdx.x * kItemThreads + threadIdx.x;
-  if (item >= d.items) return;
+msda_entry_kernel(const LevelTable levels, const float* __restrict__ loc,
+                  const float* __restrict__ attn, int* __restrict__ row_of,
+                  float* __restrict__ wcoef, const Dims d) {
+  const unsigned key = blockIdx.x * kItemThreads + threadIdx.x;
+  if (key >= d.items * 4) return;
+  const unsigned item = key >> 2;
+  const int dy = (key >> 1) & 1, dx = key & 1;
   const ItemCorners it = item_corners(levels, loc, item, d);
+  const int cy = it.pt.y0 + dy, cx = it.pt.x0 + dx;
+  int row = -1;
+  float cw = 0.f;
+  if (cy >= 0 && cy < it.lh && cx >= 0 && cx < it.lw) {
+    const float wy = dy ? it.pt.fy : 1.f - it.pt.fy;
+    const float wx = dx ? it.pt.fx : 1.f - it.pt.fx;
+    cw = wx * wy;                          // as the scatter design computes it
+    if (d.fold) cw = __ldg(attn + item) * cw;  // the product the gather would form
+    if (cw != 0.f) row = static_cast<int>(it.row0 + static_cast<int64_t>(it.ls + cy * it.lw + cx) * d.G);
+  }
+  row_of[key] = row;
+  wcoef[key] = row < 0 ? 0.f : cw;
+}
+
+// One pass of the stable sort of the entries by row: the digit (row >>
+// shift) & mask of the n positions of rows_in (n_dev's value when given; a
+// row below 0 is no entry).  A tile is a block's kTile consecutive
+// positions; warp w of the block takes the w-th eighth of the tile, 32
+// positions a round in order, so the order of a digit value's entries in
+// the tile (warps in order, then rounds, then lanes) is their positions'.
+struct Digit {
+  int shift, mask;
+};
+
+__device__ __forceinline__ int tile_count(const int* n_dev, int n_host) { return n_dev ? *n_dev : n_host; }
+
+// The r-th position of this thread's warp in the tile.
+__device__ __forceinline__ int tile_position(int tile, int r) {
+  return tile * kTile + ((threadIdx.x >> 5) * kSortRounds + r) * 32 + (threadIdx.x & 31);
+}
+
+// The exclusive prefix of x over the block's kSortWarps * 32 threads
+// (thread t holding digit value t); *total receives the sum.
+__device__ __forceinline__ int digits_exclusive_scan(int x, int* total) {
+  __shared__ int warp_sums[kSortWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = x;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    int64_t row;
-    float cw;
-    if (!corner_entry(it, c >> 1, c & 1, d.G, row, cw)) continue;
-    const unsigned key = item * 4 + c;
-    if (d.fold && __ldg(wcoef + key) == 0.f) continue;
-    keys[__ldg(offs + row) + __ldg(rank + key)] = static_cast<int>(key);
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += y;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  int before = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < kSortWarps; ++w) {
+    before += w < warp ? warp_sums[w] : 0;
+    all += warp_sums[w];
+  }
+  *total = all;
+  return before + incl - x;
+}
+
+// Each warp's count of each digit value among its positions, in
+// cnt[warp][value]; the lanes of a round that share a value are counted by
+// one of them.  Returns the warp's ranks in rank[] (its entry's rank among
+// the warp's entries of its value, -1 for no entry) with their rows.
+__device__ __forceinline__ void warp_digit_counts(const int* __restrict__ rows_in, int n, int tile, const Digit dg,
+                                                  int (*cnt)[kDigitsMax], int (&row)[kSortRounds],
+                                                  int (&rank)[kSortRounds]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int r = 0; r < kSortRounds; ++r) {
+    const int pos = tile_position(tile, r);
+    row[r] = pos < n ? __ldg(rows_in + pos) : -1;
+    rank[r] = -1;
+    const unsigned live = __ballot_sync(kFull, row[r] >= 0);
+    unsigned peers = 0;
+    int v = 0;
+    if (row[r] >= 0) {
+      v = (row[r] >> dg.shift) & dg.mask;
+      peers = __match_any_sync(live, v);
+      rank[r] = cnt[warp][v] + __popc(peers & ((1u << lane) - 1));
+    }
+    __syncwarp();  // every lane has read its value's count before the leaders move it on
+    if (row[r] >= 0 && lane == __ffs(peers) - 1) cnt[warp][v] += __popc(peers);
+    __syncwarp();
   }
 }
 
-// One lane's share of a row's sum: CPL channels of head h, at channel c0
-// of the token (a lane past the group's C / G channels holds none).
-template <typename T, int CPL>
-struct RowSum {
-  float acc[CPL];
-  int64_t out;  // the lane's first element of d_value
-  unsigned bq_stride, LP;  // items per (b, q): G * L * P; per (b, q, g): L * P
-  int c0, h;
-  bool active;
-
-  __device__ __forceinline__ RowSum(int64_t row, int lane, const Dims& d) {
-    const int CG = d.C / d.G;
-    c0 = static_cast<int>(row % d.G) * CG + lane * CPL;
-    out = row / d.G * d.C + c0;
-    active = lane * CPL < CG;
-    h = c0 / (d.C / d.H);
-    LP = d.L * d.P;
-    bq_stride = d.G * LP;
+// 2. count: each tile's entries of each digit value, at hist[value * tiles
+// + tile] (so that the scan over hist ranks a value's entries tile by tile)
+__global__ void __launch_bounds__(kSortWarps * 32)
+msda_digit_count_kernel(const int* __restrict__ rows_in, const int* __restrict__ n_dev, int n_host,
+                        const Digit dg, int tiles, int* __restrict__ hist) {
+  __shared__ int cnt[kSortWarps][kDigitsMax];
+  const int tile = blockIdx.x, t = threadIdx.x;
 #pragma unroll
-    for (int i = 0; i < CPL; ++i) acc[i] = 0.f;
+  for (int w = 0; w < kSortWarps; ++w) cnt[w][t] = 0;
+  __syncthreads();
+  int row[kSortRounds], rank[kSortRounds];
+  warp_digit_counts(rows_in, tile_count(n_dev, n_host), tile, dg, cnt, row, rank);
+  __syncthreads();
+  if (t <= dg.mask) {
+    int sum = 0;
+#pragma unroll
+    for (int w = 0; w < kSortWarps; ++w) sum += cnt[w][t];
+    hist[static_cast<int64_t>(t) * tiles + tile] = sum;
   }
+}
 
-  // N entries (keys ascending, kNoKey for none): acc += (attn * cw) *
-  // d_out[b, q, the lane's channels], one fma a channel, the N rows of d_out
-  // loaded before any is added; an entry whose attn * cw is 0 adds nothing,
-  // as in the scatter design
-  template <int N>
-  __device__ __forceinline__ void take(const int (&key)[N], const T* __restrict__ d_out,
-                                       const float* __restrict__ attn,
-                                       const float* __restrict__ wcoef, const Dims& d) {
-    float go[N][CPL], aw[N];
+// 4. place: the tile's entries staged in shared memory in (value,
+// position) order, then written out so that consecutive threads write a
+// value's consecutive slots: entry i of value v in the tile goes to the
+// scan's slot of (v, tile) plus i; keys_in null: the key is the position
+// (the first pass)
+__global__ void __launch_bounds__(kSortWarps * 32)
+msda_digit_place_kernel(const int* __restrict__ rows_in, const int* __restrict__ keys_in,
+                        const int* __restrict__ n_dev, int n_host, const Digit dg, int tiles,
+                        const int* __restrict__ offs, int* __restrict__ rows_out,
+                        int* __restrict__ keys_out) {
+  __shared__ int cnt[kSortWarps][kDigitsMax];  // the warps' counts, then their first slots in the value's run
+  __shared__ int run_start[kDigitsMax];        // each value's first slot in the staged tile
+  __shared__ int out_start[kDigitsMax];        // each value's first slot in rows_out for this tile
+  __shared__ int2 staged[kTile];
+  const int tile = blockIdx.x, t = threadIdx.x, warp = t >> 5;
 #pragma unroll
-    for (int e = 0; e < N; ++e) {
+  for (int w = 0; w < kSortWarps; ++w) cnt[w][t] = 0;
+  out_start[t] = t <= dg.mask ? __ldg(offs + static_cast<int64_t>(t) * tiles + tile) : 0;
+  __syncthreads();
+  const int n = tile_count(n_dev, n_host);
+  int row[kSortRounds], rank[kSortRounds];
+  warp_digit_counts(rows_in, n, tile, dg, cnt, row, rank);
+  __syncthreads();
+  int total = 0;  // the value's entries in the tile
+#pragma unroll
+  for (int w = 0; w < kSortWarps; ++w) {
+    const int c = cnt[w][t];
+    cnt[w][t] = total;
+    total += c;
+  }
+  int entries;
+  run_start[t] = digits_exclusive_scan(total, &entries);
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kSortRounds; ++r) {
+    if (rank[r] >= 0) {
+      const int v = (row[r] >> dg.shift) & dg.mask;
+      const int pos = tile_position(tile, r);
+      staged[run_start[v] + cnt[warp][v] + rank[r]] = make_int2(row[r], keys_in ? __ldg(keys_in + pos) : pos);
+    }
+  }
+  __syncthreads();
+  for (int i = t; i < entries; i += kSortWarps * 32) {
+    const int2 e = staged[i];
+    const int v = (e.x >> dg.shift) & dg.mask;
+    const int slot = out_start[v] + i - run_start[v];
+    rows_out[slot] = e.x;
+    keys_out[slot] = e.y;
+  }
+}
+
+// 5. bounds: row r's entries are sorted[first[r], end[r]) (both zeroed
+// before: a row with no entry keeps an empty range)
+__global__ void __launch_bounds__(kItemThreads)
+msda_row_bounds_kernel(const int* __restrict__ rows, const int* __restrict__ n_dev,
+                       int* __restrict__ first, int* __restrict__ end) {
+  const int i = blockIdx.x * kItemThreads + threadIdx.x;
+  const int n = *n_dev;
+  if (i >= n) return;
+  const int row = rows[i];
+  if (i == 0 || rows[i - 1] != row) first[row] = i;
+  if (i == n - 1 || rows[i + 1] != row) end[row] = i + 1;
+}
+
+// The token of slot t when the tokens are taken coarsest level first, then
+// by image, then in the level's order: the long lists of the coarse levels
+// start first.
+__device__ __forceinline__ void token_of(const LevelTable& levels, int B, unsigned t, unsigned& b,
+                                         unsigned& s) {
+  b = s = 0;
+  for (int l = levels.num_levels - 1; l >= 0; --l) {
+    const unsigned hw = static_cast<unsigned>(levels.h[l] * levels.w[l]);
+    if (t < B * hw) {
+      b = t / hw;
+      s = levels.start[l] + t % hw;
+      return;
+    }
+    t -= B * hw;
+  }
+}
+
+// 6. gather: a team of LPR = C / G / CPL lanes per row, CPL channels a lane
+// (inside one head), 32 / LPR rows a warp (one token's groups, or
+// consecutive tokens); a team sums attn * cw * d_out[b, q, its channels]
+// over its row's entries in key order, kBatch rows of d_out in flight, and
+// writes the row once in the value's dtype (zeros for a row with none).
+template <typename T, int CPL>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+msda_gather_kernel(const LevelTable levels, const T* __restrict__ d_out,
+                   const float* __restrict__ attn, const int* __restrict__ first,
+                   const int* __restrict__ end, const int* __restrict__ keys,
+                   const float* __restrict__ wcoef, T* __restrict__ d_value, int lpr_log2,
+                   const Dims d) {
+  const int lane = threadIdx.x & 31;
+  const unsigned slot = (blockIdx.x * kWarpsPerBlock + threadIdx.x / 32) * (32u >> lpr_log2) +
+                        (lane >> lpr_log2);
+  if (slot >= d.rows) return;
+  unsigned b, s;
+  token_of(levels, d.B, slot / d.G, b, s);
+  const unsigned g = slot % d.G;
+  const unsigned row = (b * d.S + s) * d.G + g;
+  const int c0 = static_cast<int>(g) * (d.C / d.G) + (lane & ((1 << lpr_log2) - 1)) * CPL;
+  const int h = c0 / (d.C / d.H);
+  const unsigned LP = d.L * d.P, bq_items = d.G * LP;
+  float acc[CPL];
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) acc[i] = 0.f;
+  const int n = __ldg(end + row);
+  for (int t = __ldg(first + row); t < n; t += kBatch) {
+    float go[kBatch][CPL], aw[kBatch];
+#pragma unroll
+    for (int e = 0; e < kBatch; ++e) {
       aw[e] = 0.f;
-      if (key[e] != kNoKey && active) {
-        const unsigned item = static_cast<unsigned>(key[e]) >> 2;
-        const unsigned bq = item / bq_stride;
-        const float w = __ldg(wcoef + key[e]);
+      if (t + e < n) {
+        const int key = __ldg(keys + t + e);
+        const unsigned item = static_cast<unsigned>(key) >> 2;
+        const unsigned bq = item / bq_items;
+        const float w = __ldg(wcoef + key);
         aw[e] = d.fold ? w : __ldg(attn + (static_cast<int64_t>(bq) * d.H + h) * LP + item % LP) * w;
         load_chunk<T, CPL>(d_out + static_cast<int64_t>(bq) * d.C + c0, go[e]);
       }
     }
 #pragma unroll
-    for (int e = 0; e < N; ++e) {
-      if (aw[e] != 0.f) {
+    for (int e = 0; e < kBatch; ++e) {
+      if (aw[e] != 0.f) {  // an entry whose attn * cw is 0 adds nothing, as in the scatter design
 #pragma unroll
         for (int i = 0; i < CPL; ++i) acc[i] = fmaf(aw[e], go[e][i], acc[i]);
       }
     }
   }
-
-  // the entries list[lo, hi) in order (the same on every lane)
-  __device__ __forceinline__ void take_range(const int* list, int lo, int hi,
-                                             const T* __restrict__ d_out,
-                                             const float* __restrict__ attn,
-                                             const float* __restrict__ wcoef, const Dims& d) {
-    constexpr int N = kBatch<CPL>;
-    for (int t = lo; t < hi; t += N) {
-      int key[N];
-#pragma unroll
-      for (int e = 0; e < N; ++e) key[e] = t + e < hi ? list[t + e] : kNoKey;
-      take<N>(key, d_out, attn, wcoef, d);
-    }
-  }
-};
-
-// a list of at most 32 * KPL keys: sorted in registers, then taken in order
-template <typename T, int CPL, int KPL>
-__device__ __forceinline__ void sum_sorted(RowSum<T, CPL>& s, const int* __restrict__ list, int n,
-                                           const T* __restrict__ d_out,
-                                           const float* __restrict__ attn,
-                                           const float* __restrict__ wcoef, const Dims& d,
-                                           int lane) {
-  int k[KPL];
-#pragma unroll
-  for (int j = 0; j < KPL; ++j) k[j] = j * 32 + lane < n ? __ldg(list + j * 32 + lane) : kNoKey;
-  warp_sort<KPL>(k);
-#pragma unroll
-  for (int j = 0; j < KPL; ++j) {
-    if (j * 32 >= n) break;
-    constexpr int N = kBatch<CPL>;
-    for (int l = 0; l < 32; l += N) {
-      int key[N];
-#pragma unroll
-      for (int e = 0; e < N; ++e) key[e] = __shfl_sync(kFull, k[j], l + e);
-      if (key[0] == kNoKey) break;
-      s.template take<N>(key, d_out, attn, wcoef, d);
-    }
-  }
-}
-
-// 5. gather: a warp per row of at most kShortMax entries, written once in
-// T; a longer row's index is appended to long_rows for kernel 6
-template <typename T, int CPL>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-msda_gather_kernel(const T* __restrict__ d_out, const float* __restrict__ attn,
-                   const int* __restrict__ counts, const int* __restrict__ offs,
-                   const int* __restrict__ keys, const float* __restrict__ wcoef,
-                   T* __restrict__ d_value, int* __restrict__ nlong, int* __restrict__ long_rows,
-                   const Dims d) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / 32;
-  if (row >= d.rows) return;  // whole warps leave together
-  const int lane = threadIdx.x & 31;
-  const int n = __ldg(counts + row);
-  if (n > kShortMax) {
-    if (lane == 0) long_rows[atomicAdd(nlong, 1)] = static_cast<int>(row);
-    return;
-  }
-  RowSum<T, CPL> s(row, lane, d);
-  const int* list = keys + __ldg(offs + row);
-  if (n <= 32) {
-    sum_sorted<T, CPL, 1>(s, list, n, d_out, attn, wcoef, d, lane);
-  } else if (n <= 64) {
-    sum_sorted<T, CPL, 2>(s, list, n, d_out, attn, wcoef, d, lane);
-  } else {
-    sum_sorted<T, CPL, 4>(s, list, n, d_out, attn, wcoef, d, lane);
-  }
-  if (s.active) store_chunk<T, CPL>(d_value + s.out, s.acc);
-}
-
-// 6. the long rows: a block a row, kLongBlocks blocks striding over the
-// rows kernel 5 handed on.  The list is sorted by the whole block, in shared
-// memory up to kSortShared keys and in place in global memory beyond; warp
-// w sums the w-th eighth of the sorted list; warp 0 adds the eighths in
-// order and writes the row.
-template <typename T, int CPL>
-__global__ void __launch_bounds__(kLongThreads)
-msda_gather_long_kernel(const T* __restrict__ d_out, const float* __restrict__ attn,
-                        const int* __restrict__ counts, const int* __restrict__ offs,
-                        int* keys, const float* __restrict__ wcoef, T* __restrict__ d_value,
-                        const int* __restrict__ nlong, const int* __restrict__ long_rows,
-                        const Dims d) {
-  __shared__ int sorted[kSortShared];
-  __shared__ float part[kLongWarps][32][CPL];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int rows = *nlong;
-  for (int r = blockIdx.x; r < rows; r += gridDim.x) {
-    const int64_t row = long_rows[r];
-    const int n = counts[row];
-    int* list = keys + offs[row];
-    int* a = n <= kSortShared ? sorted : list;
-    if (a == sorted) {
-      for (int i = threadIdx.x; i < n; i += kLongThreads) sorted[i] = list[i];
-    }
-    __syncthreads();
-    block_sort(a, n);
-    RowSum<T, CPL> s(row, lane, d);
-    const int seg = (n + kLongWarps - 1) / kLongWarps;
-    s.take_range(a, min(n, warp * seg), min(n, (warp + 1) * seg), d_out, attn, wcoef, d);
-#pragma unroll
-    for (int i = 0; i < CPL; ++i) part[warp][lane][i] = s.acc[i];
-    __syncthreads();
-    if (warp == 0 && s.active) {
-      for (int w = 1; w < kLongWarps; ++w) {
-#pragma unroll
-        for (int i = 0; i < CPL; ++i) s.acc[i] += part[w][lane][i];
-      }
-      store_chunk<T, CPL>(d_value + s.out, s.acc);
-    }
-    __syncthreads();  // sorted and part are free for the next row
-  }
+  store_chunk<T, CPL>(d_value + (static_cast<int64_t>(b) * d.S + s) * d.C + c0, acc);
 }
 
 // The ordered design's scratch, carved from one workspace in this order,
-// each part 16-byte aligned: counts, offs and long_rows (an int a row), the
-// scan's tile sums, the long-row count, then the keys, each entry's rank
-// and its cw (an int or float a key, 4 keys an item).
+// each part 16-byte aligned: the sort's two buffers of (row, key) pairs (an
+// int each a key; the first pass reads each key's row from rows_b), the
+// keys' weights, the digit counts and their scan (an int a digit value and
+// tile), the scan's block sums, then the rows' first and end slots and the
+// count of entries, contiguous for one memset.
 struct Workspace {
-  int *counts, *offs, *long_rows, *sums, *nlong, *keys, *rank;
+  int *rows_a, *keys_a, *rows_b, *keys_b, *hist, *offs, *sums, *first, *end, *nvalid;
   float* wcoef;
   int64_t nkeys, bytes;
-  int nscan;
+  int tiles, nscan, passes;
+  Digit digit;  // the width of every pass's digit (shift 0)
 };
 
 inline int64_t align16(int64_t n) { return (n + 15) / 16 * 16; }
@@ -557,7 +572,14 @@ inline int64_t align16(int64_t n) { return (n + 15) / 16 * 16; }
 inline Workspace plan_workspace(void* base, const Dims& d) {
   Workspace w{};
   w.nkeys = d.items * 4;
-  w.nscan = static_cast<int>((d.rows + kScanTile - 1) / kScanTile);
+  w.tiles = static_cast<int>((w.nkeys + kTile - 1) / kTile);
+  int bits = 1;
+  while (bits < 31 && (int64_t{1} << bits) < d.rows) ++bits;
+  w.passes = (bits + kDigitBitsMax - 1) / kDigitBitsMax;
+  const int width = (bits + w.passes - 1) / w.passes;
+  w.digit = {0, (1 << width) - 1};
+  const int64_t counts = static_cast<int64_t>(w.tiles) << width;
+  w.nscan = static_cast<int>((counts + kScanTile - 1) / kScanTile);
   char* p = static_cast<char*>(base);
   int64_t at = 0;
   auto take = [&](int64_t bytes) {
@@ -565,50 +587,78 @@ inline Workspace plan_workspace(void* base, const Dims& d) {
     at += align16(bytes);
     return reinterpret_cast<int*>(q);
   };
-  w.counts = take(4 * d.rows);
-  w.offs = take(4 * d.rows);
-  w.long_rows = take(4 * d.rows);
-  w.sums = take(4 * static_cast<int64_t>(w.nscan));
-  w.nlong = take(4);
-  w.keys = take(4 * w.nkeys);
-  w.rank = take(4 * w.nkeys);
+  w.rows_a = take(4 * w.nkeys);
+  w.keys_a = take(4 * w.nkeys);
+  w.rows_b = take(4 * w.nkeys);
+  w.keys_b = take(4 * w.nkeys);
   w.wcoef = reinterpret_cast<float*>(take(4 * w.nkeys));
+  w.hist = take(4 * counts);
+  w.offs = take(4 * counts);
+  w.sums = take(4 * static_cast<int64_t>(w.nscan));
+  w.first = take(4 * d.rows);
+  w.end = take(4 * d.rows);
+  w.nvalid = take(4);
   w.bytes = at;
   return w;
 }
 
 inline Dims make_dims(const LevelTable& levels, int B, int S, int Q, int C, int H, int G, int P) {
   const int L = levels.num_levels;
-  return {static_cast<int64_t>(B) * Q * G * L * P, static_cast<int64_t>(B) * S * G, S, Q, C, H, G,
+  return {static_cast<int64_t>(B) * Q * G * L * P, static_cast<int64_t>(B) * S * G, B, S, Q, C, H, G,
           L, P, G == H};
 }
 
-// keys and list slots are int32; rows are stored as int32 in long_rows
+// keys, rows and slots are int32
 inline bool ordered_fits(const Dims& d) { return d.items * 4 < INT_MAX && d.rows < INT_MAX; }
 
-template <typename T, int CPL>
-void launch_gathers(const Workspace& w, const Dims& d, const void* d_out, const float* attn,
-                    void* d_value, cudaStream_t s) {
-  const unsigned blocks = static_cast<unsigned>((d.rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  msda_gather_kernel<T, CPL><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
-      static_cast<const T*>(d_out), attn, w.counts, w.offs, w.keys, w.wcoef,
-      static_cast<T*>(d_value), w.nlong, w.long_rows, d);
-  msda_gather_long_kernel<T, CPL><<<kLongBlocks, kLongThreads, 0, s>>>(
-      static_cast<const T*>(d_out), attn, w.counts, w.offs, w.keys, w.wcoef,
-      static_cast<T*>(d_value), w.nlong, w.long_rows, d);
+// the passes of the sort (LSD: the lowest digit first, each pass stable);
+// returns the buffer holding the sorted rows and keys
+int sort_entries(const Workspace& w, cudaStream_t s, int** rows, int** keys) {
+  const unsigned blocks = static_cast<unsigned>(w.tiles);
+  const int64_t counts = static_cast<int64_t>(w.tiles) * (w.digit.mask + 1);
+  int *in_rows = w.rows_b, *in_keys = nullptr, *out_rows = w.rows_a, *out_keys = w.keys_a;
+  const int width = __builtin_popcount(static_cast<unsigned>(w.digit.mask));
+  for (int p = 0; p < w.passes; ++p) {
+    const Digit dg{p * width, w.digit.mask};
+    const int* n_dev = p == 0 ? nullptr : w.nvalid;
+    const int n_host = static_cast<int>(w.nkeys);
+    msda_digit_count_kernel<<<blocks, kSortWarps * 32, 0, s>>>(in_rows, n_dev, n_host, dg, w.tiles, w.hist);
+    scan_sums_kernel<<<w.nscan, kScanThreads, 0, s>>>(w.hist, counts, w.sums);
+    scan_offsets_kernel<<<w.nscan, kScanThreads, 0, s>>>(w.hist, counts, w.sums, w.offs,
+                                                         p == 0 ? w.nvalid : nullptr);
+    msda_digit_place_kernel<<<blocks, kSortWarps * 32, 0, s>>>(in_rows, in_keys, n_dev, n_host, dg, w.tiles,
+                                                               w.offs, out_rows, out_keys);
+    in_rows = out_rows;
+    in_keys = out_keys;
+    out_rows = in_rows == w.rows_a ? w.rows_b : w.rows_a;
+    out_keys = in_keys == w.keys_a ? w.keys_b : w.keys_a;
+  }
+  *rows = in_rows;
+  *keys = in_keys;
+  return static_cast<int>(cudaGetLastError());
 }
 
-// the gather's channels a lane: the group's C / G channels over 32 lanes,
-// at least one (a narrower group leaves lanes idle)
+// the gather's lanes: CPL channels a lane inside one head, LPR = C / G /
+// CPL lanes a row (at most 32: C / G <= 256)
 template <typename T>
-int dispatch_gathers(const Workspace& w, const Dims& d, const void* d_out, const float* attn,
-                     void* d_value, cudaStream_t s) {
-  const int CG = d.C / d.G;
-  switch (CG >= 32 ? CG / 32 : 1) {
-    case 1: launch_gathers<T, 1>(w, d, d_out, attn, d_value, s); break;
-    case 2: launch_gathers<T, 2>(w, d, d_out, attn, d_value, s); break;
-    case 4: launch_gathers<T, 4>(w, d, d_out, attn, d_value, s); break;
-    case 8: launch_gathers<T, 8>(w, d, d_out, attn, d_value, s); break;
+int dispatch_gather(const LevelTable& levels, const Workspace& w, const int* keys, const Dims& d,
+                    const void* d_out, const float* attn, void* d_value, cudaStream_t s) {
+  const int D = d.C / d.H, CG = d.C / d.G;
+  const int cpl = D >= 8 ? 8 : D;
+  int lpr_log2 = 0;
+  while ((cpl << lpr_log2) < CG) ++lpr_log2;
+  if ((cpl << lpr_log2) != CG || lpr_log2 > 5) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t warps = (d.rows + (32 >> lpr_log2) - 1) / (32 >> lpr_log2);
+  const unsigned blocks = static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  auto run = [&](auto kernel) {
+    kernel<<<blocks, kWarpsPerBlock * 32, 0, s>>>(levels, static_cast<const T*>(d_out), attn, w.first, w.end,
+                                                  keys, w.wcoef, static_cast<T*>(d_value), lpr_log2, d);
+  };
+  switch (cpl) {
+    case 1: run(msda_gather_kernel<T, 1>); break;
+    case 2: run(msda_gather_kernel<T, 2>); break;
+    case 4: run(msda_gather_kernel<T, 4>); break;
+    case 8: run(msda_gather_kernel<T, 8>); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -646,8 +696,9 @@ extern "C" int64_t msda_backward_workspace(LevelTable levels, int B, int S, int 
 // The ordered design: as msda_backward, but d_value (B, S, C) is in the
 // value's dtype and every element is written here (no zeroing needed);
 // workspace: msda_backward_workspace bytes, 16-byte aligned, any contents.
-// Eight operations on the stream: a memset of the counts, count, two scan
-// passes, place, the two gathers, and the d_locations / d_weights kernel.
+// On the stream: a memset of the row bounds, the entry kernel, four
+// operations a sort pass (count, two scan passes, place), the bounds, the
+// gather, and the d_locations / d_weights kernel.
 extern "C" int msda_backward_ordered(const void* value, int value_is_bf16, LevelTable levels,
                                      const void* loc, const void* attn, const void* d_out,
                                      void* d_value, void* d_loc, void* d_attn, void* workspace,
@@ -659,26 +710,23 @@ extern "C" int msda_backward_ordered(const void* value, int value_is_bf16, Level
   if (d.rows == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Workspace w = plan_workspace(workspace, d);
-  const float* locf = static_cast<const float*>(loc);
   const float* attnf = static_cast<const float*>(attn);
-  // counts, offs, long_rows, sums and nlong are contiguous: zero them all
-  cudaError_t err = cudaMemsetAsync(w.counts, 0, reinterpret_cast<char*>(w.keys) -
-                                                     reinterpret_cast<char*>(w.counts), s);
+  // first, end and nvalid are contiguous: zero them all
+  cudaError_t err = cudaMemsetAsync(w.first, 0, reinterpret_cast<char*>(w.nvalid + 1) -
+                                                    reinterpret_cast<char*>(w.first), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned item_blocks = static_cast<unsigned>((d.items + kItemThreads - 1) / kItemThreads);
+  int *rows = nullptr, *keys = nullptr;
   if (d.items > 0) {
-    msda_count_kernel<<<item_blocks, kItemThreads, 0, s>>>(levels, locf, attnf, w.counts, w.rank, w.wcoef,
-                                                           d);
-  }
-  scan_sums_kernel<<<w.nscan, kScanThreads, 0, s>>>(w.counts, d.rows, w.sums);
-  scan_offsets_kernel<<<w.nscan, kScanThreads, 0, s>>>(w.counts, d.rows, w.sums, w.offs);
-  if (d.items > 0) {
-    msda_place_kernel<<<item_blocks, kItemThreads, 0, s>>>(levels, locf, w.offs, w.rank, w.wcoef, w.keys,
-                                                           d);
+    const unsigned key_blocks = static_cast<unsigned>((w.nkeys + kItemThreads - 1) / kItemThreads);
+    msda_entry_kernel<<<key_blocks, kItemThreads, 0, s>>>(levels, static_cast<const float*>(loc), attnf,
+                                                          w.rows_b, w.wcoef, d);
+    const int sorted = sort_entries(w, s, &rows, &keys);
+    if (sorted != 0) return sorted;
+    msda_row_bounds_kernel<<<key_blocks, kItemThreads, 0, s>>>(rows, w.nvalid, w.first, w.end);
   }
   const int gathered = value_is_bf16
-                           ? dispatch_gathers<__nv_bfloat16>(w, d, d_out, attnf, d_value, s)
-                           : dispatch_gathers<float>(w, d, d_out, attnf, d_value, s);
+                           ? dispatch_gather<__nv_bfloat16>(levels, w, keys, d, d_out, attnf, d_value, s)
+                           : dispatch_gather<float>(levels, w, keys, d, d_out, attnf, d_value, s);
   if (gathered != 0) return gathered;
   if (static_cast<int64_t>(B) * Q == 0) return static_cast<int>(cudaSuccess);
   if (value_is_bf16) {

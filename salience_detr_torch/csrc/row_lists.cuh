@@ -1,7 +1,7 @@
 // Shared by the backward kernels that bin entries by destination row and sum
 // each row in a fixed order (deform_conv.cu, msda_backward.cu): the prefix
-// sum of the rows' counts, which gives each row's list its first slot, and
-// the sorts that put a list in key order.
+// sum of counts, which gives each row's list (or each digit value's run) its
+// first slot, and the warp's sort that puts a short list in key order.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -65,10 +65,11 @@ scan_sums_kernel(const int* __restrict__ counts, int64_t n, int* __restrict__ su
 }
 
 // scan pass 2: each tile adds the sums of the tiles before it and scans its
-// counts: offs[r] = the first slot of row r's list
+// counts: offs[r] = the first slot of row r's list; *count_sum, when
+// given, receives the sum of all n counts
 __global__ void __launch_bounds__(kScanThreads)
 scan_offsets_kernel(const int* __restrict__ counts, int64_t n, const int* __restrict__ sums,
-                    int* __restrict__ offs) {
+                    int* __restrict__ offs, int* __restrict__ count_sum = nullptr) {
   int before = 0;
   for (int j = threadIdx.x; j < static_cast<int>(blockIdx.x); j += kScanThreads) before += sums[j];
   int prefix;
@@ -87,6 +88,7 @@ scan_offsets_kernel(const int* __restrict__ counts, int64_t n, const int* __rest
     if (first + i < n) offs[first + i] = run;
     run += v[i];
   }
+  if (count_sum != nullptr && first < n && n <= first + kScanPerThread) *count_sum = run;  // this thread holds count n - 1
 }
 
 // ascending bitonic sort of the warp's 32 * KPL keys, key j * 32 + lane in
@@ -116,34 +118,6 @@ __device__ __forceinline__ void warp_sort(int (&k)[KPL]) {
           k[j] = lower == up ? min(k[j], other) : max(k[j], other);
         }
       }
-    }
-  }
-}
-
-// ascending sort of a[0, n) by the whole block (any n, in shared or global
-// memory): the bitonic network in its all-ascending form, where each merge
-// of size `size` first compares i with the mirror i ^ (size - 1) and then
-// halves; every comparator puts the smaller key at the lower index, so a
-// comparator whose upper index lies past n compares against a virtual
-// INT_MAX and is skipped.  Every thread of the block must call it.
-__device__ __forceinline__ void block_sort(int* a, int n) {
-  int span = 1;
-  while (span < n) span <<= 1;
-  for (int size = 2; size <= span; size <<= 1) {
-    for (int d = size >> 1; d > 0; d >>= 1) {
-      for (int t = threadIdx.x; t < span / 2; t += blockDim.x) {
-        // the t-th pair of this step: i has bit d clear
-        const int i = (t / d) * 2 * d + t % d;
-        const int j = d == size / 2 ? (i ^ (size - 1)) : i + d;
-        if (j < n) {
-          const int x = a[i], y = a[j];
-          if (x > y) {
-            a[i] = y;
-            a[j] = x;
-          }
-        }
-      }
-      __syncthreads();
     }
   }
 }

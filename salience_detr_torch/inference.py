@@ -11,7 +11,10 @@ post-processing.  The canvas always holds the resized image.  Requests whose
 orientations differ are served by one forward per canvas.  Each result
 carries the post-process's ``valid`` mask (all true unless the model's
 ``PostProcess`` has its confidence or NMS filter on); the CLI keeps the
-detections that are valid and score above ``--score-threshold``.
+detections that are valid and score above ``--score-threshold``.  A
+``Predictor`` sets the process's numerics as the train and eval CLIs do
+(``utils.env.configure_numerics``), so that a served image and the same
+image in an eval give the same detections.
 
     python -m salience_detr_torch.inference --image-dir DIR [--device cuda]
         [--state-dict FILE] [--save-results OUT.json]
@@ -38,6 +41,7 @@ from salience_detr_torch.data.transforms import resize_linear_u8
 from salience_detr_torch.models.detectors.salience_detr import normalize_images
 from salience_detr_torch.models.factory import SalienceDETRConfig, build_salience_detr
 from salience_detr_torch.parallel.train_step import make_eval_step
+from salience_detr_torch.utils.env import configure_numerics
 
 DEFAULT_CONFIG = (
     Path(__file__).resolve().parent.parent
@@ -106,6 +110,7 @@ class Predictor:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Predictor: device cuda requested but torch.cuda.is_available() is False")
+        configure_numerics()
         self.cfg = cfg
         self.model, self.postprocess = build_salience_detr(
             cfg, self.device, torch.Generator().manual_seed(seed)

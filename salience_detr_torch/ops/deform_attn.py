@@ -261,12 +261,13 @@ def _backward_cuda(value, spatial_shapes, locations, weights, d_out):
 
 
 def _backward_cuda_ordered(value, spatial_shapes, locations, weights, d_out):
-    """K3, the ordered design: every d_value row summed in key order by one
-    warp or block and written once in the value dtype, with no float
-    atomics, so the result is bitwise repeatable; its scratch (the entries'
-    keys, ranks and weights, about 12 bytes an in-level corner) comes from
-    the caching allocator.  d_locations and d_weights as in the scatter
-    design."""
+    """K3, the ordered design: the entries sorted by value row, stably, so
+    that each row's entries stay in key order; every d_value row summed in
+    that order by a team of lanes and written once in the value dtype, with
+    no float atomics, so the result is bitwise repeatable.  Its scratch (the
+    sort's two buffers of (row, key) pairs and the keys' weights, 20 bytes a
+    corner, and the rows' bounds) comes from the caching allocator.
+    d_locations and d_weights as in the scatter design."""
     (B, S, C, Q, G, L, P, H), loc, attn, grad, d_loc, d_attn = _backward_inputs(
         value, spatial_shapes, locations, weights, d_out)
     lib = native.load()

@@ -257,7 +257,7 @@ def main(argv=None):
                    help="--use-deterministic-algorithms' numerics (the ordered MSDA backward)")
     args = p.parse_args(argv)
     torch.set_num_threads(args.threads)
-    configure_numerics(args.deterministic)
+    configure_numerics(args.deterministic, exact_float32=True)  # held against one process
     if args.mode == "bn":
         bn_rank(args.inputs, args.out, args.device, args.backend)
     elif args.mode == "loader":

@@ -5,6 +5,7 @@ run computes, tensor by tensor, and compare records of several runs.
         [--deterministic] [--runs 2] [--ops]
     python -m salience_detr_torch.tools.repeat_check eval --out F.json [--ops] -- <salience_detr_torch.test arguments>
     python -m salience_detr_torch.tools.repeat_check compare A.json B.json [...]
+    python -m salience_detr_torch.tools.repeat_check ranks --out DIR [--world 2] [--dtype f32] [--deterministic]
 
 * ``train``: ``--runs`` flagship ``Trainer`` steps in this process, each on
   a model built anew from seed 0 and the same synthetic batch (B=4, the
@@ -22,6 +23,14 @@ run computes, tensor by tensor, and compare records of several runs.
   (``OpRecorder``: the op, shape, dtype and a fingerprint) over the step,
   its backward included, or the first batch's forward; ``compare`` then
   names the first op whose outputs differ.
+* ``ranks``: where a data-parallel step 0 parts from one process.  The
+  flagship ``Trainer``'s first step on the synthetic batch, as ``--world``
+  gloo ranks sharing card 0 and as one process on the whole batch, each
+  recording every module output of the forward whose first dimension is
+  the batch (rank 0's rows of it; larger ones as an evenly strided sample
+  of ``SAMPLED_ELEMENTS``); prints, in call order, the first module output
+  whose rows differ at all, the first beyond 1e-6 and beyond 1e-3 of its
+  largest magnitude, and the step's largest relative metric gap.
 * ``compare``: what differs from the first record (an eval record's first
   module output that differs, or whether the result files do; a train
   run's metrics, gradients and parameters, every run of every file against
@@ -43,6 +52,11 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 HASHED_ELEMENTS = 1 << 16  # larger op outputs are fingerprinted by two float64 sums on the device
+SAMPLED_ELEMENTS = 1 << 20  # ranks: a larger module output is kept as this many evenly strided elements
+RANKS_LEVELS = (0.0, 1e-6, 1e-3)  # ranks: the first module outputs whose relative gap exceeds each
+
+
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
 def digest(t: torch.Tensor) -> str:
@@ -152,6 +166,88 @@ def eval_run(test_args: List[str], ops: bool) -> Dict:
     return {"calls": calls, "ops": recorder.ops, "stats": stats, "result_sha1": saved}
 
 
+def record_rows(world: int, dtype: torch.dtype, deterministic: bool, out: Path) -> None:
+    """One process of ``ranks``: a rank (under the launcher's variables) or
+    the whole batch; rank 0 and the one process write ``out``."""
+    import dataclasses
+
+    from salience_detr_torch.inference import DEFAULT_CONFIG, load_config
+    from salience_detr_torch.parallel.mesh import init_distributed, mean_over_ranks, shutdown
+    from salience_detr_torch.train import Trainer
+    from salience_detr_torch.utils.env import configure_numerics
+
+    configure_numerics(deterministic, exact_float32=True)
+    mesh = init_distributed("cuda", "gloo")
+    try:
+        cfg = dataclasses.replace(load_config(DEFAULT_CONFIG), dtype=dtype)
+        trainer = Trainer(cfg, mesh.device, seed=0, steps_per_epoch=1, mesh=mesh if mesh.distributed else None)
+        batch = next(trainer.batches(1, seed=0))
+        rows = batch["images"].shape[0] // (1 if mesh.distributed else world)
+        names = {m: n for n, m in trainer.model.named_modules()}
+        calls: List[Dict] = []
+        state = {"recording": True}
+
+        def keep(module, args, output):
+            if not state["recording"]:
+                return
+            outs = output if isinstance(output, (tuple, list)) else (output,)
+            for i, o in enumerate(outs):
+                if isinstance(o, torch.Tensor) and o.is_floating_point() and o.dim() and \
+                        o.shape[0] == batch["images"].shape[0]:
+                    x = o.detach()[:rows].float().reshape(-1)
+                    if x.numel() > SAMPLED_ELEMENTS:
+                        x = x[::-(-x.numel() // SAMPLED_ELEMENTS)]
+                    calls.append({"module": names.get(module, type(module).__name__), "index": i,
+                                  "shape": list(o.shape[1:]), "rows": x.cpu()})
+            if module is trainer.model:  # the forward ended: the backward records nothing
+                state["recording"] = False
+
+        handle = torch.nn.modules.module.register_module_forward_hook(keep)
+        try:
+            metrics = trainer.step(batch, trainer.generator)
+        finally:
+            handle.remove()
+        metrics = {k: float(v) for k, v in (mean_over_ranks(metrics) if mesh.distributed else metrics).items()}
+        if mesh.rank == 0:
+            torch.save({"calls": calls, "metrics": metrics}, out)
+    finally:
+        shutdown(mesh)
+
+
+def ranks_report(ranks_file: Path, one_file: Path) -> str:
+    """Where rank 0's module outputs first part from the one process's."""
+    a, b = torch.load(ranks_file, weights_only=False), torch.load(one_file, weights_only=False)
+    firsts: Dict[float, str] = {}
+    compared = 0
+    for i, (x, y) in enumerate(zip(a["calls"], b["calls"])):
+        if (x["module"], x["index"], x["shape"]) != (y["module"], y["index"], y["shape"]):
+            firsts.setdefault(-1.0, f"call {i}: {x['module']} {x['shape']} against {y['module']} {y['shape']}")
+            break
+        compared += 1
+        gap = float((x["rows"] - y["rows"]).abs().max()) / max(float(y["rows"].abs().max()), 1e-30)
+        for level in RANKS_LEVELS:
+            if gap > level and level not in firsts:
+                firsts[level] = f"call {i} of {len(b['calls'])}: {x['module']}[{x['index']}] {x['shape']} gap {gap:.3e}"
+    metric_gap = max(abs(a["metrics"][k] - v) / max(abs(v), 1e-12) for k, v in b["metrics"].items())
+    worst = max(b["metrics"], key=lambda k: abs(a["metrics"][k] - b["metrics"][k]) / max(abs(b["metrics"][k]), 1e-12))
+    parts = [f"beyond {level:g}: {firsts.get(level, 'none')}" for level in RANKS_LEVELS]
+    if -1.0 in firsts:
+        parts.append(f"module sequences part at {firsts[-1.0]}")
+    return (f"{compared} module outputs compared; first {'; first '.join(parts)}; largest metric gap "
+            f"{metric_gap:.3e} ({worst})")
+
+
+def ranks_check(world: int, dtype: str, deterministic: bool, out: Path) -> str:
+    from salience_detr_torch.tools import ddp_check
+
+    out.mkdir(parents=True, exist_ok=True)
+    args = ["-m", "salience_detr_torch.tools.repeat_check", "ranks", "--world", str(world), "--dtype", dtype,
+            "--out", str(out)] + (["--deterministic"] if deterministic else [])
+    ddp_check.launch(args, world, one_device=True, timeout=900)
+    record_rows(world, DTYPES[dtype], deterministic, out / "one.pt")
+    return ranks_report(out / "ranks.pt", out / "one.pt")
+
+
 def first_op_difference(a: List[Dict], b: List[Dict]) -> str:
     """Where two op records first part: the op, and the ops just before."""
     if not a or not b:
@@ -204,19 +300,29 @@ def main(argv=None) -> int:
     if "--" in argv:
         argv, rest = argv[:argv.index("--")], argv[argv.index("--") + 1:]
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("mode", choices=("train", "eval", "compare"))
+    p.add_argument("mode", choices=("train", "eval", "compare", "ranks"))
     p.add_argument("files", nargs="*", help="compare: the records")
     p.add_argument("--out")
     p.add_argument("--dtype", default="bf16", choices=("bf16", "f32"))
     p.add_argument("--deterministic", action="store_true")
     p.add_argument("--runs", type=int, default=2)
     p.add_argument("--ops", action="store_true", help="also record every aten op's outputs")
+    p.add_argument("--world", type=int, default=2, help="ranks: the ranks sharing card 0")
     args = p.parse_args(argv)
     if args.mode == "compare":
         return 0 if compare(args.files) else 1
+    if args.mode == "ranks":
+        from salience_detr_torch.parallel.mesh import launched
+
+        if launched():  # one rank of the check
+            record_rows(args.world, DTYPES[args.dtype], args.deterministic, Path(args.out) / "ranks.pt")
+        else:
+            print(f"repeat_check ranks: {args.world} gloo ranks against one process, {args.dtype}, "
+                  f"{'--use-deterministic-algorithms' if args.deterministic else 'default numerics'}: "
+                  f"{ranks_check(args.world, args.dtype, args.deterministic, Path(args.out))}")
+        return 0
     if args.mode == "train":
-        record = train_runs(torch.bfloat16 if args.dtype == "bf16" else torch.float32, args.deterministic,
-                            args.runs, args.ops)
+        record = train_runs(DTYPES[args.dtype], args.deterministic, args.runs, args.ops)
         print(f"repeat_check train: {args.dtype} design {record['design']}; warnings {record['warnings']}")
     else:
         record = eval_run(rest, args.ops)

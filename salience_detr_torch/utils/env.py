@@ -44,20 +44,25 @@ def collect_env_info() -> str:
     return "\n".join(lines)
 
 
-def configure_numerics(deterministic: bool = False) -> None:
-    """The numerics of this process, shared by the train and eval CLIs (and
-    the smoke run that drives them):
+def configure_numerics(deterministic: bool = False, exact_float32: bool = False) -> None:
+    """The numerics of this process, shared by the train and eval CLIs and
+    the serving ``Predictor`` (and the checks that drive them):
 
     * no cuDNN attention behind ``F.scaled_dot_product_attention``: on the
       H100 PyTorch picks it for the decoder's self-attention, and it gave
       other bits in the first process on a fresh machine than in every
       later one (the eval's results then differed between processes); the
       flash and memory-efficient kernels it falls back to compute a forward
-      the same way in every process;
-    * float32 matmuls and convolutions in float32, not TF32 (the JAX
-      package computes float32 at full precision, and the kernels' plain
-      versions do); cuDNN's algorithms from its heuristics, never from
-      timing.
+      the same way in every process, at no measured cost to a bf16 train
+      step or eval forward (PERF.md);
+    * cuDNN's algorithms from its heuristics, never from timing.
+
+    TF32 stays as PyTorch sets it (cuDNN's float32 convolutions in TF32,
+    cuBLAS's float32 matmuls not), which repeats from process to process;
+    ``exact_float32`` turns it off in both, as the JAX package computes
+    float32 and the kernels' plain versions do: the setting of the checks
+    that hold the card against the CPU or against another process (it makes
+    a float32 train step about 1.4 times as long, PERF.md).
 
     ``deterministic`` (the train CLI's ``--use-deterministic-algorithms``)
     also makes every op of a train step repeatable:
@@ -72,9 +77,10 @@ def configure_numerics(deterministic: bool = False) -> None:
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         torch.use_deterministic_algorithms(True, warn_only=True)
     torch.backends.cuda.enable_cudnn_sdp(False)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = False
+    if exact_float32:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
 
 
 def seed_everything(seed: Optional[int] = None) -> int:

@@ -387,7 +387,7 @@ def shaped_inputs(case, device, dtype, G, C, H=8, B=2, Q=8500, P=4, seed=5):
             locs[:, :, :, lvl, :, 0], locs[:, :, :, lvl, :, 1] = xs, ys
     elif case == "one_pixel":
         # every point of an image on one pixel centre of each level: a single
-        # row takes all Q * P entries, past what a block sorts in shared memory
+        # row takes all Q * P entries, the longest list a team can be given
         locs = torch.empty(B, Q, G, L, P, 2)
         for lvl, (h, wd) in enumerate(levels):
             locs[:, :, :, lvl, :, 0], locs[:, :, :, lvl, :, 1] = (wd // 3 + 0.5) / wd, (h // 2 + 0.5) / h
@@ -450,8 +450,8 @@ def test_msda_backward_ordered_matches_plain_and_repeats(cuda, case, G, C, dtype
     float atomics): through autograd it launches once under its own key,
     two launches are bitwise equal, and it holds K3's tolerances against
     the plain backward, on the shaped inputs (rows of thousands of
-    entries) and on one pixel (a row of Q * P entries, sorted in global
-    memory)."""
+    entries) and on one pixel (a row of Q * P entries, summed by one team
+    of lanes)."""
     levels, value, locs, w = shaped_inputs(case, cuda, dtype, G, C)
     d_out = torch.randn(value.shape[0], locs.shape[1], C, device=cuda).to(dtype)
     inputs = [x.clone().requires_grad_() for x in (value, locs, w)]

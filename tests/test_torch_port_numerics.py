@@ -1,7 +1,8 @@
 """How the port's CLIs set the card's numerics, checked on the CPU without a
 launch: ``utils.env.configure_numerics`` is the one place (no cuDNN
 attention behind SDPA, whose forward differed between processes on the
-card; TF32 off in cuBLAS and cuDNN, cuDNN's algorithms from heuristics;
+card; cuDNN's algorithms from heuristics; TF32 off in cuBLAS and cuDNN
+only for the checks that ask for exact float32;
 with ``--use-deterministic-algorithms`` also
 ``torch.use_deterministic_algorithms`` and cuBLAS's fixed workspace), the
 train and eval CLIs both call it before
@@ -45,13 +46,19 @@ def restore_numerics(monkeypatch):
 
 @pytest.mark.parametrize("deterministic", [False, True])
 def test_configure_numerics_sets_the_cards_numerics(restore_numerics, deterministic):
+    """TF32 is left as it is (PyTorch's default in a CLI process) unless
+    ``exact_float32`` turns it off, as the checks against the CPU do."""
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
     torch.backends.cudnn.benchmark = True
     torch.backends.cuda.enable_cudnn_sdp(True)
     env.configure_numerics(deterministic)
     assert not torch.backends.cuda.cudnn_sdp_enabled()
-    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
     assert not torch.backends.cudnn.benchmark
+    env.configure_numerics(deterministic, exact_float32=True)
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    env.configure_numerics(deterministic)  # a CLI's call inside a check keeps the check's setting
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
     assert torch.are_deterministic_algorithms_enabled() == deterministic
     if deterministic:
         assert torch.is_deterministic_algorithms_warn_only_enabled()
@@ -91,6 +98,19 @@ def test_eval_cli_sets_the_numerics_before_its_model(tmp_path, monkeypatch):
     monkeypatch.setattr(eval_cli, "build_salience_detr", lambda *a, **k: pytest.fail("model built first"))
     with pytest.raises(Configured):
         eval_cli.main(["--coco-img", str(tmp_path), "--coco-ann", str(tmp_path / "ann.json"), "--device", "cpu"])
+    assert calls == [False]
+
+
+def test_predictor_sets_the_numerics_before_its_model(monkeypatch):
+    """Serving and the eval CLI compute alike: ``Predictor`` runs the same
+    setup before it builds its model."""
+    from salience_detr_torch import inference
+
+    calls = []
+    monkeypatch.setattr(inference, "configure_numerics", stand_in(calls))
+    monkeypatch.setattr(inference, "build_salience_detr", lambda *a, **k: pytest.fail("model built first"))
+    with pytest.raises(Configured):
+        inference.Predictor(inference.SalienceDETRConfig(**TINY_TORCH), device="cpu")
     assert calls == [False]
 
 
@@ -192,3 +212,27 @@ def test_repeat_check_records_two_eval_runs_alike_and_names_where_they_part(tmp_
     assert not repeat_check.compare([str(r) for r in records])
     assert "ops first differ at output 7 of" in repeat_check.first_op_difference(
         json.loads(records[0].read_text())["ops"], changed["ops"])
+
+
+def test_repeat_check_ranks_report_names_the_first_module_output_that_parts(tmp_path):
+    """``repeat_check ranks`` reads two records of step 0 (rank 0's rows
+    and the one process's): the first module output that differs at all,
+    beyond 1e-6 and beyond 1e-3 of its magnitude, in call order."""
+    from salience_detr_torch.tools import repeat_check
+
+    base = [{"module": f"m{i}", "index": 0, "shape": [3], "rows": torch.full((6,), 2.0)} for i in range(5)]
+    other = [dict(c, rows=c["rows"].clone()) for c in base]
+    other[1]["rows"][0] += 2.0 * 2**-22  # a last-bit gap (about 2.4e-7 of 2)
+    other[3]["rows"][4] += 0.01
+    metrics = {"loss": 1.0, "loss_class_0": 0.5}
+    torch.save({"calls": other, "metrics": dict(metrics, loss_class_0=0.5025)}, tmp_path / "ranks.pt")
+    torch.save({"calls": base, "metrics": metrics}, tmp_path / "one.pt")
+    report = repeat_check.ranks_report(tmp_path / "ranks.pt", tmp_path / "one.pt")
+    assert report.startswith("5 module outputs compared")
+    assert "beyond 0: call 1 of 5: m1[0]" in report
+    assert "beyond 1e-06: call 3 of 5: m3[0] [3] gap 5.000e-03" in report
+    assert "beyond 0.001: call 3 of 5" in report
+    assert "largest metric gap 5.000e-03 (loss_class_0)" in report
+    other[2]["shape"] = [4]
+    torch.save({"calls": other, "metrics": metrics}, tmp_path / "ranks.pt")
+    assert "module sequences part at call 2" in repeat_check.ranks_report(tmp_path / "ranks.pt", tmp_path / "one.pt")
