@@ -11,3 +11,8 @@ its plain PyTorch twin instead.
 """
 
 __version__ = "0.1.0"
+
+# registers the kernels' operators (torch.ops.salience_detr.*), which a
+# program saved by tools/export.py calls: importing the package is enough to
+# load one
+from salience_detr_torch.ops import deform_attn as _deform_attn, nms as _nms  # noqa: E402,F401

@@ -1,7 +1,7 @@
 """COCO-format detection dataset (the port's copy of
 salience_detr_tpu/data/coco.py's ``CocoIndex``, ``_rasterize_mask``,
 ``_prepare_target``, ``CocoDetection`` with its transforms and instance
-masks, and ``Object365Detection``).
+masks, ``Object365Detection`` and ``InferenceDataset``).
 
 The annotation index is built directly from the JSON, and the same index
 feeds the evaluator (``utils/coco_eval.py``).  Images are decoded with cv2
@@ -83,7 +83,7 @@ def _prepare_target(img_h: int, img_w: int, anns: List[dict], return_masks: bool
 
 def load_image(path: str) -> np.ndarray:
     """uint8 (H, W, 3) RGB: ``.npy`` with numpy, any other file with cv2."""
-    if path.endswith(".npy"):
+    if path.lower().endswith(".npy"):
         return np.load(path)
     try:
         import cv2
@@ -206,3 +206,34 @@ class Object365Detection(CocoDetection):
             except Exception:
                 continue
         raise RuntimeError(f"could not load any image near index {idx}")
+
+
+class InferenceDataset:
+    """A folder of images as samples (the JAX package's ``InferenceDataset``):
+    the files with one of ``EXTS`` (any case), sorted by path, each sample
+    the image (uint8 HWC RGB), no boxes or labels, its index as
+    ``image_id``, its ``path`` and ``orig_size`` (h, w).  Image files are
+    decoded with cv2, ``.npy`` files (uint8 HWC RGB arrays) with numpy, so a
+    machine without cv2 reads a folder of ``.npy`` files."""
+
+    EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp", ".npy")
+
+    def __init__(self, image_dir: str):
+        self.paths = sorted(
+            os.path.join(image_dir, f) for f in os.listdir(image_dir) if f.lower().endswith(self.EXTS)
+        )
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, idx: int) -> dict:
+        img = load_image(self.paths[idx])
+        h, w = img.shape[:2]
+        return {
+            "image": img,
+            "boxes": np.zeros((0, 4), np.float32),
+            "labels": np.zeros((0,), np.int64),
+            "image_id": idx,
+            "path": self.paths[idx],
+            "orig_size": np.asarray([h, w], np.int32),
+        }

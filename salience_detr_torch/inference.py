@@ -17,11 +17,16 @@ detections that are valid and score above ``--score-threshold``.  A
 image in an eval give the same detections.
 
     python -m salience_detr_torch.inference --image-dir DIR [--device cuda]
-        [--state-dict FILE] [--save-results OUT.json]
+        [--state-dict FILE] [--save-results OUT.json] [--show-dir DIR]
 
 ``--device`` defaults to ``cuda`` and the CLI raises when that device is
-missing.  Image files are decoded with cv2 where it is installed; ``.npy``
-files holding uint8 HWC RGB arrays are read with numpy everywhere.
+missing.  The images are the folder's ``data.coco.InferenceDataset``: image
+files are decoded with cv2 where it is installed; ``.npy`` files holding
+uint8 HWC RGB arrays are read with numpy everywhere.  ``--show-dir`` draws
+each image's kept detections (``utils.visualize.save_visualization``) into
+one file under the image's name (a ``.npy`` input's as ``.png``); drawing
+needs cv2, and without it the CLI refuses the flag before it builds the
+model.  Without the flag the CLI needs no cv2.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from salience_detr_torch.data.coco import load_image
+from salience_detr_torch.data.coco import InferenceDataset
 from salience_detr_torch.data.transforms import resize_linear_u8
 from salience_detr_torch.models.detectors.salience_detr import normalize_images
 from salience_detr_torch.models.factory import SalienceDETRConfig, build_salience_detr
@@ -47,7 +52,6 @@ DEFAULT_CONFIG = (
     Path(__file__).resolve().parent.parent
     / "configs" / "salience_detr_torch" / "salience_detr_resnet50_800_1333.py"
 )
-IMAGE_SUFFIXES = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 CLI_BATCH = 4  # images the CLI hands to one Predictor call
 
 
@@ -148,7 +152,13 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0, help="init seed when no state dict is given")
     p.add_argument("--score-threshold", type=float, default=0.3)
     p.add_argument("--save-results", default=None)
+    p.add_argument("--show-dir", default=None,
+                   help="draw each image's detections into this directory, under its name (needs cv2)")
     args = p.parse_args(argv)
+    if args.show_dir:
+        from salience_detr_torch.utils.visualize import drawing_name, require_cv2, save_visualization
+
+        require_cv2()
 
     cfg = load_config(args.model_config)
     state = None
@@ -156,20 +166,18 @@ def main(argv=None):
         state = torch.load(args.state_dict, map_location="cpu", weights_only=True)
         state = state.get("model", state)
     predictor = Predictor(cfg, state, args.device, args.seed)
-    paths = sorted(
-        q for q in Path(args.image_dir).iterdir() if q.suffix.lower() in IMAGE_SUFFIXES + (".npy",)
-    )
+    dataset = InferenceDataset(args.image_dir)
     results = []
-    for s in range(0, len(paths), CLI_BATCH):
-        chunk = paths[s:s + CLI_BATCH]
-        for path, det in zip(chunk, predictor([load_image(str(q)) for q in chunk])):
+    for s in range(0, len(dataset), CLI_BATCH):
+        chunk = [dataset[i] for i in range(s, min(s + CLI_BATCH, len(dataset)))]
+        for sample, det in zip(chunk, predictor([c["image"] for c in chunk])):
             keep = det["valid"] & (det["scores"] > args.score_threshold)
-            results.append({
-                "image": str(path),
-                "boxes": det["boxes"][keep].tolist(),
-                "scores": det["scores"][keep].tolist(),
-                "labels": det["labels"][keep].tolist(),
-            })
+            pred = {k: det[k][keep].cpu().numpy() for k in ("boxes", "scores", "labels")}
+            path = sample["path"]
+            if args.show_dir:
+                save_visualization(sample["image"], pred, str(Path(args.show_dir) / drawing_name(path)),
+                                   score_threshold=args.score_threshold)
+            results.append({"image": path, **{k: v.tolist() for k, v in pred.items()}})
             print(f"{path}: {int(keep.sum())} detections", file=sys.stderr)
     if args.save_results:
         with open(args.save_results, "w") as f:

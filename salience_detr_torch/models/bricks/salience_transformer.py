@@ -33,7 +33,7 @@ from salience_detr_torch.models.bricks.attention import (
     MultiheadAttention,
     MultiScaleDeformableAttention,
 )
-from salience_detr_torch.models.layers import MLP
+from salience_detr_torch.models.layers import MLP, PerImageLinear
 from salience_detr_torch.models.necks.repnet import RepVGGPluXNetwork
 from salience_detr_torch.ops.misc import (
     device_constant,
@@ -87,7 +87,7 @@ class MaskPredictor(nn.Module):
         self.layer2 = nn.Sequential(
             nn.Linear(h_dim, h_dim // 2), nn.GELU(),
             nn.Linear(h_dim // 2, h_dim // 4), nn.GELU(),
-            nn.Linear(h_dim // 4, 1),
+            PerImageLinear(h_dim // 4, 1),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from salience_detr_torch.parallel.mesh import all_reduce_sum
+from salience_detr_torch.utils.env import per_image_heads
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -127,6 +128,21 @@ class ConvNormAct(nn.Sequential):
                       bias=False),
             nn.GroupNorm(32, out_channels, eps=1e-5),
         )
+
+
+class PerImageLinear(nn.Linear):
+    """``nn.Linear`` whose rows do not depend on their batch-mates under the
+    deterministic numerics (``utils.env.per_image_heads``): it then runs one
+    GEMM an image of a (B, N, in) input, so each call has the same row count
+    whatever the batch, and a data-parallel rank's image computes the bits
+    one process computes for it.  cuBLAS picks its algorithm, and so its
+    order of additions, from the row count.  A score head before a discrete
+    selection (a top-k) takes this class."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() < 3 or x.shape[0] < 2 or not per_image_heads():
+            return super().forward(x)
+        return torch.stack([F.linear(xi, self.weight, self.bias) for xi in x.unbind(0)])
 
 
 class MLP(nn.Module):

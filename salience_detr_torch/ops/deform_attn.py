@@ -10,12 +10,14 @@ the exact per-head sampling of ``ms_deform_attn_core`` /
   gathers), the spec of the forward kernel ``csrc/msda.cu``, and
   :func:`ms_deform_attn_backward_plain` the plain backward, the spec of the
   backward kernel ``csrc/msda_backward.cu``; both run on any device;
-* :func:`ms_deform_attn` is the differentiable wrapper of the two kernels (a
-  ``torch.autograd.Function``): on CPU tensors its forward and backward are
-  the plain versions, on CUDA tensors they launch the kernels or raise.  The
-  backward has two designs for d_value (:func:`backward_design` picks one):
-  the scatter of float atomics, and the ordered pull, bitwise repeatable,
-  which runs under ``torch.use_deterministic_algorithms``.
+* :func:`ms_deform_attn` is the differentiable wrapper of the two kernels,
+  the registered operator ``torch.ops.salience_detr.ms_deform_attn`` (with a
+  fake implementation for ``torch.export``, an autograd formula and a FLOP
+  formula): on CPU tensors its forward and backward are the plain versions,
+  on CUDA tensors they launch the kernels or raise.  The backward has two
+  designs for d_value (:func:`backward_design` picks one): the scatter of
+  float atomics, and the ordered pull, bitwise repeatable, which runs under
+  ``torch.use_deterministic_algorithms``.
 
 Semantics: grid_sample with align_corners=False and zero padding; corners
 outside their level get weight 0 and are never read (nor written by the
@@ -27,9 +29,10 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from salience_detr_torch import native
-from salience_detr_torch.ops.misc import device_constant
+from salience_detr_torch.ops.misc import device_constant, flat_levels, level_pairs, refuse_meta
 
 
 def compute_sampling_locations(
@@ -300,18 +303,50 @@ def backward_design() -> str:
     return "ordered" if torch.are_deterministic_algorithms_enabled() else "scatter"
 
 
-class _MSDeformAttn(torch.autograd.Function):
-    """Forward K1 / backward K3 (the design :func:`backward_design` names)
-    on CUDA tensors, the plain versions on CPU tensors; nothing on CUDA gives
-    way to a plain version or to the other design."""
+# K1 as a registered operator, ``torch.ops.salience_detr.ms_deform_attn``:
+# its CPU implementation is the plain version and its CUDA implementation the
+# kernel (which raises rather than giving way), its fake implementation makes
+# the (B, Q, C) output from the shapes, so ``torch.export`` and FakeTensor
+# trace through it and an exported program calls the kernel.  The levels go
+# in flattened, (h0, w0, h1, w1, ...).
+@torch.library.custom_op("salience_detr::ms_deform_attn", mutates_args=(), device_types="cpu",
+                         schema="(Tensor value, Tensor locations, Tensor weights, int[] levels) -> Tensor")
+def ms_deform_attn_op(value, locations, weights, levels):
+    return ms_deform_attn_plain(value, level_pairs(levels), locations, weights)
+
+
+@ms_deform_attn_op.register_kernel("cuda")
+def _ms_deform_attn_op_cuda(value, locations, weights, levels):
+    return _forward_cuda(value, level_pairs(levels), locations, weights)
+
+
+@ms_deform_attn_op.register_fake
+def _ms_deform_attn_op_fake(value, locations, weights, levels):
+    refuse_meta(value, "ms_deform_attn")
+    _check_shapes(value, level_pairs(levels), locations, weights)
+    return value.new_empty((value.shape[0], locations.shape[1], value.shape[2]))
+
+
+def ms_deform_attn_flops(value_shape, locations_shape, weights_shape, *args, out_shape=None, **kwargs) -> int:
+    """FLOPs of one call as the plain version counts its multiply-adds: 4
+    corners of D channels a (b, q, h, l, p), a multiply and an add each
+    (2 x 4 x B x Q x C x L x P); the bilinear weights' arithmetic is not
+    counted.  The formula ``torch.utils.flop_counter.FlopCounterMode``
+    reads for the op."""
+    B, Q, _, L, P, _ = locations_shape
+    return 2 * 4 * B * Q * value_shape[2] * L * P
+
+
+class _MSDeformAttn:
+    """The op's autograd: backward K3 (the design :func:`backward_design`
+    names) on CUDA tensors, the plain backward on CPU tensors; nothing on
+    CUDA gives way to a plain version or to the other design."""
 
     @staticmethod
-    def forward(ctx, value, locations, weights, spatial_shapes):
-        ctx.spatial_shapes = spatial_shapes
+    def setup_context(ctx, inputs, output):
+        value, locations, weights, levels = inputs
+        ctx.spatial_shapes = level_pairs(levels)
         ctx.save_for_backward(value, locations, weights)
-        if value.device.type == "cpu":
-            return ms_deform_attn_plain(value, spatial_shapes, locations, weights)
-        return _forward_cuda(value, spatial_shapes, locations, weights)
 
     @staticmethod
     def backward(ctx, d_out):
@@ -324,6 +359,12 @@ class _MSDeformAttn(torch.autograd.Function):
         return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None)
 
 
+ms_deform_attn_op.register_autograd(_MSDeformAttn.backward, setup_context=_MSDeformAttn.setup_context)
+
+
+register_flop_formula(torch.ops.salience_detr.ms_deform_attn)(ms_deform_attn_flops)
+
+
 def ms_deform_attn(
     value: torch.Tensor,
     spatial_shapes: Sequence[Tuple[int, int]],
@@ -331,8 +372,8 @@ def ms_deform_attn(
     weights: torch.Tensor,
 ) -> torch.Tensor:
     """Differentiable MSDA through the kernels (csrc/msda.cu forward,
-    csrc/msda_backward.cu backward); same contract as
-    :func:`ms_deform_attn_plain`.
+    csrc/msda_backward.cu backward), the op ``salience_detr::ms_deform_attn``;
+    same contract as :func:`ms_deform_attn_plain`.
 
     On CUDA the value must be a contiguous float32 or bfloat16 tensor whose
     channels split into 32 lanes of 1, 2 or 8 channels each lying in one
@@ -341,10 +382,10 @@ def ms_deform_attn(
     gradients come back in their own dtypes.  A float16 value (fp16
     autocast) is sampled in float32 and the result cast back to float16.
     """
-    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    levels = flat_levels(spatial_shapes)
     if value.dtype == torch.float16:
-        return _MSDeformAttn.apply(value.float(), locations, weights, shapes).to(torch.float16)
-    return _MSDeformAttn.apply(value, locations, weights, shapes)
+        return ms_deform_attn_op(value.float(), locations, weights, levels).to(torch.float16)
+    return ms_deform_attn_op(value, locations, weights, levels)
 
 
 # ---------------------------------------------------------------- int8 head-shared core (inference only)

@@ -26,6 +26,25 @@ def device_constant(values, device, dtype=torch.float32) -> torch.Tensor:
     return torch.tensor(values, dtype=dtype).to(device, non_blocking=True)
 
 
+def flat_levels(spatial_shapes: Sequence[Tuple[int, int]]) -> List[int]:
+    """((h0, w0), (h1, w1), ...) -> [h0, w0, h1, w1, ...]: the levels as the
+    kernels' registered operators take them (an ``int[]`` argument)."""
+    return [int(n) for hw in spatial_shapes for n in hw]
+
+
+def level_pairs(flat: Sequence[int]) -> Tuple[Tuple[int, int], ...]:
+    """[h0, w0, h1, w1, ...] -> ((h0, w0), (h1, w1), ...)."""
+    return tuple((int(flat[i]), int(flat[i + 1])) for i in range(0, len(flat), 2))
+
+
+def refuse_meta(t: torch.Tensor, name: str) -> None:
+    """A registered operator's fake implementation serves tracing, whose
+    FakeTensors report the device they stand for; a plain meta tensor has
+    no kernel, as the wrappers before the operators said."""
+    if t.device.type == "meta":
+        raise RuntimeError(f"{name}: no kernel for device {t.device}")
+
+
 def stable_topk(x: torch.Tensor, k: int, dim: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k along ``dim`` in descending order, ties broken by lower index.
 

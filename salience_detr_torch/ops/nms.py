@@ -28,6 +28,10 @@ threshold with it.
   bitmask's rows for a box count (in the walking block's shared memory, in
   each filling block's, or in a global scratch buffer past the cluster's
   capacity), and :func:`nms_keep_mask_cuda` launches one placement.
+
+Both wrappers call registered operators (``torch.ops.salience_detr.grid_nms_topk``
+and ``torch.ops.salience_detr.nms_keep_mask``), whose fake implementations let
+``torch.export`` trace them.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import torch.nn.functional as F
 
 from salience_detr_torch import native
 from salience_detr_torch.ops.boxes import box_iou_pairwise
+from salience_detr_torch.ops.misc import flat_levels, level_pairs, refuse_meta
 
 # dynamic shared memory the kernel may use (13K + 2S + 1 bytes), and the
 # candidates its 16-bit rank map can hold
@@ -126,19 +131,19 @@ def grid_nms_topk_plain(
     return index.gather(1, order[:, :num_out]).to(torch.int32)
 
 
-def grid_nms_topk(
-    topk_index: torch.Tensor,
-    spatial_shapes: Sequence[Tuple[int, int]],
-    num_out: int,
-) -> torch.Tensor:
-    """Wrapper of the grid-NMS kernel (csrc/grid_nms.cu); same contract as
-    :func:`grid_nms_topk_plain`.  On CUDA, ``topk_index`` must be a
-    contiguous (B, K) int32 tensor of unique indices in [0, S), with 13K + 1
-    <= ``SMEM_BUDGET_BYTES`` (K up to 17,801)."""
-    if topk_index.device.type == "cpu":
-        return grid_nms_topk_plain(topk_index, spatial_shapes, num_out)
-    if topk_index.device.type != "cuda":
-        raise RuntimeError(f"grid_nms_topk: no kernel for device {topk_index.device}")
+# K2 as a registered operator, ``torch.ops.salience_detr.grid_nms_topk``: the
+# plain version on the CPU, the kernel on CUDA, a fake implementation from the
+# shapes for ``torch.export`` (the plain fixpoint's convergence test is data
+# dependent and cannot be traced).  Levels flattened, (h0, w0, h1, w1, ...).
+@torch.library.custom_op("salience_detr::grid_nms_topk", mutates_args=(), device_types="cpu",
+                         schema="(Tensor topk_index, int[] levels, int num_out) -> Tensor")
+def grid_nms_topk_op(topk_index, levels, num_out):
+    return grid_nms_topk_plain(topk_index, level_pairs(levels), num_out)
+
+
+@grid_nms_topk_op.register_kernel("cuda")
+def _grid_nms_topk_cuda(topk_index, levels, num_out):
+    spatial_shapes = level_pairs(levels)
     if topk_index.dtype != torch.int32 or topk_index.dim() != 2 or not topk_index.is_contiguous():
         raise TypeError(
             "grid_nms_topk: topk_index must be a contiguous (B, K) int32 tensor, got "
@@ -153,19 +158,38 @@ def grid_nms_topk(
         )
     out = torch.empty((B, num_out), dtype=torch.int32, device=topk_index.device)
     lib = native.load()
-    levels = native.level_table(spatial_shapes)
+    table = native.level_table(spatial_shapes)
     stream = native.stream_of(topk_index)
     with torch.cuda.device(topk_index.device):
         if grid_nms_rank_in_global(K, S):
             # the 16-bit rank map, B x S (the kernel writes it before reading)
             ranks = torch.empty((B, S), dtype=torch.int16, device=topk_index.device)
-            err = lib.grid_nms_forward_global(topk_index.data_ptr(), levels, out.data_ptr(), ranks.data_ptr(),
+            err = lib.grid_nms_forward_global(topk_index.data_ptr(), table, out.data_ptr(), ranks.data_ptr(),
                                               B, K, num_out, stream)
         else:
-            err = lib.grid_nms_forward(topk_index.data_ptr(), levels, out.data_ptr(), B, K, num_out, stream)
+            err = lib.grid_nms_forward(topk_index.data_ptr(), table, out.data_ptr(), B, K, num_out, stream)
     native.check(err, "grid_nms_forward")
     native.LAUNCHES["grid_nms"] += 1
     return out
+
+
+@grid_nms_topk_op.register_fake
+def _grid_nms_topk_fake(topk_index, levels, num_out):
+    refuse_meta(topk_index, "grid_nms_topk")
+    return topk_index.new_empty((topk_index.shape[0], num_out), dtype=torch.int32)
+
+
+def grid_nms_topk(
+    topk_index: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    num_out: int,
+) -> torch.Tensor:
+    """Wrapper of the grid-NMS kernel (csrc/grid_nms.cu), the op
+    ``salience_detr::grid_nms_topk``; same contract as
+    :func:`grid_nms_topk_plain`.  On CUDA, ``topk_index`` must be a
+    contiguous (B, K) int32 tensor of unique indices in [0, S), with 13K + 1
+    <= ``SMEM_BUDGET_BYTES`` (K up to 17,801)."""
+    return grid_nms_topk_op(topk_index, flat_levels(spatial_shapes), int(num_out))
 
 
 def nms_keep_mask_plain(boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
@@ -247,12 +271,30 @@ def nms_keep_mask_cuda(boxes: torch.Tensor, iou_threshold: float, rows: str, clu
     return keep
 
 
+# K9 as a registered operator, ``torch.ops.salience_detr.nms_keep_mask``,
+# dispatched as K2's.
+@torch.library.custom_op("salience_detr::nms_keep_mask", mutates_args=(), device_types="cpu",
+                         schema="(Tensor boxes, float iou_threshold) -> Tensor")
+def nms_keep_mask_op(boxes, iou_threshold):
+    return nms_keep_mask_plain(boxes, iou_threshold)
+
+
+@nms_keep_mask_op.register_kernel("cuda")
+def _nms_keep_mask_cuda(boxes, iou_threshold):
+    rows, cluster = nms_keep_plan(boxes.shape[1] if boxes.dim() == 3 else 0)
+    return nms_keep_mask_cuda(boxes, iou_threshold, rows, cluster)
+
+
+@nms_keep_mask_op.register_fake
+def _nms_keep_mask_fake(boxes, iou_threshold):
+    refuse_meta(boxes, "nms_keep_mask")
+    return boxes.new_empty(boxes.shape[:2], dtype=torch.bool)
+
+
 def nms_keep_mask(boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
-    """Wrapper of the keep-mask kernel (csrc/nms_keep.cu); same contract as
+    """Wrapper of the keep-mask kernel (csrc/nms_keep.cu), the op
+    ``salience_detr::nms_keep_mask``; same contract as
     :func:`nms_keep_mask_plain`.  On CUDA, ``boxes`` must be a contiguous
     (B, N, 4) float32 tensor; :func:`nms_keep_plan` places the kernel's
     conflict rows for N."""
-    if boxes.device.type == "cpu":
-        return nms_keep_mask_plain(boxes, iou_threshold)
-    rows, cluster = nms_keep_plan(boxes.shape[1] if boxes.dim() == 3 else 0)
-    return nms_keep_mask_cuda(boxes, iou_threshold, rows, cluster)
+    return nms_keep_mask_op(boxes, float(iou_threshold))

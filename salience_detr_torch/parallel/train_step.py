@@ -213,6 +213,14 @@ class TrainStep:
 make_train_step = TrainStep  # the JAX package's name
 
 
+def eval_autocast(device: torch.device, dtype: torch.dtype):
+    """The eval forward's precision: autocast to ``dtype`` on CUDA unless it
+    is float32; none on the CPU (float32 there)."""
+    if device.type == "cuda" and dtype != torch.float32:
+        return torch.autocast("cuda", dtype=dtype)
+    return contextlib.nullcontext()
+
+
 def make_eval_step(model, postprocess, dtype: torch.dtype = torch.float32) -> Callable:
     """Eval forward and post-process -> per-image top-k detections (the JAX
     package's ``make_eval_step``).  ``batch`` holds images (B, 3, H, W),
@@ -225,12 +233,7 @@ def make_eval_step(model, postprocess, dtype: torch.dtype = torch.float32) -> Ca
     def step(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         model.eval()
         images = batch["images"]
-        amp = (
-            torch.autocast("cuda", dtype=dtype)
-            if images.device.type == "cuda" and dtype != torch.float32
-            else contextlib.nullcontext()
-        )
-        with amp:
+        with eval_autocast(images.device, dtype):
             out = model(images, batch["image_sizes"])
         return postprocess(out["pred_class"][-1], out["pred_coord"][-1], batch["orig_sizes"])
 

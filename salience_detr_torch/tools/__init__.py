@@ -1,1 +1,2 @@
-"""Measurement tools of the port that run on a CUDA card."""
+"""The port's tools: the checks and measurements that run on a CUDA card, and
+the user tools, each the twin of the JAX package's tool of its name."""

@@ -2,14 +2,16 @@
 W ranks and write what each rank computed, for a comparison with one process
 on the whole batch.
 
-    python -m salience_detr_torch.tools.ddp_check bn --inputs F.npz --out DIR [--device cpu|cuda]
-    python -m salience_detr_torch.tools.ddp_check step --spec DIR --out DIR [--device cpu|cuda]
-    python -m salience_detr_torch.tools.ddp_check loader --spec F.json --out DIR
+    python -m salience_detr_torch.tools.ddp_check bn --inputs F.npz --out DIR [--device cuda|cpu]
+    python -m salience_detr_torch.tools.ddp_check step --spec DIR --out DIR [--device cuda|cpu]
+    python -m salience_detr_torch.tools.ddp_check loader --spec F.json --out DIR [--device cuda|cpu]
 
 Each process is one rank, started with the launcher's variables (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``; :func:`launch`
 sets them, one rank a card or every rank on card 0, and ``torchrun`` does
-too).  ``--backend`` picks the process group (gloo by default here: it runs
+too).  ``--device`` defaults to cuda, as the port's other entry points do,
+and refuses without a card; ``--device cpu`` runs the ranks on the CPU.
+``--backend`` picks the process group (gloo by default here: it runs
 several ranks on the CPU or on one card; NCCL takes one rank a card), and
 ``--deterministic`` the numerics of ``--use-deterministic-algorithms``.
 
@@ -250,12 +252,15 @@ def main(argv=None):
     p.add_argument("--spec", help="step: the directory of the run's config, state, batches and draws; "
                                   "loader: the split and loader settings (.json)")
     p.add_argument("--out", required=True)
-    p.add_argument("--device", default="cpu")
+    p.add_argument("--device", default="cuda", help="cuda (each rank on its LOCAL_RANK card) or cpu")
     p.add_argument("--backend", default="gloo", choices=("gloo", "nccl"))
     p.add_argument("--threads", type=int, default=2, help="torch intra-op threads of each rank")
     p.add_argument("--deterministic", action="store_true",
                    help="--use-deterministic-algorithms' numerics (the ordered MSDA backward)")
     args = p.parse_args(argv)
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("ddp_check: device cuda requested but torch.cuda.is_available() is False "
+                           "(pass --device cpu to run the ranks on the CPU)")
     torch.set_num_threads(args.threads)
     configure_numerics(args.deterministic, exact_float32=True)  # held against one process
     if args.mode == "bn":

@@ -74,7 +74,7 @@ def synced(request, tmp_path_factory):
     d = inputs(request.param, seed=request.param)
     np.savez(root / "inputs.npz", **d)
     ddp_check.launch(["-m", "salience_detr_torch.tools.ddp_check", "bn", "--inputs", str(root / "inputs.npz"),
-                      "--out", str(root)], world=2, timeout=180)
+                      "--out", str(root), "--device", "cpu"], world=2, timeout=180)
     ranks = [dict(np.load(root / f"rank{r}.npz")) for r in range(2)]
     got = {"y": np.concatenate([r["y"] for r in ranks]), "dx": np.concatenate([r["dx"] for r in ranks]),
            "dweight": ranks[0]["dweight"] + ranks[1]["dweight"], "dbias": ranks[0]["dbias"] + ranks[1]["dbias"],

@@ -134,6 +134,36 @@ def test_ddp_step_of_the_small_model_on_the_card(cuda, tmp_path):
 
 
 @pytest.mark.gpu
+def test_deterministic_ddp_step_of_the_small_model_on_the_card(cuda, tmp_path):
+    """With --use-deterministic-algorithms' numerics (the ordered K3, the
+    salience predictor's last Linear one image at a time: ROADMAP C-27) the
+    two gloo ranks against the one-process step at the bounds above."""
+    spec, init = small_spec(tmp_path / "spec")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        one = ddp_check.run_step(str(spec), Mesh(device=cuda))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out = tmp_path / "ranks"
+    out.mkdir()
+    ddp_check.launch(["-m", "salience_detr_torch.tools.ddp_check", "step", "--spec", str(spec), "--out", str(out),
+                      "--device", "cuda", "--deterministic"], world=2, one_device=True, timeout=600)
+    ranks = [torch.load(out / f"rank{r}.pt", weights_only=True) for r in range(2)]
+    for step, (want, got) in enumerate(zip(one["metrics"], ranks[0]["metrics"])):
+        for k, v in want.items():
+            np.testing.assert_allclose(got[k], v, rtol=1e-4, atol=1e-5, err_msg=f"step {step} {k}")
+    for name, want in one["state"].items():
+        got = ranks[0]["state"][name]
+        assert torch.equal(got, ranks[1]["state"][name]), name
+        if not want.is_floating_point():
+            assert torch.equal(got, want), name
+            continue
+        moved = float((want.float() - init[name].float()).abs().max())
+        ulp = float(want.abs().max()) * 2.0**-23
+        assert float((got.float() - want.float()).abs().max()) <= 1e-3 * moved + ulp + 1e-7, name
+
+
+@pytest.mark.gpu
 def test_ddp_step_across_cards(cuda, tmp_path):
     world = min(4, torch.cuda.device_count())
     if world < 2:

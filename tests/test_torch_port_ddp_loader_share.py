@@ -65,7 +65,7 @@ def test_shared_preparation_puts_together_the_one_process_batches(split, tmp_pat
         "stop_after": 1,
     }))
     ddp_check.launch(["-m", "salience_detr_torch.tools.ddp_check", "loader", "--spec", str(spec), "--out",
-                      str(tmp_path)], world, timeout=300)
+                      str(tmp_path), "--device", "cpu"], world, timeout=300)
     ranks = [np.load(tmp_path / f"rank{r}.npz") for r in range(world)]
     rows = [shard_rows(BATCH, r, world, accumulate) for r in range(world)]
     n = len(SIZES)

@@ -134,8 +134,8 @@ def run_ddp_pair(root, accumulate_steps, seed=0, world=2):
     one = ddp_check.run_step(str(spec), Mesh())
     out = root / "ranks"
     out.mkdir()
-    ddp_check.launch(["-m", "salience_detr_torch.tools.ddp_check", "step", "--spec", str(spec), "--out", str(out)],
-                     world, timeout=300)
+    ddp_check.launch(["-m", "salience_detr_torch.tools.ddp_check", "step", "--spec", str(spec), "--out", str(out),
+                      "--device", "cpu"], world, timeout=300)
     ranks = [torch.load(out / f"rank{r}.pt", weights_only=True) for r in range(world)]
     return jax_metrics, one, ranks, state_dict_from_jax(variables, tcfg), jside.state_dict(tcfg)
 

@@ -208,8 +208,8 @@ def test_an_infinite_gradient_on_one_rank_skips_the_step_on_every_rank(tmp_path)
     np.savez(spec / "batches.npz", **{k: np.stack([b[k] for b in batches]) for k in batches[0]})
     out = tmp_path / "ranks"
     out.mkdir()
-    ddp_check.launch(["-m", "salience_detr_torch.tools.ddp_check", "step", "--spec", str(spec), "--out", str(out)],
-                     world=2, timeout=300, env={"OMP_NUM_THREADS": "2"})
+    ddp_check.launch(["-m", "salience_detr_torch.tools.ddp_check", "step", "--spec", str(spec), "--out", str(out),
+                      "--device", "cpu"], world=2, timeout=300, env={"OMP_NUM_THREADS": "2"})
     ranks = [torch.load(out / f"rank{r}.pt", weights_only=True) for r in range(2)]
     init = sum(float(p.detach().double().sum()) for p in model.parameters())
     for r in ranks:
