@@ -236,6 +236,7 @@ import argparse
 import ctypes
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -243,6 +244,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -3022,7 +3024,9 @@ def phase_tools(smi, device="cuda"):
     * benchmark_model: parameters (as the JAX tool counts them), FLOPs a
       forward by FlopCounterMode (convolutions, GEMMs, attention and the
       MSDA operator's formula), peak memory, latency (CUDA events over 20
-      forwards) and img/s;
+      forwards) and img/s, and the latency again with the process's objects
+      frozen out of Python's collector, beside what the process held before
+      the tool (threads, tracked objects, allocated bytes);
     * export with --with-postprocess: ``torch.export`` of the uint8-canvas
       -> detections program, saved and loaded, its graph's kernel operators
       listed (the MSDA and grid-NMS operators must be there); the loaded
@@ -3035,8 +3039,9 @@ def phase_tools(smi, device="cuda"):
       K3 (the design the numerics name) for the CAM; the CAM finite and not
       all zero;
     * the small model's CAM on the card against the CPU's (float32, TF32
-      off): within 1e-3 of its largest value + 1e-6, the gradient bound of
-      phase 9, and the same logits at rtol 1e-3 / atol 1e-3;
+      off): each image's within 1e-3 of that image's largest value (the
+      bound of the CPU test against the JAX tool), and the same logits at
+      rtol 1e-3 / atol 1e-3;
     * the inference CLI with --show-dir refusing by name where cv2 is
       missing (cv2 is blocked from import here), launching nothing.
 
@@ -3053,14 +3058,25 @@ def phase_tools(smi, device="cuda"):
     served = Predictor(cfg, None, device, seed=0)
     model, post = served.model, served.postprocess
 
+    # what the process holds before the tool runs: the forward is host-bound,
+    # so its latency follows the host's state as well as the card's
+    allocated = torch.cuda.memory_allocated() / 2**30 if device == "cuda" else 0.0
+    host = (f"{threading.active_count()} Python threads, {len(gc.get_objects())} objects tracked by the "
+            f"collector, {allocated:.3f} GiB allocated")
     bench = bench_tool.benchmark(model, cfg, 1, H, W, repeats=20)
+    gc.freeze()  # the same forwards with the process's objects out of the collector's scans
+    try:
+        frozen_ms = bench_tool.benchmark(model, cfg, 1, H, W, repeats=20)["ms"]
+    finally:
+        gc.unfreeze()
     flops = ", ".join(f"{k} {v / 1e9:.3f}" for k, v in bench["flops"].items() if k != "total")
     peak = "not measured" if bench["peak_bytes"] is None else f"{bench['peak_bytes'] / 2**30:.3f} GiB"
     print(f"tools_benchmark: flagship R50 B=1 {H}x{W} {cfg.dtype}: params {bench['params']} "
           f"({bench['params'] / 1e6:.2f} M); {bench['flops']['total'] / 1e9:.3f} GFLOPs a forward "
           f"(FlopCounterMode: {flops} GFLOPs; element-wise ops, norms, sorts, the grid NMS and the bilinear "
           f"weights not counted); peak {peak}; latency {bench['ms']:.3f} ms ({bench['img_per_s']:.2f} img/s, "
-          f"CUDA events over 20 forwards); card: {smi}")
+          f"CUDA events over 20 forwards), {frozen_ms:.3f} ms again with gc.freeze(); before the tool the process "
+          f"held {host}; card: {smi}")
 
     t1 = time.perf_counter()
     program = export_tool.export_detector(model, post, cfg, 1, H, W, with_postprocess=True)
@@ -3112,12 +3128,13 @@ def phase_tools(smi, device="cuda"):
     torch.cuda.empty_cache()
 
     (cam_card, logits_card), (cam_cpu, logits_cpu) = small_cam(device), small_cam("cpu")
-    cam_ratio = float((cam_card - cam_cpu).abs().max()) / (1e-3 * float(cam_cpu.abs().max()) + 1e-6)
+    cam_scales = cam_cpu.flatten(1).abs().amax(1)
+    cam_ratio = float(((cam_card - cam_cpu).flatten(1).abs().amax(1) / (1e-3 * cam_scales)).max())
     logits_ok = torch.allclose(logits_card, logits_cpu, rtol=1e-3, atol=1e-3)
     print(f"tools_cam_small: small float32 Grad-CAM card-vs-cpu cam max {float(cam_cpu.max()):.4e}, "
-          f"err/bound {cam_ratio:.3e} (bound 1e-3*max|cam|+1e-6), logits max abs err "
+          f"err/bound {cam_ratio:.3e} (bound 1e-3*max|cam| an image), logits max abs err "
           f"{float((logits_card - logits_cpu).abs().max()):.3e} (rtol 1e-3, atol 1e-3)")
-    if cam_ratio > 1.0 or not logits_ok:
+    if not bool((cam_scales > 0).all()) or cam_ratio > 1.0 or not logits_ok:
         raise AssertionError("tools: the small model's Grad-CAM on the card disagrees with the CPU's")
 
     real_cv2 = sys.modules.get("cv2")
@@ -3477,16 +3494,15 @@ def phase_train_repeat(smi):
     synthetic batch of phase train) with ``--use-deterministic-algorithms``'
     numerics (``utils.env.configure_numerics(True)``) in processes of their
     own (``salience_detr_torch.tools.repeat_check train``; the setting is
-    global): float32 twice in one process, bf16 once in each of two
-    processes (until the tools phase joined the run, twice in the first).
-    The losses, every gradient and every parameter after the step must be
-    bitwise equal within each dtype; prints the library ops that
-    ``torch.use_deterministic_algorithms`` warned about."""
+    global): float32 twice in one process, bf16 twice in one process and
+    once in another.  The losses, every gradient and every parameter after
+    the step must be bitwise equal within each dtype; prints the library ops
+    that ``torch.use_deterministic_algorithms`` warned about."""
     t0 = time.perf_counter()
     root = DDP_DIR / "repeat"
     root.mkdir(parents=True, exist_ok=True)
     facts = []
-    for dtype, runs in (("f32", (2,)), ("bf16", (1, 1))):
+    for dtype, runs in (("f32", (2,)), ("bf16", (2, 1))):
         outs = [root / f"train_{dtype}_{i}.json" for i in range(len(runs))]
         for out, n in zip(outs, runs):
             run_cli(["-m", "salience_detr_torch.tools.repeat_check", "train", "--deterministic", "--dtype", dtype,
@@ -4008,11 +4024,10 @@ def phase_ddp_eval(smi):
     launcher's variables, LOCAL_RANK 0 for both) in exact mode
     (--torch-checkpoint, a saved seed-1 exact-mode state dict) on the eval
     phase's split at --batch-size 2, against the same command in one process,
-    made twice (``repeat_check eval``, which records each module output of
-    the first batch; three times until the tools phase joined the run): the
-    two one-process result files and the merged one must be byte-equal
-    (ROADMAP C-26: cuDNN's attention gave the first process of a call other
-    bits), and so must the merged file's
+    made three times (``repeat_check eval``, which records each module
+    output of the first batch): the three one-process result files and the
+    merged one must be byte-equal (ROADMAP C-26: cuDNN's attention gave the
+    first process of a call other bits), and so must the merged file's
     stats (rescored here on the split and on one whose boxes are the top
     predictions, where the random-weight model scores above zero); rank 0
     logs the stats and rank 1 nothing, and one result file is written, by
@@ -4028,7 +4043,7 @@ def phase_ddp_eval(smi):
     torch.cuda.empty_cache()
     args = ["-m", "salience_detr_torch.test", "--coco-img", str(img_dir), "--coco-ann", str(ann),
             "--torch-checkpoint", str(ckpt), "--batch-size", "2"]
-    singles = ("one", "again")
+    singles = ("one", "again", "third")
     for d in (*singles, "ranks"):
         (root / d).mkdir()
     one_s = []
@@ -4419,7 +4434,7 @@ def main(argv=None):
                         help="rehearse phase ddp_cards on one card: 2 gloo ranks share it (no scaling figure)")
     parser.add_argument("--phases", nargs="+", default=None,
                         choices=("msda_ordered", "train_repeat", "ddp_train", "ddp_nccl", "ddp_eval", "ddp_cards",
-                                 "numerics_cost", "tools"),
+                                 "numerics_cost", "serve_q8", "tools"),
                         help="run the device and build phases and these alone, and print no result line")
     args = parser.parse_args(argv)
     if args.ddp_rank is not None:

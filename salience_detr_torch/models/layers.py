@@ -17,7 +17,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from salience_detr_torch.parallel.mesh import all_reduce_sum
-from salience_detr_torch.utils.env import per_image_heads
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -132,15 +131,19 @@ class ConvNormAct(nn.Sequential):
 
 class PerImageLinear(nn.Linear):
     """``nn.Linear`` whose rows do not depend on their batch-mates under the
-    deterministic numerics (``utils.env.per_image_heads``): it then runs one
-    GEMM an image of a (B, N, in) input, so each call has the same row count
+    deterministic numerics (``torch.use_deterministic_algorithms``, as
+    ``ops.deform_attn.backward_design`` reads them): it then runs one GEMM
+    an image of a (B, N, in) input, so each call has the same row count
     whatever the batch, and a data-parallel rank's image computes the bits
-    one process computes for it.  cuBLAS picks its algorithm, and so its
-    order of additions, from the row count.  A score head before a discrete
-    selection (a top-k) takes this class."""
+    one process computes for it (ROADMAP C-27).  cuBLAS picks its algorithm,
+    and so its order of additions, from the row count.  A score head before
+    a discrete selection (a top-k) takes this class.  The default numerics
+    keep one GEMM a batch: one GEMM an image there moved 2 ranks' step 0
+    from 2.535e-05 to 5.069e-04 of one process on the flagship on an H100
+    (a decoder near-tie flips instead; PERF.md), past ``ddp_train``'s 1e-4."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dim() < 3 or x.shape[0] < 2 or not per_image_heads():
+        if x.dim() < 3 or x.shape[0] < 2 or not torch.are_deterministic_algorithms_enabled():
             return super().forward(x)
         return torch.stack([F.linear(xi, self.weight, self.bias) for xi in x.unbind(0)])
 

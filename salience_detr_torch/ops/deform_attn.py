@@ -337,29 +337,26 @@ def ms_deform_attn_flops(value_shape, locations_shape, weights_shape, *args, out
     return 2 * 4 * B * Q * value_shape[2] * L * P
 
 
-class _MSDeformAttn:
-    """The op's autograd: backward K3 (the design :func:`backward_design`
-    names) on CUDA tensors, the plain backward on CPU tensors; nothing on
-    CUDA gives way to a plain version or to the other design."""
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        value, locations, weights, levels = inputs
-        ctx.spatial_shapes = level_pairs(levels)
-        ctx.save_for_backward(value, locations, weights)
-
-    @staticmethod
-    def backward(ctx, d_out):
-        value, locations, weights = ctx.saved_tensors
-        args = (value, ctx.spatial_shapes, locations, weights, d_out)
-        if value.device.type == "cpu":
-            grads = ms_deform_attn_backward_plain(*args)
-        else:
-            grads = BACKWARD_DESIGNS[backward_design()](*args)
-        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None)
+def _ms_deform_attn_setup_context(ctx, inputs, output):
+    value, locations, weights, levels = inputs
+    ctx.spatial_shapes = level_pairs(levels)
+    ctx.save_for_backward(value, locations, weights)
 
 
-ms_deform_attn_op.register_autograd(_MSDeformAttn.backward, setup_context=_MSDeformAttn.setup_context)
+def _ms_deform_attn_backward(ctx, d_out):
+    """The op's backward: K3 (the design :func:`backward_design` names) on
+    CUDA tensors, the plain backward on CPU tensors; nothing on CUDA gives
+    way to a plain version or to the other design."""
+    value, locations, weights = ctx.saved_tensors
+    args = (value, ctx.spatial_shapes, locations, weights, d_out)
+    if value.device.type == "cpu":
+        grads = ms_deform_attn_backward_plain(*args)
+    else:
+        grads = BACKWARD_DESIGNS[backward_design()](*args)
+    return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None)
+
+
+ms_deform_attn_op.register_autograd(_ms_deform_attn_backward, setup_context=_ms_deform_attn_setup_context)
 
 
 register_flop_formula(torch.ops.salience_detr.ms_deform_attn)(ms_deform_attn_flops)

@@ -74,8 +74,8 @@ def configure_numerics(deterministic: bool = False, exact_float32: bool = False)
     (``ops.deform_attn.backward_design``) and SDPA's math formulation in the
     dense attention (``models.bricks.attention.MultiheadAttention``).  With it
     the score heads before a discrete selection also compute one image at a
-    time (:func:`per_image_heads`), so that a data-parallel rank selects the
-    tokens one process selects (ROADMAP C-27)."""
+    time (``models.layers.PerImageLinear``), so that a data-parallel rank
+    selects the tokens one process selects (ROADMAP C-27)."""
     if deterministic:
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         torch.use_deterministic_algorithms(True, warn_only=True)
@@ -84,15 +84,6 @@ def configure_numerics(deterministic: bool = False, exact_float32: bool = False)
     if exact_float32:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-
-
-def per_image_heads() -> bool:
-    """Whether the score heads before a discrete selection
-    (``models.layers.PerImageLinear``) run one GEMM an image: under
-    ``torch.use_deterministic_algorithms`` (the train CLI's
-    ``--use-deterministic-algorithms``), as ``ops.deform_attn.backward_design``
-    picks K3's ordered design.  The default numerics keep one GEMM a batch."""
-    return torch.are_deterministic_algorithms_enabled()
 
 
 def seed_everything(seed: Optional[int] = None) -> int:

@@ -136,7 +136,7 @@ def test_k3_runs_the_design_backward_design_names(monkeypatch, deterministic):
                           needs_input_grad=(True, True, True, False))
     torch.use_deterministic_algorithms(deterministic, warn_only=True)
     try:
-        grads = deform_attn._MSDeformAttn.backward(ctx, torch.empty(B, Q, C, device="meta"))
+        grads = deform_attn._ms_deform_attn_backward(ctx, torch.empty(B, Q, C, device="meta"))
     finally:
         torch.use_deterministic_algorithms(False)
     assert called == ["ordered" if deterministic else "scatter"]
