@@ -137,14 +137,20 @@ non-zero exit and no result line:
    turns with these (``dcn_ab:``; the columns kernel launch only, its output
    held equal, with its share of the bound; the backward as whole calls, each
    baseline's gradients held against the plain backward; the fused kernel
-   against the baseline's columns kernel + torch.matmul);
+   against the baseline's columns kernel + torch.matmul, and launch only
+   against the baseline's own fused kernel, with its error against the
+   plain layer);
 17b. dcn_captured: the backward on the inputs of the 13 DCN layers of one
    R50-DCN train step (offset and mask convs at seeded small normals), and
    on the same with offsets of std 8 px: against the plain backward and
    autograd, d_x bitwise repeatable, the gather's list sizes, times and
    bounds per layer and over the 13; with ``--baseline-csrc``, each
    directory's backward (the earlier per-corner atomic push, the halo push
-   of tools/dcn_halo/, ...) in turns as whole calls;
+   of tools/dcn_halo/, ...) in turns as whole calls; then the 16-bit
+   layer's two routes on the captured layers' own x, offsets, mask and
+   kernel (the fused kernel within one ulp + 1e-3 of the plain layer, then
+   in turns with the columns kernel + torch.matmul, per layer and summed by
+   F: what ``FUSED_MAX_F`` follows);
 18. dcn_slice: phases 5 and 9 on the small model with DCN stages 2-4, its
    offset and mask convs at seeded small normals (``offsets_off_grid``) on
    both devices; then its train step on the card under float16 autocast:
@@ -216,6 +222,12 @@ non-zero exit and no result line:
    seed-1 state dict that also holds upstream Swin's attention buffers,
    which the loader drops by name before its strict load; 12 MSDA and 1
    grid-NMS launch a forward, the stats finite.
+
+``--phases steps_e2e`` (not in the full run) reads end-to-end device times
+beside the K3 and B6 kernels': a deterministic flagship and R50 5-scale
+train step, an R50-DCN serve forward with both 16-bit routes in turns and
+an R50-DCN train step; it uses only what earlier commits also have, so a
+copy of this script in an earlier checkout times that commit's package.
 
 Then the total wall time.  The line before the last is {"kernels": [...]}: per kernel its launches in
 the counted train steps (3; K4 launches once a step: in phase 15b's first
@@ -1032,10 +1044,10 @@ def baseline_library(csrc_dir):
     salience_detr_torch/tools/gather_cluster)."""
     lib = ctypes.CDLL(str(native.build(Path(csrc_dir).resolve())))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    if hasattr(lib, "msda_forward"):
-        native.bind_msda(lib)
+    native.bind_msda(lib)
     signatures = {
         "deform_conv_forward": [ptr, i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr],
+        "deform_conv_fused_forward": [ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr],
         "deform_conv_backward": [ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr],
         "deform_conv_backward_halo": [ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr],
         "deform_conv_backward_gather": [ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr],
@@ -2438,6 +2450,25 @@ def fused_bound(x, offsets, mask, weight_16, out):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def fused_launcher(x, offsets, mask, w16, stride):
+    """A launch-only call of a library's fused DCN kernel on these inputs
+    (offsets and mask cast to f32 once, the output allocated once); returns
+    it and the output."""
+    B, H, W, C = x.shape
+    Ho, Wo = offsets.shape[1:3]
+    off, msk = offsets.float().contiguous(), mask.float().contiguous()
+    F = w16.shape[1]
+    out = torch.empty(B, Ho, Wo, F, dtype=x.dtype, device=x.device)
+    code, stream = dcn_ops.DTYPE_CODES[x.dtype], native.stream_of(x)
+
+    def launch(lib):
+        native.check(lib.deform_conv_fused_forward(x.data_ptr(), code, off.data_ptr(), msk.data_ptr(),
+                                                   w16.data_ptr(), out.data_ptr(), B, H, W, C, F, stride, stream),
+                     "deform_conv_fused_forward")
+
+    return launch, out
+
+
 def dcn_fused_checks(x32, offsets, mask, stride, gen, bases, smi):
     """The 16-bit layer (a (9, C, C) kernel) on bf16 and f16 x:
     ``deform_conv2d`` takes the fused kernel alone where
@@ -2518,6 +2549,17 @@ def dcn_fused_checks(x32, offsets, mask, stride, gen, bases, smi):
             t = [cuda_ms(f, 10) for f in (lambda: parent_path(base), fused, fused, lambda: parent_path(base))]
             ab.append(f"baseline={base_dir} parent path (its columns kernel + torch.matmul) / fused / fused / parent "
                       f"path ms {[round(v, 4) for v in t]}")
+        if hasattr(base, "deform_conv_fused_forward"):
+            launch, base_out = fused_launcher(x, offsets, mask, w16, stride)
+            launch(base)
+            torch.cuda.synchronize()
+            plain = dcn_ops.deform_conv2d_plain(x, offsets, mask, weight, stride).float()
+            base_err = float((base_out.float() - plain).abs().max())
+            t = [cuda_ms(lambda: launch(lib_), 10) for lib_ in (base, new, new, base)]
+            ab.append(f"baseline={base_dir} its fused kernel (max_abs_err vs plain {base_err:.3e}) launch only "
+                      f"base/new/new/base ms {[round(v, 4) for v in t]}, bound share base "
+                      f"{2 * fb / (t[0] + t[3]):.3f} new {2 * fb / (t[1] + t[2]):.3f}")
+            del plain, base_out
     print(f"deform_conv_fused: C=F={C} x {B}x{H}x{W} stride={stride}; {'; '.join(parts)}; bf16 in turns parent path "
           f"(columns kernel + torch.matmul) / fused / fused / parent path ms {[round(v, 4) for v in turns]}: fused "
           f"{fused_ms:.4f} parent path {parent_ms:.4f} (columns {cols_ms:.4f} + matmul {matmul_ms:.4f}); plain_ms="
@@ -2551,8 +2593,8 @@ def phase_deform_conv(smi, baselines=()):
     gen = torch.Generator(device=dev).manual_seed(21)
     new = native.load()
     bases = [(d, baseline_library(d)) for d in baselines]
-    bases = [(d, lib) for d, lib in bases
-             if any(hasattr(lib, e) for e in ("deform_conv_forward",) + DCN_BACKWARD_ENTRIES)]
+    bases = [(d, lib) for d, lib in bases if any(
+        hasattr(lib, e) for e in ("deform_conv_forward", "deform_conv_fused_forward") + DCN_BACKWARD_ENTRIES)]
     fwd_err = bwd_err = fused_err = 0.0
     totals = np.zeros(8)
     fused_totals = np.zeros(7)
@@ -2656,7 +2698,8 @@ def capture_dcn_train_inputs():
     def recording(x, offsets, mask, weight, stride):
         # the layer as the columns and their product, so that d_cols exists
         cols = dcn_ops.deform_conv_sample(x, offsets, mask, stride)
-        call = {"x": x.detach(), "offsets": offsets.detach(), "mask": mask.detach(), "stride": stride}
+        call = {"x": x.detach(), "offsets": offsets.detach(), "mask": mask.detach(), "stride": stride,
+                "weight": weight.detach()}
         cols.register_hook(lambda grad: call.__setitem__("d_cols", grad.detach()))
         calls.append(call)
         return dcn_ops._product(cols, weight)
@@ -2729,7 +2772,42 @@ def phase_dcn_captured(smi, baselines):
         ab = "; ".join(f"baseline={d} base/new/new/base {[round(float(v), 4) for v in row[d]]}" for d, _ in bases)
         print(f"dcn_captured: the 13 layers, {label} offsets: kernel_ms={row['ms']:.4f} bound_ms={row['bound']:.4f}; "
               f"{ab}; card: {smi}")
+    fused_route_on_captured(calls, smi)
     print(f"dcn_captured: largest error {worst:.3e}; phase_s={time.perf_counter() - t0:.2f}")
+
+
+def fused_route_on_captured(calls, smi):
+    """The 16-bit layer's two CUDA routes on the 13 captured R50-DCN
+    layers' own inputs (x, offsets, mask and the kernel of the train step):
+    the fused kernel against the plain layer (one ulp + 1e-3 of its largest
+    output, as ``dcn_fused_checks``), then the fused kernel and the columns
+    kernel + ``torch.matmul`` in turns (columns, fused, fused, columns),
+    per layer and summed by F: what ``FUSED_MAX_F`` is set from."""
+    by_f = {}
+    for i, c in enumerate(calls):
+        x, offsets, mask, stride, weight = c["x"], c["offsets"], c["mask"], c["stride"], c["weight"]
+        C, F = x.shape[-1], weight.shape[-1]
+        with torch.autocast("cuda", enabled=False):
+            fused = lambda: dcn_ops._fused_cuda(x, offsets, mask, weight, stride)  # noqa: E731
+            columns = lambda: dcn_ops._product(dcn_ops._forward_cuda(x, offsets, mask, stride), weight)  # noqa: E731
+            got = fused().float()
+            plain = dcn_ops.deform_conv2d_plain(x, offsets, mask, weight, stride).float()
+            ulp = 2.0 ** -7 if x.dtype == torch.bfloat16 else 2.0 ** -10
+            bad = int(((got - plain).abs() > ulp * plain.abs() + 1e-3 * float(plain.abs().max())).sum())
+            if bad:
+                raise AssertionError(f"dcn_captured: the fused kernel is off the plain layer at layer {i}: "
+                                     f"{bad} elements")
+            turns = [cuda_ms(f, 10) for f in (columns, fused, fused, columns)]
+        row = by_f.setdefault(F, np.zeros(4))
+        row += turns
+        print(f"dcn_captured: layer {i} C={C} F={F} {tuple(x.shape[1:3])} stride={stride} {str(x.dtype)[6:]}: fused "
+              f"max_abs_err vs plain {float((got - plain).abs().max()):.3e}; columns + matmul / fused / fused / "
+              f"columns + matmul ms {[round(v, 4) for v in turns]}; card: {smi}")
+        del got, plain
+    parts = [f"F={F} ({len([c for c in calls if c['weight'].shape[-1] == F])} layers) columns + matmul / fused / "
+             f"fused / columns + matmul {[round(float(v), 4) for v in row]}" for F, row in sorted(by_f.items())]
+    print(f"dcn_captured: the routes on the captured layers, summed by F: {'; '.join(parts)}; route FUSED_MAX_F="
+          f"{dcn_ops.FUSED_MAX_F}; card: {smi}")
 
 
 def phase_dcn_slice():
@@ -3307,11 +3385,77 @@ def phase_numerics_cost(smi):
           f"phase_s={time.perf_counter() - t0:.2f}; card: {smi}")
 
 
+E2E_TIMED = 5  # steps_e2e: timed steps or forwards a reading, after one untimed
+E2E_KERNELS = ("msda_backward", "msda_backward_ordered", "deform_conv_fused", "deform_conv", "deform_conv_backward")
+
+
+def phase_steps_e2e(smi):
+    """End-to-end readings beside K3's and B6's kernel times, each the
+    median of E2E_TIMED calls after one untimed between CUDA events (these
+    host-bound calls keep the card idle between launches, so the events
+    read mostly the host) and the card's busy time a call (the sum of its
+    kernels' device times over 2 profiled calls, ``kernel_breakdown``):
+    a ``Trainer`` step (B=4, bf16 autocast, gts GT_COUNTS) of the flagship
+    and of the R50 5-scale config with the train CLI's
+    ``--use-deterministic-algorithms`` numerics (K3's ordered design), then
+    an R50-DCN ``Predictor.forward`` (B=4, the timed serve batch) and train
+    step, their offset and mask convs at seeded small normals; with the
+    kernel launches of one timed call each.  Only ``Trainer``,
+    ``Predictor`` and the phases' helpers are used, so the same phase times
+    an earlier commit's package from its own checkout."""
+    t0 = time.perf_counter()
+    parts = []
+
+    def reading(label, fn):
+        before = dict(native.LAUNCHES)
+        fn()
+        torch.cuda.synchronize()
+        counted = {k: native.LAUNCHES[k] - before[k] for k in E2E_KERNELS if native.LAUNCHES[k] != before[k]}
+        times = cuda_times(fn, E2E_TIMED)
+        busy = sum(kernel_breakdown(fn, iters=2).values())
+        parts.append(f"{label} median_ms={statistics.median(times):.3f} ms={[round(x, 3) for x in times]} "
+                     f"device_busy_ms={busy:.3f} launches a call {counted}")
+
+    try:
+        configure_numerics(deterministic=True)
+        for name, cfg in (("flagship", load_config(DEFAULT_CONFIG)), ("R50 5-scale", backbone_config("r50_5scale")[0])):
+            trainer = Trainer(cfg, "cuda", seed=0, steps_per_epoch=100)
+            batch = next(trainer.batches(1, seed=0, counts=GT_COUNTS))
+            reading(f"{name} train step, deterministic", lambda: trainer.step(batch, trainer.generator))
+            del trainer, batch
+            torch.cuda.empty_cache()
+    finally:
+        configure_numerics(exact_float32=True)  # this script's own setting
+    torch.use_deterministic_algorithms(False)
+    predictor = Predictor(load_config(DCN_CONFIG), None, "cuda", seed=0)
+    offsets_off_grid(predictor.model)
+    inputs = preprocess(make_requests(TIMED_BATCH, 7), predictor.cfg, "cuda")
+    reading("R50-DCN serve forward", lambda: predictor.forward(*inputs))
+    # the 16-bit layers' two routes in turns: as shipped, then every layer
+    # through the columns kernel + torch.matmul
+    shipped = dcn_ops.FUSED_MAX_F
+    try:
+        for label, max_f in (("route", shipped), ("columns", 0), ("columns", 0), ("route", shipped)):
+            dcn_ops.FUSED_MAX_F = max_f
+            reading(f"R50-DCN serve forward, {label} (FUSED_MAX_F={max_f})", lambda: predictor.forward(*inputs))
+    finally:
+        dcn_ops.FUSED_MAX_F = shipped
+    del predictor, inputs
+    trainer = Trainer(load_config(DCN_CONFIG), "cuda", seed=0, steps_per_epoch=100)
+    offsets_off_grid(trainer.model)
+    batch = next(trainer.batches(1, seed=0, counts=GT_COUNTS))
+    reading("R50-DCN train step", lambda: trainer.step(batch, trainer.generator))
+    del trainer, batch
+    torch.cuda.empty_cache()
+    print(f"steps_e2e: {'; '.join(parts)}; phase_s={time.perf_counter() - t0:.2f}; card: {smi}")
+
+
 def k3_launchers(value, locs, weights, d_out, levels=LEVELS):
     """Launch-only calls of both K3 designs of a given library on these
     inputs (locations and weights cast to f32 once, outputs allocated once,
     the ordered design's workspace once a library, from that library's
-    size), and this build's workspace bytes."""
+    size), this build's workspace bytes, and the ordered design's outputs
+    (d_value, d_locations, d_weights), which every ordered call rewrites."""
     B, S, C = value.shape
     Q, G = locs.shape[1:3]
     H, P = weights.shape[2], weights.shape[-1]
@@ -3339,7 +3483,18 @@ def k3_launchers(value, locs, weights, d_out, levels=LEVELS):
                                                d_attn.data_ptr(), workspace(lib).data_ptr(), B, S, Q, C, H, G,
                                                P, stream), "msda_backward_ordered")
 
-    return scatter, ordered, workspace(native.load()).numel()
+    return scatter, ordered, workspace(native.load()).numel(), (d_value, d_loc, d_attn)
+
+
+def same_ordered_outputs(ordered, outputs, base, new):
+    """Whether a baseline library's ordered design writes the bits this
+    build's does (d_value, d_locations, d_weights), each equal or not."""
+    ordered(new)
+    torch.cuda.synchronize()
+    mine = [t.clone() for t in outputs]
+    ordered(base)
+    torch.cuda.synchronize()
+    return [torch.equal(a, b) for a, b in zip(mine, outputs)]
 
 
 def ordered_bound(value, locs, weights, levels):
@@ -3389,7 +3544,9 @@ def ordered_checks(label, value, locs, weights, d_out, levels, baselines, smi):
     d_weights), through autograd under ``torch.use_deterministic_algorithms``
     (counted under its own key), and timed in turns with the scatter design
     (launch only and with the wrappers; with ``baselines``, also against
-    each directory's scatter K3).  Returns (largest error, (ms, plain ms,
+    each directory's scatter K3, and each directory's ordered design held
+    bitwise equal to this one and timed in turns with it, with its time by
+    kernel beside this one's).  Returns (largest error, (ms, plain ms,
     bound ms, bound by), launch-only ms of both designs)."""
     first = _backward_cuda_ordered(value, levels, locs, weights, d_out)
     second = _backward_cuda_ordered(value, levels, locs, weights, d_out)
@@ -3422,7 +3579,7 @@ def ordered_checks(label, value, locs, weights, d_out, levels, baselines, smi):
             torch.equal(x.grad, g) for x, g in zip(inputs, first)):
         raise AssertionError(f"msda_ordered {label}: autograd launched {counted} or differs from the wrapper")
     del inputs, first, second
-    scatter, ordered, workspace_bytes = k3_launchers(value, locs, weights, d_out, levels)
+    scatter, ordered, workspace_bytes, outputs = k3_launchers(value, locs, weights, d_out, levels)
     lib = native.load()
     launch = [cuda_ms(lambda: run(lib), 10) for run in (scatter, ordered, ordered, scatter)]
     wrapped = [cuda_ms(lambda: fn(value, levels, locs, weights, d_out), 10)
@@ -3438,8 +3595,14 @@ def ordered_checks(label, value, locs, weights, d_out, levels, baselines, smi):
             base_parts.append(f"against {base_dir}'s scatter K3 base/ordered/ordered/base "
                               f"{[round(x, 4) for x in turns]}")
         if hasattr(base, "msda_backward_ordered"):
+            same = same_ordered_outputs(ordered, outputs, base, lib)
+            if not all(same):
+                raise AssertionError(f"msda_ordered {label}: the ordered design differs from {base_dir}'s "
+                                     f"(d_value, d_loc, d_attn bitwise equal: {same})")
             turns = [cuda_ms(lambda: ordered(lib_), 10) for lib_ in (base, lib, lib, base)]
-            base_parts.append(f"against {base_dir}'s ordered K3 base/new/new/base {[round(x, 4) for x in turns]}")
+            base_parts.append(f"against {base_dir}'s ordered K3 (bitwise equal) base/new/new/base "
+                              f"{[round(x, 4) for x in turns]}, its launch by kernel (profiler) "
+                              f"{kernel_breakdown(lambda: ordered(base))}")
     print(f"msda_ordered: {label} G={locs.shape[2]} B={value.shape[0]} Q={locs.shape[1]} S={value.shape[1]} "
           f"{str(value.dtype)[6:]}: errors against the plain backward {' '.join(parts)}; two launches bitwise "
           f"equal; launch-only ms scatter/ordered/ordered/scatter {[round(x, 4) for x in launch]}; with the "
@@ -4433,8 +4596,9 @@ def main(argv=None):
     parser.add_argument("--ddp-cards-on-one-card", action="store_true",
                         help="rehearse phase ddp_cards on one card: 2 gloo ranks share it (no scaling figure)")
     parser.add_argument("--phases", nargs="+", default=None,
-                        choices=("msda_ordered", "train_repeat", "ddp_train", "ddp_nccl", "ddp_eval", "ddp_cards",
-                                 "numerics_cost", "serve_q8", "tools"),
+                        choices=("msda_ordered", "deform_conv", "dcn_captured", "steps_e2e", "train_repeat",
+                                 "ddp_train", "ddp_nccl", "ddp_eval", "ddp_cards", "numerics_cost", "serve_q8",
+                                 "tools"),
                         help="run the device and build phases and these alone, and print no result line")
     args = parser.parse_args(argv)
     if args.ddp_rank is not None:
@@ -4451,6 +4615,8 @@ def main(argv=None):
                 phase_ddp_cards(smi, args.ddp_cards_on_one_card)
             elif name == "msda_ordered":
                 phase_msda_ordered(smi, baselines=args.baseline_csrc)
+            elif name in ("deform_conv", "dcn_captured"):
+                globals()[f"phase_{name}"](smi, args.baseline_csrc)
             else:
                 globals()[f"phase_{name}"](smi)
             torch.cuda.empty_cache()

@@ -135,29 +135,26 @@ def build(csrc_dir: Path = CSRC_DIR) -> Path:
 
 def bind_msda(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of the MSDA entry points (msda_forward,
-    msda_backward, cuda_error_string, and where ``lib`` has them
-    msda_backward_ordered and msda_backward_workspace) on ``lib``."""
+    msda_backward, msda_backward_ordered and msda_backward_workspace,
+    cuda_error_string) that ``lib`` has."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.msda_forward.argtypes = [
-        ptr, i32, LevelTable, ptr, ptr, ptr,
-        i32, i32, i32, i32, i32, i32, i32, ptr,
-    ]
-    lib.msda_forward.restype = i32
-    lib.msda_backward.argtypes = [
-        ptr, i32, LevelTable, ptr, ptr, ptr, ptr, ptr, ptr,
-        i32, i32, i32, i32, i32, i32, i32, ptr,
-    ]
-    lib.msda_backward.restype = i32
-    if hasattr(lib, "msda_backward_ordered"):
-        lib.msda_backward_ordered.argtypes = [
-            ptr, i32, LevelTable, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-            i32, i32, i32, i32, i32, i32, i32, ptr,
-        ]
-        lib.msda_backward_ordered.restype = i32
+    signatures = {
+        "msda_forward": [ptr, i32, LevelTable, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr],
+        "msda_backward": [ptr, i32, LevelTable, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
+                          ptr],
+        "msda_backward_ordered": [ptr, i32, LevelTable, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                                  i32, i32, i32, ptr],
+    }
+    for name, argtypes in signatures.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = i32
+    if hasattr(lib, "msda_backward_workspace"):
         lib.msda_backward_workspace.argtypes = [LevelTable, i32, i32, i32, i32, i32, i32, i32]
         lib.msda_backward_workspace.restype = ctypes.c_int64
-    lib.cuda_error_string.argtypes = [i32]
-    lib.cuda_error_string.restype = ctypes.c_char_p
+    if hasattr(lib, "cuda_error_string"):
+        lib.cuda_error_string.argtypes = [i32]
+        lib.cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 

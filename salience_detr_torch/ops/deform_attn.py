@@ -267,10 +267,17 @@ def _backward_cuda_ordered(value, spatial_shapes, locations, weights, d_out):
     """K3, the ordered design: the entries sorted by value row, stably, so
     that each row's entries stay in key order; every d_value row summed in
     that order by a team of lanes and written once in the value dtype, with
-    no float atomics, so the result is bitwise repeatable.  Its scratch (the
-    sort's two buffers of (row, key) pairs and the keys' weights, 20 bytes a
-    corner, and the rows' bounds) comes from the caching allocator.
-    d_locations and d_weights as in the scatter design."""
+    no float atomics, so the result is bitwise repeatable and the same bits
+    whatever the sort's digits, tiles or the gather's block order.  The
+    sort takes 8-bit digits (wider digits' tiles keep fewer blocks on an SM
+    and cost more a pass than the pass they save), makes the entries in its
+    first pass and writes the rows' bounds in its last; the gather keeps
+    many warps an SM in flight, since its time is the latency of each
+    entry's chain of loads (``csrc/msda_backward.cu`` says why each part is
+    as it is).  Its scratch (the sort's two buffers of (row, key) pairs and
+    the keys' weights, 20 bytes a corner, at G < H a copy of the attention
+    weights, the digit counts and the rows' bounds) comes from the caching
+    allocator.  d_locations and d_weights as in the scatter design."""
     (B, S, C, Q, G, L, P, H), loc, attn, grad, d_loc, d_attn = _backward_inputs(
         value, spatial_shapes, locations, weights, d_out)
     lib = native.load()

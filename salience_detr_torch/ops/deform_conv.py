@@ -279,9 +279,12 @@ def deform_conv_sample(
     return _DeformConvSample.apply(x, offsets, mask, int(stride))
 
 
-# the widest F the 16-bit route gives the fused kernel: one 128-channel tile
-# covers it, so each pixel's taps are sampled once (above it, the kernel
-# samples them F / 128 times and loses to the columns kernel + cuBLAS)
+# the widest F the 16-bit route gives the fused kernel, from the two routes
+# timed in turns on an H100 at R50-DCN's three widths (PERF.md §6): at F =
+# 128 the fused kernel is as fast as the columns kernel + cuBLAS at the
+# hottest shape and faster on a train step's captured layers, whose taps
+# share more corner rows; at F = 256 and 512 each tile reads W's rows again,
+# as much traffic as the corners, and the columns route is faster
 FUSED_MAX_F = 128
 
 
@@ -294,8 +297,9 @@ def uses_fused_kernel(dtype: torch.dtype, features: int) -> bool:
 
 def _fused_cuda(x, offsets, mask, weight, stride):
     """The fused kernel (``deform_conv_fused_forward``): the sampling and the
-    product on the tensor cores in x's 16-bit dtype, no columns written.  It
-    takes any F a multiple of 8 (one launch of F / 128 channel tiles);
+    product on the tensor cores (wgmma) in x's 16-bit dtype, no columns
+    written.  It takes any F a multiple of 8 (one launch: tiles of 128
+    pixels x 128 channels up to F = 128, else 64 pixels x 256 channels);
     :func:`deform_conv2d` gives it F up to :data:`FUSED_MAX_F` only."""
     B, H, W, C, Ho, Wo = _check_kernel_inputs(x, offsets, mask, stride)
     w = _kernel_matrix(weight, C).to(x.dtype).contiguous()
@@ -377,11 +381,14 @@ def deform_conv2d(
     * CUDA, x bfloat16 or float16 (serving and training under autocast) and
       F a multiple of 8 up to :data:`FUSED_MAX_F`: the fused kernel
       (``csrc/deform_conv_gemm.cu``, counted as ``deform_conv_fused``), the
-      sampling and the product on the tensor cores;
+      sampling and the product on the tensor cores (wgmma, its loads and
+      sums in warpgroups of their own), no columns written;
     * CUDA, any other layer (x float32, or F above 128 or not a multiple of
       8): the columns kernel (counted as ``deform_conv``), then
       ``torch.matmul`` in x's dtype.  At F = 256 and 512 (R50-DCN's stages
-      3-4) this is faster than the fused kernel on an H100.
+      3-4) this is faster than the fused kernel on an H100: the fused
+      kernel's tiles read W's rows again, as much traffic as the corners,
+      where cuBLAS reads the columns once.
 
     Both CUDA routes take Cin in (32, 64, 128) or a multiple of 256, the
     columns kernel's set, which the backward's recompute also needs.

@@ -17,11 +17,15 @@ Checked:
   ``deform_conv2d_plain`` (whose sampling gradients autograd sums in another
   order than the plain backward);
 * a numpy mirror of the fused kernel's loop order (``csrc/deform_conv_gemm.cu``:
-  pixel tiles, output-channel tiles, taps, channel chunks, ragged last tiles
-  zero-filled; the kernel's 64 x 128 x 32 tile among the cases): its
-  sampled tiles bitwise equal to the plain columns, its output within rtol
-  1e-5 of the plain layer;
-* the route rule: which layers the CUDA route gives the fused kernel;
+  pixel tiles, output-channel tiles, taps, 32-channel steps, each step's A
+  tile sampled once and multiplied by each consumer warpgroup's rows or
+  columns in two k = 16 halves, ragged last tiles zero-filled; the kernel's
+  128 x 128 tile and its 64 x 256 tile of two column halves among the
+  cases): its sampled tiles bitwise equal to the plain columns, each pixel
+  sampled once a tap, channel and column tile, its output within rtol 1e-5
+  of the plain layer;
+* the kernel's tile by F (stages, shared memory, column tiles) and the
+  route rule: which layers the CUDA route gives the fused kernel;
 * float16: the layer function against the JAX module with ``dtype=float16``
   (rtol 4e-3, atol 4e-3: a few float16 ulps of outputs near 1, the final
   rounding of two sums taken in other orders).
@@ -148,18 +152,24 @@ def sample_rows(x, offsets, mask, stride, pix, k, c0, c1):
     return acc * m[:, None]
 
 
-def fused_mirror(x, offsets, mask, kernel, stride, BM, BN, BK):
+def fused_mirror(x, offsets, mask, kernel, stride, BM, BN, BK, groups=(1, 1)):
     """The fused kernel's loop order in numpy: a (BM pixels, BN channels)
-    tile at a time, taps outer and BK-channel chunks inner, acc += A @ B in
-    float32 with the rows past M and the channels past F zero-filled, the
-    tile stored without its ragged part.  Returns the output and the
-    sampled A tiles as a (M, 9, C) array."""
+    tile at a time, one BK-channel step of one tap at a time (taps outer),
+    the step's A tile sampled once, then each consumer warpgroup's part of
+    the tile (``groups``: (row parts, column parts)) adds its rows of A
+    times its columns of B in k = 16 halves, in float32, with the rows past
+    M and the channels past F zero-filled; the tile stored without its
+    ragged part.  Returns the output, the sampled A tiles as a (M, 9, C)
+    array, and how often each (pixel, tap, channel) was sampled."""
     B, H, W, C = x.shape
     Ho, Wo = offsets.shape[1:3]
     M, F = B * Ho * Wo, kernel.shape[-1]
     w = kernel.reshape(9 * C, F).astype(np.float32)
     out = np.zeros((M, F), np.float32)
     cols = np.zeros((M, 9, C), np.float32)
+    sampled = np.zeros((M, 9, C), np.int64)
+    gm, gn = groups
+    rows_g, cols_g = BM // gm, BN // gn
     for m0 in range(0, M, BM):
         pix = np.arange(m0, min(m0 + BM, M))
         for n0 in range(0, F, BN):
@@ -169,28 +179,78 @@ def fused_mirror(x, offsets, mask, kernel, stride, BM, BN, BK):
                     a = np.zeros((BM, BK), np.float32)
                     a[:len(pix)] = sample_rows(x, offsets, mask, stride, pix, k, c0, c0 + BK)
                     cols[pix, k, c0:c0 + BK] = a[:len(pix)]
+                    sampled[pix, k, c0:c0 + BK] += 1
                     b = np.zeros((BK, BN), np.float32)
                     part = w[k * C + c0:k * C + c0 + BK, n0:n0 + BN]
                     b[:, :part.shape[1]] = part
-                    acc += a @ b
+                    for g in range(gm * gn):
+                        r, c = slice((g % gm) * rows_g, (g % gm + 1) * rows_g), slice((g // gm) * cols_g,
+                                                                                      (g // gm + 1) * cols_g)
+                        for kk in range(0, BK, 16):
+                            acc[r, c] += a[r, kk:kk + 16] @ b[kk:kk + 16, c]
             out[pix, n0:n0 + BN] = acc[:len(pix), :min(BN, F - n0)]
-    return out.reshape(B, Ho, Wo, F), cols.reshape(B, Ho, Wo, 9, C)
+    return out.reshape(B, Ho, Wo, F), cols.reshape(B, Ho, Wo, 9, C), sampled
 
 
-@pytest.mark.parametrize("stride,tiles", [(1, (16, 16, 8)), (2, (16, 16, 32)), (1, (64, 128, 32)),
-                                          (2, (64, 128, 32))])
+@pytest.mark.parametrize("stride,tiles", [(1, (16, 16, 8)), (2, (16, 16, 32)), (1, (128, 128, 32)),
+                                          (2, (128, 128, 32))])
 def test_fused_mirror_matches_plain(stride, tiles):
     """Ragged last tiles on both sides (M = 2 * 7 * 9 or 2 * 4 * 5 pixels, F =
-    24) at small tiles, and one tile covering all at the kernel's."""
+    24) at small tiles, and one tile covering all at the kernel's (two
+    consumer warpgroups of 64 rows)."""
     x, offsets, mask, kernel, _ = jax_layer_inputs(stride, seed=70 + stride, H=7, W=9)
-    got, cols = fused_mirror(x, offsets, mask, kernel, stride, *tiles)
+    groups = (2, 1) if tiles[0] == 128 else (1, 1)
+    got, cols, sampled = fused_mirror(x, offsets, mask, kernel, stride, *tiles, groups)
     want_cols = deform_conv_sample_plain(t(x), t(offsets), t(mask), stride)
     assert torch.equal(torch.from_numpy(cols), want_cols)
+    assert (sampled == -(-kernel.shape[-1] // tiles[1])).all()
     want = deform_conv2d_plain(t(x), t(offsets), t(mask), t(kernel), stride)
     np.testing.assert_allclose(got, want.numpy(), rtol=1e-5, atol=1e-6)
     M = x.shape[0] * output_size(x.shape[1], stride) * output_size(x.shape[2], stride)
     assert M % tiles[0] or tiles[0] > M
     assert kernel.shape[-1] % tiles[1] or tiles[1] > kernel.shape[-1]
+
+
+SMEM_OPTIN_BYTES = 232448  # the H100's largest dynamic shared memory a block
+
+
+def fused_tile(F):
+    """launch_fused's tile by F (``Tile`` in csrc/deform_conv_gemm.cu):
+    pixels, columns a consumer warpgroup (its wgmma's N), columns a tile,
+    consumer parts (rows, columns), stages and the block's shared bytes
+    (the stages' A and B tiles and the taps' table: 4 corner rows, 4
+    weights and the mask of each pixel at each of the 9 taps)."""
+    BM, wg_n, stages = (128 if F <= 128 else 64), 128, 4
+    gm = BM // 64
+    BN = wg_n * (2 // gm)
+    stage = BM * 32 * 2 + 32 * BN * 2
+    return BM, wg_n, BN, (gm, 2 // gm), stages, 1024 + stages * stage + 9 * BM * 9 * 4 + 16 * stages
+
+
+@pytest.mark.parametrize("F", [128, 256, 512])
+def test_fused_tile_samples_each_pixel_once_at_the_r50_dcn_widths(F):
+    """At F = 128 one column tile of 128 pixels covers F (each consumer
+    warpgroup 64 rows, m64n128); above, tiles of 64 pixels x 256 columns
+    (each consumer 128 columns of the same A tile), so at F = 512 each
+    pixel is sampled twice, once a column tile; the stages and the taps'
+    table fit the shared memory.  At F = 512 the mirror of that tile (C =
+    32, ragged pixels) samples each pixel once a column tile and holds the
+    plain layer within rtol 1e-5."""
+    BM, wg_n, BN, groups, stages, smem = fused_tile(F)
+    assert wg_n == 128 and BM // groups[0] == 64 and BN // groups[1] == wg_n
+    assert -(-F // BN) == (1 if F <= 256 else 2)
+    assert stages >= 2 and smem <= SMEM_OPTIN_BYTES
+    if F == 512:
+        rng = np.random.default_rng(90)
+        x = rng.normal(size=(1, 5, 6, 32)).astype(np.float32)
+        offsets = (rng.normal(size=(1, 5, 6, 18)) * 2).astype(np.float32)
+        mask = rng.uniform(size=(1, 5, 6, 9)).astype(np.float32)
+        kernel = (rng.normal(size=(9, 32, F)) / 17).astype(np.float32)
+        got, cols, sampled = fused_mirror(x, offsets, mask, kernel, 1, BM, BN, 32, groups)
+        assert (sampled == F // BN).all()
+        assert torch.equal(torch.from_numpy(cols), deform_conv_sample_plain(t(x), t(offsets), t(mask), 1))
+        want = deform_conv2d_plain(t(x), t(offsets), t(mask), t(kernel), 1)
+        np.testing.assert_allclose(got, want.numpy(), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("dtype,features,fused", [
@@ -199,9 +259,11 @@ def test_fused_mirror_matches_plain(stride, tiles):
     (torch.float32, 128, False), (torch.float32, 512, False),
 ])
 def test_route_rule(dtype, features, fused):
-    """16-bit x and F a multiple of 8 up to FUSED_MAX_F (one 128-channel
-    tile: R50-DCN's stage 2) take the fused kernel; float32, F = 256 and 512
-    (stages 3-4) and F off the 8-channel grid take the columns route."""
+    """16-bit x and F a multiple of 8 up to FUSED_MAX_F (R50-DCN's stage 2,
+    where the fused kernel was as fast as or faster than the columns route
+    in turns on the card) take the fused kernel; float32, F = 256 and 512
+    (stages 3-4, where the columns route was faster) and F off the 8-channel
+    grid take the columns route."""
     from salience_detr_torch.ops.deform_conv import FUSED_MAX_F, uses_fused_kernel
 
     assert FUSED_MAX_F == 128

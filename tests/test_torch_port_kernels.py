@@ -477,6 +477,87 @@ def test_msda_backward_ordered_matches_plain_and_repeats(cuda, case, G, C, dtype
                                    atol=share * float(ref.abs().max()) + 1e-30, msg=name)
 
 
+# the ordered K3 at the ported train steps' row counts (B = 4): the
+# flagship's encoder (17-bit rows) and decoder (20-bit), the 5-scale
+# config's exact encoder (22-bit)
+ORDERED_ROW_SHAPES = {
+    "17-bit rows": ([(100, 168), (50, 84), (25, 42), (13, 21)], 1),
+    "20-bit rows": ([(100, 168), (50, 84), (25, 42), (13, 21)], 8),
+    "22-bit rows": ([(200, 336), (100, 168), (50, 84), (25, 42)], 8),
+}
+
+
+def baseline_ordered_library():
+    """K3 built from the directory SALIENCE_BASELINE_CSRC names (another
+    version of csrc/, e.g. the parent commit's), or None when it names none."""
+    import ctypes
+    import os
+    from pathlib import Path
+
+    base_dir = os.environ.get("SALIENCE_BASELINE_CSRC")
+    if not base_dir:
+        return None
+    lib = native.bind_msda(ctypes.CDLL(str(native.build(Path(base_dir).resolve()))))
+    assert hasattr(lib, "msda_backward_ordered"), f"{base_dir} has no ordered K3"
+    return lib
+
+
+def ordered_call(lib, value, levels, locs, w, d_out):
+    """One call of ``lib``'s ordered K3 (its own workspace size): d_value,
+    d_locations, d_weights."""
+    B, S_, C = value.shape
+    Q, G, L, P = locs.shape[1:5]
+    H = w.shape[2]
+    table = native.level_table(levels)
+    workspace = torch.empty(lib.msda_backward_workspace(table, B, S_, Q, C, H, G, P), dtype=torch.uint8,
+                            device=value.device)
+    d_value = torch.empty_like(value)
+    d_loc = torch.empty(B, Q, G, L, P, 2, device=value.device)
+    d_attn = torch.empty(B, Q, H, L, P, device=value.device)
+    err = lib.msda_backward_ordered(value.data_ptr(), int(value.dtype == torch.bfloat16), table,
+                                    locs.float().contiguous().data_ptr(), w.float().contiguous().data_ptr(),
+                                    d_out.data_ptr(), d_value.data_ptr(), d_loc.data_ptr(), d_attn.data_ptr(),
+                                    workspace.data_ptr(), B, S_, Q, C, H, G, P, native.stream_of(value))
+    native.check(err, "msda_backward_ordered")
+    torch.cuda.synchronize()
+    return d_value, d_loc, d_attn
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted(ORDERED_ROW_SHAPES))
+def test_msda_backward_ordered_at_the_ported_row_counts(cuda, shape, dtype):
+    """The ordered K3 at the train steps' row counts (B = 4, C = 256, H = 8,
+    1200 queries): within K3's tolerances of the plain backward, two calls
+    bitwise equal, and, with SALIENCE_BASELINE_CSRC naming the parent
+    commit's csrc/, bitwise equal to that directory's ordered design
+    (d_value, d_locations, d_weights)."""
+    levels, G = ORDERED_ROW_SHAPES[shape]
+    S_ = sum(h * w_ for h, w_ in levels)
+    g = torch.Generator().manual_seed(18)
+    value = torch.randn(4, S_, 256, generator=g).to(cuda, dtype)
+    w = torch.rand(4, 1200, 8, len(levels), 4, generator=g)
+    w = (w / w.sum((-2, -1), keepdim=True)).to(cuda)
+    locs = (torch.rand(4, 1200, G, len(levels), 4, 2, generator=g) * 1.2 - 0.1).to(cuda)
+    d_out = torch.randn(4, 1200, 256, generator=g).to(cuda, dtype)
+    got = _backward_cuda_ordered(value, levels, locs, w, d_out)
+    again = _backward_cuda_ordered(value, levels, locs, w, d_out)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    grads = ms_deform_attn_backward_plain(value, levels, locs, w, d_out)
+    for name, x, ref in zip(("d_value", "d_locations", "d_weights"), got, grads):
+        share, rtol = MSDA_GRAD_TOL[dtype] if name == "d_value" else MSDA_GRAD_TOL[torch.float32]
+        ref = ref.float()
+        torch.testing.assert_close(x.float(), ref, rtol=rtol, atol=share * float(ref.abs().max()) + 1e-30,
+                                   msg=name)
+    base = baseline_ordered_library()
+    if base is not None:
+        mine = ordered_call(native.load(), value, levels, locs, w, d_out)
+        theirs = ordered_call(base, value, levels, locs, w, d_out)
+        assert [torch.equal(a, b) for a, b in zip(mine, theirs)] == [True] * 3
+        assert all(torch.equal(a, b) for a, b in zip(mine, got))
+
+
 @pytest.mark.gpu
 def test_msda_gradient_reaches_the_value_on_cuda(cuda):
     """The forward kernel's output carries a grad_fn: a loss on it reaches
@@ -1174,9 +1255,9 @@ def test_deform_conv_fused_matches_plain(cuda, dtype, stride, C, F):
     """The fused kernel at any F a multiple of 8, and the layer's route.
 
     The kernel (one launch, no columns launch): M = 2 * 13 * 17 (stride 1)
-    or 2 * 7 * 9 pixels, not a multiple of the 64-pixel tile, and F = 200, 8
-    or 320 not a multiple of the 128-channel tile; std-2 px offsets put taps
-    outside the image.  The output within one ulp of x's dtype (2^-7 bf16,
+    or 2 * 7 * 9 pixels, not a multiple of the 128- or 64-pixel tile, and F
+    = 200, 8 or 320 not a multiple of the 128- or 256-channel tile; F = 512
+    takes two column tiles; std-2 px offsets put taps outside the image.  The output within one ulp of x's dtype (2^-7 bf16,
     2^-10 f16, relative) plus 1e-3 of the largest output of the plain layer,
     and no farther from the float32 product of the same columns than the
     plain layer's own rounding allows (the final rounding of both, half an
