@@ -191,6 +191,18 @@ non-zero exit and no result line:
    K3), the CAM finite and nonzero; the small model's CAM card-vs-CPU; the
    inference CLI's --show-dir refusing by name without cv2.  It prints its
    seconds;
+22c. quality (in a process of its own, ``--quality-child``, started before
+   phase train_repeat and joined after phase ddp_cards: the phases between
+   time no kernel of the kernels line, their wall and step times share the
+   host and card with it, and a fresh process keeps its host-bound steps
+   from slowing 1.7 times after the other phases): the training-quality
+   tools through their ``main``: ``tools/overfit_check`` (150 steps of the small model on one
+   batch with deterministic algorithms: the last loss under half the first)
+   and ``tools/validate_static_shapes`` (600 steps on the 48-image
+   rectangles split, hybrid sampling: AP50 of at least 0.30), each with the
+   counts set to 0 just before it: 4 K1, 4 K3 (ordered, then scatter), 1 K2
+   and 1 K4 launches a train step, 4 K1 and 1 K2 an eval forward; it prints
+   the losses, AP, AP50 and seconds;
 23. nms_past_budget (after phase 16, msda_stages): K2 at the 5-scale levels
    of the 800x1344 canvas (S = 89,250, the rank map in shared memory) and of
    a 1344x1344 canvas (S = 149,940, past the shared memory: the rank map in
@@ -3231,6 +3243,112 @@ def phase_tools(smi, device="cuda"):
         raise AssertionError("tools: the inference CLI's --show-dir did not refuse by name without cv2")
 
 
+QUALITY_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_quality"
+QUALITY_TIMEOUT_S = 900
+# the small model of the quality tools: 2 encoder and 2 decoder layers; the
+# overfit check runs K3's ordered design (deterministic algorithms), the
+# validation its scatter design
+QUALITY_STEP_KERNELS = {"msda": 4, "msda_backward": 4, "grid_nms": 1, "hungarian": 1}
+QUALITY_OVERFIT_KERNELS = {"msda": 4, "msda_backward_ordered": 4, "grid_nms": 1, "hungarian": 1}
+QUALITY_EVAL_KERNELS = {"msda": 4, "grid_nms": 1}
+
+
+def phase_quality(smi):
+    """The training-quality tools on the card through their ``main``: the
+    overfit check (150 steps, with deterministic algorithms: its 2x rule is
+    tight at 150 steps, and the scatter backward's float atomics move its
+    last loss from run to run, ratio 0.43-0.50 on the card, 0.478 for the
+    JAX tool; PERF.md §6) and the static-shape validation (600 steps,
+    hybrid: head-shared encoder, exact decoder); each tool's pass rule holds
+    (it exits 1 otherwise), and its train steps and eval forwards launched
+    the kernels.  The process's deterministic setting is put back after the
+    overfit check.  The quality line prints the overfit rule's margin, 0.5
+    less the ratio (ROADMAP C-30)."""
+    from salience_detr_torch.tools import overfit_check, validate_static_shapes
+
+    t0 = time.perf_counter()
+    for k in native.LAUNCHES:
+        native.LAUNCHES[k] = 0
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    try:
+        over = overfit_check.main(["--steps", "150", "--use-deterministic-algorithms"])
+    finally:
+        torch.use_deterministic_algorithms(was_deterministic)
+    over_counts = dict(native.LAUNCHES)
+    for k in native.LAUNCHES:
+        native.LAUNCHES[k] = 0
+    valid = validate_static_shapes.main(["--steps", "600", "--decoder-sampling-groups", "0",
+                                         "--workdir", str(QUALITY_DIR)])
+    valid_counts = dict(native.LAUNCHES)
+    phase_s = time.perf_counter() - t0
+    print(f"quality: overfit_check (deterministic) loss {over['first_loss']:.4f} -> {over['last_loss']:.4f} "
+          f"(ratio {over['ratio']:.4f}, margin {0.5 - over['ratio']:.4f}) in 150 steps, {over['seconds']:.1f} s, "
+          f"launches a step {over['launches_per_step']}; validate_static_shapes ({valid['sampling']}) 600 steps loss "
+          f"{valid['first_loss']:.4f} -> {valid['last_loss']:.4f} AP {valid['ap']:.4f} AP50 {valid['ap50']:.4f}, "
+          f"train {valid['train_s']:.1f} s, {valid['seconds']:.1f} s, launches a step {valid['launches_per_step']} "
+          f"an eval forward {valid['launches_per_eval_forward']}; counts overfit {over_counts} validate "
+          f"{valid_counts}; phase_s={phase_s:.2f}; card: {smi}")
+    if not (over["passed"] and over["last_loss"] < 0.5 * over["first_loss"]):
+        raise AssertionError(f"quality: the overfit check failed: {over}")
+    if not (valid["passed"] and valid["ap50"] >= 0.30):
+        raise AssertionError(f"quality: the static-shape validation failed: {valid}")
+    for name, got, want in (("overfit step", over["launches_per_step"], QUALITY_OVERFIT_KERNELS),
+                            ("validate step", valid["launches_per_step"], QUALITY_STEP_KERNELS),
+                            ("validate eval forward", valid["launches_per_eval_forward"], QUALITY_EVAL_KERNELS)):
+        if any(got[k] != n for k, n in want.items()):
+            raise AssertionError(f"quality: {name} launches {got}, expected {want}")
+    return {k: over_counts[k] + valid_counts[k] for k in native.LAUNCHES}
+
+
+def quality_child_main(out):
+    """Phase quality in a process of its own (``chip_smoke.py
+    --quality-child DIR``): the kernels loaded from the build, the card
+    held as in the main process (``exact_float32``); writes the phase's
+    launch counts to DIR/launches.json."""
+    from salience_detr_torch.utils.env import configure_numerics
+
+    native.load()
+    configure_numerics(exact_float32=True)
+    launches = phase_quality(card_line())
+    (Path(out) / "launches.json").write_text(json.dumps(launches))
+    return 0
+
+
+class QualityChild:
+    """Runs ``quality_child_main`` beside the main process's later phases:
+    its output goes to QUALITY_DIR/child.log, and ``join`` waits for it
+    (QUALITY_TIMEOUT_S), prints its ``quality:`` line and its seconds, and
+    raises if it failed; ``stop`` kills it if it still runs."""
+
+    def __init__(self):
+        QUALITY_DIR.mkdir(parents=True, exist_ok=True)
+        (QUALITY_DIR / "launches.json").unlink(missing_ok=True)
+        self.log = open(QUALITY_DIR / "child.log", "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--quality-child",
+                                      str(QUALITY_DIR)], stdout=self.log, stderr=subprocess.STDOUT,
+                                     cwd=str(Path(__file__).resolve().parent))
+
+    def join(self):
+        rc = self.proc.wait(timeout=max(1.0, QUALITY_TIMEOUT_S - (time.perf_counter() - self.t0)))
+        self.log.close()
+        text = (QUALITY_DIR / "child.log").read_text()
+        for line in text.splitlines():
+            if line.startswith("quality:"):
+                print(line)
+        print(f"quality_process: rc {rc}, {time.perf_counter() - self.t0:.1f} s from its start, beside phases "
+              f"train_repeat to ddp_cards")
+        if rc != 0:
+            raise AssertionError(f"quality: the phase's process exited {rc}:\n{text[-4000:]}")
+        return json.loads((QUALITY_DIR / "launches.json").read_text())
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+
+
 def refusal_of(argv) -> str:
     """The error the inference CLI raises on ``argv``, or "no error"."""
     from salience_detr_torch import inference as inference_cli
@@ -4593,18 +4711,21 @@ def main(argv=None):
                              "phases' other inputs")
     parser.add_argument("--ddp-rank", default=None, metavar="DIR", help=argparse.SUPPRESS)
     parser.add_argument("--cards-rank", default=None, metavar="DIR", help=argparse.SUPPRESS)
+    parser.add_argument("--quality-child", default=None, metavar="DIR", help=argparse.SUPPRESS)
     parser.add_argument("--ddp-cards-on-one-card", action="store_true",
                         help="rehearse phase ddp_cards on one card: 2 gloo ranks share it (no scaling figure)")
     parser.add_argument("--phases", nargs="+", default=None,
                         choices=("msda_ordered", "deform_conv", "dcn_captured", "steps_e2e", "train_repeat",
                                  "ddp_train", "ddp_nccl", "ddp_eval", "ddp_cards", "numerics_cost", "serve_q8",
-                                 "tools"),
+                                 "tools", "quality"),
                         help="run the device and build phases and these alone, and print no result line")
     args = parser.parse_args(argv)
     if args.ddp_rank is not None:
         return ddp_rank_main(args.ddp_rank)
     if args.cards_rank is not None:
         return cards_rank_main(args.cards_rank)
+    if args.quality_child is not None:
+        return quality_child_main(args.quality_child)
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
@@ -4661,11 +4782,16 @@ def main(argv=None):
     for name in ("swin_l", "convnext_l", "focalnet_l", "r50_5scale"):
         backbone_launches[f"train_{name}"] = phase_backbone_train(smi, name)
     backbone_launches["eval_swin_l"] = phase_eval_swin(smi)
-    phase_train_repeat(smi)
-    ddp_ranks = phase_ddp_train(smi)
-    phase_ddp_nccl(smi)
-    phase_ddp_eval(smi)
-    phase_ddp_cards(smi)
+    quality = QualityChild()
+    try:
+        phase_train_repeat(smi)
+        ddp_ranks = phase_ddp_train(smi)
+        phase_ddp_nccl(smi)
+        phase_ddp_eval(smi)
+        phase_ddp_cards(smi)
+        quality_launches = quality.join()
+    finally:
+        quality.stop()
     print("backbone launches " + "; ".join(
         f"{k} {{{', '.join(f'{n}: {v}' for n, v in l.items() if v)}}}" for k, l in backbone_launches.items()))
     print(f"serve launches {serve_launches}; train launches {train_launches}; "
@@ -4674,7 +4800,8 @@ def main(argv=None):
           f"train_mixed launches (1 step) {mixed_launches}; "
           f"eval launches (NMS filter on) {eval_launches}; dcn_serve launches {dcn_serve_launches}; "
           f"dcn_train launches {dcn_train_launches}; serve_q8 launches {q8_launches}; "
-          f"msda_stages launches {stage_launches}")
+          f"quality launches (overfit_check and validate_static_shapes) "
+          f"{ {k: v for k, v in quality_launches.items() if v} }; msda_stages launches {stage_launches}")
     # K1-K4, K9: no single PyTorch call computes them (MSDA is a grid_sample
     # per level and a weighted sum; PyTorch has no NMS or assignment op).  K2,
     # K4 and K9 are exact, and timed on the main path's own inputs.  K1-K4

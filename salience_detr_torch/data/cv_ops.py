@@ -12,12 +12,16 @@ float32 arithmetic, so the bytes are the same:
 * :func:`median3_u8` - ``cv2.medianBlur(img, 3)``;
 * :func:`jpeg_roundtrip_u8` - ``cv2.imdecode(cv2.imencode(".jpg", ...))``;
 * :func:`fill_poly_u8` - ``cv2.fillPoly(mask, [pts], 1)``;
+* :func:`fill_rect_into` / :func:`fill_ellipse_into` - a filled
+  ``cv2.rectangle`` / full ``cv2.ellipse`` (angle 0, LINE_8) on a uint8
+  image, in place;
 * :func:`resize_nearest_u8` - ``cv2.resize(..., INTER_NEAREST)``;
 * :func:`gaussian_blur5_f32` - ``cv2.GaussianBlur(alpha, (5, 5), sigma)``
   on float32 (within 1e-6; the others are exact).
 
 Every function takes numpy arrays or CPU tensors and returns the type it
-was given.  They are host operations of the loader's worker threads: numpy
+was given, but the ``*_into`` fills, which write into a numpy array in
+place.  They are host operations of the loader's worker threads: numpy
 over whole planes and all 8x8 blocks at once, no Python loop over pixels.
 """
 
@@ -583,3 +587,162 @@ def _fill_edges(edges, H: int, W: int):
     draw = pair & (x1 < W) & (x2 >= 0)
     rows = np.broadcast_to(y, x1.shape)[draw]
     return rows, np.maximum(x1[draw], 0), np.minimum(x2[draw], W - 1)
+
+
+# ------------------------------------------------------ rectangle, ellipse
+
+# OpenCV's SinTable (drawing.cpp): float32 sines of whole degrees 0..450,
+# each the sine rounded to 7 decimals
+_SIN_TABLE = np.round(np.sin(np.deg2rad(np.arange(451, dtype=np.float64))), 7).astype(np.float32)
+
+
+def fill_rect_into(img: np.ndarray, pt1, pt2, color) -> None:
+    """``cv2.rectangle(img, pt1, pt2, color, -1)`` in place on the (H, W, C)
+    uint8 ``img``: every pixel from the lower to the higher corner, both
+    included, clipped at the image."""
+    H, W = img.shape[:2]
+    (x1, y1), (x2, y2) = (int(v) for v in pt1), (int(v) for v in pt2)
+    x1, x2 = max(min(x1, x2), 0), min(max(x1, x2), W - 1)
+    y1, y2 = max(min(y1, y2), 0), min(max(y1, y2), H - 1)
+    if x1 <= x2 and y1 <= y2:
+        img[y1:y2 + 1, x1:x2 + 1] = color
+
+
+def ellipse_vertices(center, axes) -> np.ndarray:
+    """The (n, 2) int64 vertices, in 16-bit fixed point, of the polygon that
+    a filled full ``cv2.ellipse(img, center, axes, 0, 0, 360, ...)`` draws
+    (EllipseEx): ``ellipse2Poly``'s points at OpenCV's step for the larger
+    axis (90, 30, 18 or 5 degrees), each rounded half to even, repeats in
+    a row dropped, a lone point doubled."""
+    cx, cy = (int(v) << _XY_SHIFT for v in center)
+    aw, ah = (abs(int(v)) << _XY_SHIFT for v in axes)
+    big = (max(aw, ah) + (1 << (_XY_SHIFT - 1))) >> _XY_SHIFT
+    step = 90 if big < 3 else 30 if big < 10 else 18 if big < 15 else 5
+    angle = np.minimum(np.arange(0, 360 + step, step), 360)
+    # x = cx + aw cos - ah sin * 0 with cos, sin of angle 0 from the table:
+    # exact in float64, as OpenCV's doubles are
+    x = cx + aw * _SIN_TABLE[450 - angle].astype(np.float64)
+    y = cy + ah * _SIN_TABLE[angle].astype(np.float64)
+    pts = np.stack([np.rint(x), np.rint(y)], 1).astype(np.int64)
+    pts = pts[np.r_[True, (pts[1:] != pts[:-1]).any(1)]]
+    if len(pts) == 1:
+        pts = np.array([[cx, cy], [cx, cy]], np.int64)
+    return pts
+
+
+def _fixed_lines(W: int, H: int, p0: np.ndarray, p1: np.ndarray):
+    """Pixels (xs, ys) of OpenCV's Line2 (the 8-connected line between 16-bit
+    fixed-point points that FillConvexPoly draws around a shifted polygon)
+    for each segment p0[i] -> p1[i], clipped to the image in fixed point:
+    the end point rounded, then one pixel a step of the major axis from the
+    lower end, the minor coordinate advancing by a truncated fixed-point
+    slope."""
+    half = 1 << (_XY_SHIFT - 1)
+    xs, ys = [], []
+    for (ax_, ay_), (bx_, by_) in zip(p0.tolist(), p1.tolist()):
+        inside, x1, y1, x2, y2 = _clip_line(W << _XY_SHIFT, H << _XY_SHIFT, ax_, ay_, bx_, by_)
+        if not inside:
+            continue
+        dx, dy = x2 - x1, y2 - y1
+        if abs(dx) > abs(dy):
+            if dx < 0:
+                x1, y1, x2, y2 = x2, y2, x1, y1
+                dy = -dy
+            step = _tdiv(dy << _XY_SHIFT, abs(dx) | 1)
+            count = (x2 - x1) >> _XY_SHIFT
+            k = np.arange(count + 1, dtype=np.int64)
+            px, py = ((x1 + half) >> _XY_SHIFT) + k, (y1 + half + k * step) >> _XY_SHIFT
+        else:
+            if dy < 0:
+                x1, y1, x2, y2 = x2, y2, x1, y1
+                dx = -dx
+            step = _tdiv(dx << _XY_SHIFT, abs(dy) | 1)
+            count = (y2 - y1) >> _XY_SHIFT
+            k = np.arange(count + 1, dtype=np.int64)
+            px, py = (x1 + half + k * step) >> _XY_SHIFT, ((y1 + half) >> _XY_SHIFT) + k
+        xs += [np.array([(x2 + half) >> _XY_SHIFT]), px]
+        ys += [np.array([(y2 + half) >> _XY_SHIFT]), py]
+    if not xs:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    xs, ys = np.concatenate(xs), np.concatenate(ys)
+    keep = (xs >= 0) & (xs < W) & (ys >= 0) & (ys < H)
+    return xs[keep], ys[keep]
+
+
+def _tdiv(a: int, b: int) -> int:
+    """C's integer division (truncation toward zero)."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b >= 0) else -q
+
+
+def _fill_convex_fixed_into(img: np.ndarray, v: np.ndarray, color) -> None:
+    """OpenCV's FillConvexPoly(img, v, n, color, LINE_8, XY_SHIFT) in place:
+    the outline by :func:`_fixed_lines`, then from the top vertex down a
+    left and a right chain of edges, each edge's x starting at its upper
+    vertex's on the row where the chain reaches it and stepping by a rounded
+    fixed-point slope, each row filled between the rounded chain x's; the
+    walk shares one budget of n vertex visits and stops when it runs out."""
+    H, W = img.shape[:2]
+    n = len(v)
+    half = 1 << (_XY_SHIFT - 1)
+    xs, ys = _fixed_lines(W, H, np.roll(v, 1, 0), v)
+    img[ys, xs] = color
+    xmin, xmax = (int(v[:, 0].min()) + half) >> _XY_SHIFT, (int(v[:, 0].max()) + half) >> _XY_SHIFT
+    ymin, ymax = (int(v[:, 1].min()) + half) >> _XY_SHIFT, (int(v[:, 1].max()) + half) >> _XY_SHIFT
+    if n < 3 or xmax < 0 or ymax < 0 or xmin >= W or ymin >= H:
+        return
+    ymax = min(ymax, H - 1)
+    vx, vy = v[:, 0].tolist(), v[:, 1].tolist()
+    imin = int(np.argmin(v[:, 1]))  # the first vertex of the smallest y
+    side = [dict(idx=imin, di=1, x=-(1 << _XY_SHIFT), dx=0, ye=ymin),
+            dict(idx=imin, di=n - 1, x=-(1 << _XY_SHIFT), dx=0, ye=ymin)]
+    budget = n
+    rows, lo, hi = [], [], []
+    y = ymin
+    while y <= ymax:
+        for e in side:
+            if y < e["ye"]:
+                continue
+            idx0 = e["idx"]
+            idx = (idx0 + e["di"]) % n
+            while budget > 0:
+                budget -= 1
+                ty = (vy[idx] + half) >> _XY_SHIFT
+                if ty > y:
+                    e.update(ye=ty, dx=_tdiv((vx[idx] - vx[idx0]) * 2 + (ty - y), 2 * (ty - y)),
+                             x=vx[idx0], idx=idx)
+                    break
+                idx0, idx = idx, (idx + e["di"]) % n
+            else:
+                budget = -1
+        if budget < 0:
+            break
+        # rows y .. stop - 1 need no chain update
+        stop = min(side[0]["ye"], side[1]["ye"], ymax + 1)
+        k = np.arange(stop - y, dtype=np.int64)
+        xa, xb = side[0]["x"] + k * side[0]["dx"], side[1]["x"] + k * side[1]["dx"]
+        rows.append(y + k)
+        lo.append((np.minimum(xa, xb) + half) >> _XY_SHIFT)
+        hi.append((np.maximum(xa, xb) + half) >> _XY_SHIFT)
+        for e in side:
+            e["x"] += (stop - y) * e["dx"]
+        y = stop
+    if not rows:
+        return
+    rows, lo, hi = np.concatenate(rows), np.concatenate(lo), np.concatenate(hi)
+    draw = (rows >= 0) & (hi >= 0) & (lo < W)
+    rows, lo, hi = rows[draw], np.maximum(lo[draw], 0), np.minimum(hi[draw], W - 1)
+    if len(rows):
+        top, left = int(rows.min()), int(lo.min())
+        diff = np.zeros((int(rows.max()) + 1 - top, int(hi.max()) + 2 - left), np.int32)
+        np.add.at(diff, (rows - top, lo - left), 1)
+        np.add.at(diff, (rows - top, hi + 1 - left), -1)
+        box = img[top:top + diff.shape[0], left:left + diff.shape[1] - 1]
+        box[np.cumsum(diff, 1)[:, :-1] > 0] = color
+
+
+def fill_ellipse_into(img: np.ndarray, center, axes, color) -> None:
+    """``cv2.ellipse(img, center, axes, 0, 0, 360, color, -1)`` in place on
+    the (H, W, C) uint8 ``img``: the polygon of :func:`ellipse_vertices`
+    filled by :func:`_fill_convex_fixed_into`."""
+    _fill_convex_fixed_into(img, ellipse_vertices(center, axes), color)
