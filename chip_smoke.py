@@ -169,7 +169,8 @@ non-zero exit and no result line:
    peak memory;
 21. msda_q8: the int8 head-shared MSDA kernels (B8, quantise and sample) at
    the encoder's flagship shape (B=4, Q=11403, G=1, bf16) on uniform inputs
-   and on a served forward's captured encoder-layer-0 inputs: the int8 table
+   and on a served forward's captured encoder-layer-0 inputs, and in float16
+   on those of a forward under fp16 autocast: the int8 table
    and scale exactly equal to the plain quantisation's, the sampler bitwise
    equal to its plain version, the result against K1 within the quantisation
    bound; times, K1's time and bounds.  With ``--baseline-csrc``, ``q8_ab:``
@@ -179,6 +180,8 @@ non-zero exit and no result line:
    package's switch): per forward 6 quantise, 6 int8 sample, 6 MSDA (the
    decoder) and 1 grid-NMS launch; identical reruns; the timed batch with
    the switch on and off in turns, and the gap between their detections;
+   then the same flagship under fp16 autocast with the switch on (B8's
+   float16 kernels, the same launches a forward);
 22b. tools (after phase 22): the user tools on the flagship (seed-0
    weights, 800x1344, bf16, B=1), each through the function its CLI calls:
    benchmark_model (parameters, FLOPs by FlopCounterMode with the MSDA
@@ -191,8 +194,9 @@ non-zero exit and no result line:
    K3), the CAM finite and nonzero; the small model's CAM card-vs-CPU; the
    inference CLI's --show-dir refusing by name without cv2.  It prints its
    seconds;
-22c. quality (in a process of its own, ``--quality-child``, started before
-   phase train_repeat and joined after phase ddp_cards: the phases between
+22c. quality (in a process of its own, ``--quality-child``, with phase 22e
+   after it; started before phase train_repeat and joined after phase
+   ddp_cards: the phases between
    time no kernel of the kernels line, their wall and step times share the
    host and card with it, and a fresh process keeps its host-bound steps
    from slowing 1.7 times after the other phases): the training-quality
@@ -203,6 +207,19 @@ non-zero exit and no result line:
    counts set to 0 just before it: 4 K1, 4 K3 (ordered, then scatter), 1 K2
    and 1 K4 launches a train step, 4 K1 and 1 K2 an eval forward; it prints
    the losses, AP, AP50 and seconds;
+22d. bf16_gap (after phase 22b): the flagship's bf16 forward against its
+   float32 forward on the card at the slow CPU parity test's canvas
+   (128x352, B=2, one image
+   padded): the proposals selected alike and the largest gaps of the last
+   layer's scores and boxes where they are (ROADMAP C-2);
+22e. export_configs (in the process of phase 22c, after it): R50-DCN and
+   the int8 flagship (MSDA_GATHER_QUANT=int8 at trace time) exported as in
+   phase 22b, each saved with its encoder
+   sampling recorded and loaded; the graph's kernel operators listed; the
+   launches inside each loaded program equal to the live forward's (R50-DCN
+   12 K1, 1 K2, 4 B6 fused, 9 B6 columns; int8 6 K1, 1 K2, 6 B8 quantise,
+   6 B8 sample), the program against the live model at rtol 1e-3 / atol
+   1e-5;
 23. nms_past_budget (after phase 16, msda_stages): K2 at the 5-scale levels
    of the 800x1344 canvas (S = 89,250, the rank map in shared memory) and of
    a 1344x1344 canvas (S = 149,940, past the shared memory: the rank map in
@@ -244,8 +261,10 @@ copy of this script in an earlier checkout times that commit's package.
 Then the total wall time.  The line before the last is {"kernels": [...]}: per kernel its launches in
 the counted train steps (3; K4 launches once a step: in phase 15b's first
 run, phase 15c and phase 12b's mixed step; K9 in the eval phase's
-first run; the DCN kernels in phase 20's steps, the int8 kernels in phase
-22's 6 forwards), its largest error, its time, its plain version's
+first run; the DCN kernels in phase 20's steps and inside phase 22d's
+R50-DCN program, the int8 kernels in phase 22's 12 forwards (bf16 and
+fp16) and inside phase 22d's int8 program, their float16 times beside as
+fp16_ms, fp16_plain_ms, fp16_bound_ms), its largest error, its time, its plain version's
 time, its bound (``bound_ms``: bytes over 3.35 TB/s or f32 operations over
 67 TFLOP/s, whichever is larger, ``bound_by`` which; the fused DCN layer's
 operations over the 989 TFLOP/s of bf16 tensor cores) and the time of one
@@ -351,7 +370,7 @@ from salience_detr_torch.utils.coco_eval import METRIC_NAMES, CocoEvaluator
 LEVELS = [(100, 168), (50, 84), (25, 42), (13, 21)]  # 800x1344 canvas, strides 8..64
 # (atol, rtol).  bf16: both sides round one f32 sum, so they differ by at most
 # one bf16 ulp (2**-7 relative); accumulating or rounding in bf16 errs more.
-TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (4e-3, 1e-2)}
+TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (4e-3, 1e-2), torch.float16: (5e-4, 2e-3)}
 SERVE_BATCHES = [
     [(480, 640), (800, 1200), (1024, 768), (600, 600)],
     [(720, 1280), (1333, 800), (375, 500), (640, 427)],
@@ -660,7 +679,7 @@ def phase_serve(smi, name="serve", cfg=None, label="flagship R50", prepare=None,
         times.append(start.elapsed_time(end))
     med = statistics.median(times)
     canvas = tuple(inputs[0].shape[-2:])
-    print(f"{name}: {label} bf16, {len(batches)} batches of 4 requests in {forwards} forwards; "
+    print(f"{name}: {label} {cfg.dtype}, {len(batches)} batches of 4 requests in {forwards} forwards; "
           f"launches={launches}; identical_rerun={identical}; warmup_s={warmup_s:.2f}; "
           f"B=4 canvas={canvas[0]}x{canvas[1]} forward_ms={[round(x, 3) for x in times]} "
           f"median_ms={med:.3f} img_s={4000.0 / med:.3f} peak_mem_gib="
@@ -2889,11 +2908,14 @@ def phase_dcn_train(smi):
                        DCN_PARTS)
 
 
-def capture_serve_encoder():
+def capture_serve_encoder(dtype=None):
     """value, locations and weights of the first encoder layer (G=1) of a
     flagship serve forward (B=4, the TIMED_BATCH canvas, random weights from
-    seed 0), recorded by a wrapper around the MSDA modules' call."""
+    seed 0; under autocast to ``dtype``, the config's bf16 by default),
+    recorded by a wrapper around the MSDA modules' call."""
     cfg = load_config(DEFAULT_CONFIG)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
     predictor = Predictor(cfg, None, "cuda", seed=0)
     inputs = preprocess(make_requests(TIMED_BATCH, 7), cfg, "cuda")
     captured, real = {}, attention.ms_deform_attn
@@ -2927,16 +2949,16 @@ def q8_launchers(value, locs5, weights):
     ref_table, ref_scale = q8_quantize(value)
     loc32, attn32 = locs5.float().contiguous(), weights.float().contiguous()
     out = torch.empty(B, Q, C, dtype=value.dtype, device=value.device)
-    bf16, stream, levels = int(value.dtype == torch.bfloat16), native.stream_of(value), native.level_table(LEVELS)
+    code, stream, levels = native.DTYPE_CODES[value.dtype], native.stream_of(value), native.level_table(LEVELS)
 
     def quantize(lib):
         absmax.zero_()
-        native.check(lib.msda_q8_quantize(value.data_ptr(), bf16, absmax.data_ptr(), table.data_ptr(),
+        native.check(lib.msda_q8_quantize(value.data_ptr(), code, absmax.data_ptr(), table.data_ptr(),
                                           scale.data_ptr(), B * S, C, stream), "msda_q8_quantize")
 
     def sample(lib):
         native.check(lib.msda_q8_sample(ref_table.data_ptr(), ref_scale.data_ptr(), levels, loc32.data_ptr(),
-                                        attn32.data_ptr(), out.data_ptr(), bf16, B, S, Q, C, H, P, stream),
+                                        attn32.data_ptr(), out.data_ptr(), code, B, S, Q, C, H, P, stream),
                      "msda_q8_sample")
 
     return quantize, sample, (table, scale), out
@@ -2944,7 +2966,8 @@ def q8_launchers(value, locs5, weights):
 
 def phase_msda_q8(smi, baselines=()):
     """B8 at the encoder's flagship shape (B=4, Q=11403, G=1, bf16) on uniform
-    inputs and on a served forward's captured encoder-layer-0 inputs: the
+    inputs and on a served forward's captured encoder-layer-0 inputs, and in
+    float16 on those of a forward under fp16 autocast (ROADMAP C-29): the
     int8 table and scale exactly equal to the plain quantisation's, the
     sampler bitwise equal to its plain version on that table, the whole against K1
     on the same inputs within the quantisation and rounding bound (per
@@ -2952,11 +2975,12 @@ def phase_msda_q8(smi, baselines=()):
     step, and the bf16 roundings of the corner weights and corner sums),
     plus K1's bf16 bound; times and bounds.  Returns the sampler's largest
     error and the captured inputs' (ms, plain ms, bound, bound by) of both
-    kernels.
+    kernels, in bf16 and in float16.
     With ``--baseline-csrc``, each directory's int8 kernels are timed launch
     only in turns with these (``q8_ab:``; each baseline's table and scale,
     and its sampler's output, compared with this one's; the quantise's share
-    of its bound)."""
+    of its bound); bf16 sets only (an earlier library's C entries took a
+    bf16 flag, no float16)."""
     t0 = time.perf_counter()
     new = native.load()
     bases = [(d, baseline_library(d)) for d in baselines]
@@ -2965,11 +2989,14 @@ def phase_msda_q8(smi, baselines=()):
     value32, locs, weights = uniform_msda_inputs(gen, 1, 11403)
     sets = {"uniform": (value32.to(torch.bfloat16), locs, weights.to(torch.bfloat16))}
     del value32
-    c = capture_serve_encoder()
-    sets["captured serve"] = (c["value"], c["locations"], c["weights"])
-    del c
+    for name, dtype in (("captured serve", None), ("captured serve fp16", torch.float16)):
+        c = capture_serve_encoder(dtype)
+        sets[name] = (c["value"], c["locations"], c["weights"])
+        del c
+    if sets["captured serve fp16"][0].dtype != torch.float16:
+        raise AssertionError("msda_q8: the fp16 forward's encoder value is not float16")
     s_err = 0.0
-    timing = None
+    timing = {}
     for name, (value, locs6, weights) in sets.items():
         locs5 = locs6[:, :, 0].contiguous()
         B, S, C = value.shape
@@ -3008,16 +3035,17 @@ def phase_msda_q8(smi, baselines=()):
         both_ms = cuda_ms(lambda: ms_deform_attn_q8(value, LEVELS, locs5, weights), 20)
         both_plain = cuda_ms(lambda: ms_deform_attn_q8_plain(value, LEVELS, locs5, weights), 3)
         k1_ms = cuda_ms(lambda: ms_deform_attn(value, LEVELS, locs6, weights), 20)
-        print(f"msda_q8: {name} encoder layer G=1 B={B} Q={Q} S={S} C={C} bf16; table and scale equal to plain "
+        print(f"msda_q8: {name} encoder layer G=1 B={B} Q={Q} S={S} C={C} {value.dtype}; table and scale equal "
+              f"to plain "
               f"(differences {table_diff}); sampler max_abs_err={max_abs:.3e} (atol {atol} rtol {rtol}) "
               f"not_bit_equal={not_equal}; vs K1 max err/bound={ratio:.4f} (max |q8 - K1| "
               f"{float((got.float() - k1).abs().max()):.3e}, largest scale {float(scale.max()):.3e}); "
               f"quantise kernel_ms={q_ms:.4f} plain_ms={q_plain:.4f} bound_ms={q_bound[0]:.4f} ({q_bound[1]}); "
               f"sample kernel_ms={s_ms:.4f} plain_ms={s_plain:.4f} bound_ms={s_bound[0]:.4f} ({s_bound[1]}); "
               f"both ms={both_ms:.4f} plain_ms={both_plain:.4f}; K1 on the same inputs ms={k1_ms:.4f}; card: {smi}")
-        if name == "captured serve":
-            timing = ((q_ms, q_plain, *q_bound), (s_ms, s_plain, *s_bound))
-        for base_dir, base in bases:
+        if name.startswith("captured serve"):
+            timing[value.dtype] = ((q_ms, q_plain, *q_bound), (s_ms, s_plain, *s_bound))
+        for base_dir, base in (bases if value.dtype == torch.bfloat16 else ()):
             quantize, sample, q_out, s_out = q8_launchers(value, locs5, weights)
             turns = in_turns(quantize, base, new, 20)
             print(f"q8_ab: {name} baseline={base_dir}: quantise ms base/new/new/base "
@@ -3028,7 +3056,7 @@ def phase_msda_q8(smi, baselines=()):
                   f"{same_output(sample, s_out, base, new)}; card: {smi}")
         del table, scale, want_table, want_scale, got, want, k1
     print(f"msda_q8: phase_s={time.perf_counter() - t0:.2f}")
-    return s_err, timing
+    return s_err, timing[torch.bfloat16], timing[torch.float16]
 
 
 def phase_serve_q8(smi):
@@ -3065,7 +3093,23 @@ def phase_serve_q8(smi):
           f"{[round(x, 3) for x in times['int8']]} median_ms={med['int8']:.3f}; bf16 forward_ms="
           f"{[round(x, 3) for x in times['none']]} median_ms={med['none']:.3f}; int8 vs bf16 top-300: largest "
           f"score gap {score_gap:.4e}, same label share {same_labels:.4f}; card: {smi}")
-    return launches
+    del predictor, inputs, outs
+    torch.cuda.empty_cache()
+    # the int8 flagship under fp16 autocast (ROADMAP C-29): B8's float16
+    # kernels, the same launches a forward
+    os.environ["MSDA_GATHER_QUANT"] = "int8"
+    try:
+        launches_16, *_ = phase_serve(
+            smi, "serve_q8_fp16", dataclasses.replace(load_config(DEFAULT_CONFIG), dtype=torch.float16),
+            "flagship R50, MSDA_GATHER_QUANT=int8", per_forward={"msda": 6, "msda_q8_quantize": 6,
+                                                                 "msda_q8_sample": 6})
+    finally:
+        if old is None:
+            os.environ.pop("MSDA_GATHER_QUANT", None)
+        else:
+            os.environ["MSDA_GATHER_QUANT"] = old
+    torch.cuda.empty_cache()
+    return {k: launches[k] + launches_16[k] for k in launches}
 
 
 
@@ -3243,6 +3287,133 @@ def phase_tools(smi, device="cuda"):
         raise AssertionError("tools: the inference CLI's --show-dir did not refuse by name without cv2")
 
 
+EXPORT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_export"
+# the configs whose kernels became registered operators in the last slice:
+# (config file, MSDA_GATHER_QUANT at trace time, the encoder sampling the
+# saved program records, the kernel operators its graph calls, the kernels a
+# forward launches)
+EXPORT_CONFIGS = {
+    "r50_dcn": (DCN_CONFIG, "none", "float",
+                {"ms_deform_attn", "grid_nms_topk", "deform_conv_fused", "deform_conv_unfused"},
+                {"msda": 12, "grid_nms": 1, "deform_conv_fused": 4, "deform_conv": 9}),
+    "int8": (DEFAULT_CONFIG, "int8", "int8", {"ms_deform_attn", "grid_nms_topk", "q8_quantize", "q8_sample"},
+             {"msda": 6, "grid_nms": 1, "msda_q8_quantize": 6, "msda_q8_sample": 6}),
+}
+
+
+def phase_export_configs(smi, device="cuda"):
+    """R50-DCN (offset and mask convs at seeded small normals) and the int8
+    flagship (``MSDA_GATHER_QUANT=int8`` read at trace time) through the
+    export tool's functions, B=1, TOOLS_CANVAS, the config's bf16 under
+    autocast, with --with-postprocess: each traced, saved with its encoder
+    sampling recorded, loaded; the kernel operators in its graph listed; the
+    launches inside the loaded program counted and held equal to the live
+    forward's (R50-DCN 4 B6 fused and 9 B6 columns beside 12 K1 and 1 K2;
+    int8 6 B8 quantise, 6 B8 sample, 6 K1 and 1 K2); the loaded program
+    against the live model on seeded pixels at rtol 1e-3 / atol 1e-5.
+    Returns the launches inside both programs.  ``device`` "cpu" rehearses
+    the phase (a tiny ``DEFAULT_CONFIG`` and ``DCN_CONFIG``, ``TOOLS_CANVAS``
+    and ``EXPORT_CONFIGS`` edited to it: float32 takes the unfused DCN
+    route and no kernel)."""
+    H, W = TOOLS_CANVAS
+    t0 = time.perf_counter()
+    EXPORT_DIR.mkdir(parents=True, exist_ok=True)
+    old = os.environ.get("MSDA_GATHER_QUANT")
+    totals = {k: 0 for k in native.LAUNCHES}
+    try:
+        for name, (config, quant, sampling, ops, per_forward) in EXPORT_CONFIGS.items():
+            os.environ["MSDA_GATHER_QUANT"] = quant
+            cfg = load_config(config)
+            served = Predictor(cfg, None, device, seed=0)
+            if name == "r50_dcn":
+                offsets_off_grid(served.model)
+            model, post = served.model, served.postprocess
+            t1 = time.perf_counter()
+            program = export_tool.export_detector(model, post, cfg, 1, H, W, with_postprocess=True)
+            export_s = time.perf_counter() - t1
+            path = EXPORT_DIR / f"{name}_postprocess.pt2"
+            export_tool.save_program(program, path)
+            loaded, recorded = export_tool.load_program(path)
+            graph_ops = export_tool.kernel_ops(loaded)
+            inputs = export_tool.example_inputs(1, H, W, True, torch.device(device), seed=1)
+            with torch.no_grad():
+                got, program_launches = launches_of(lambda: loaded.module()(*inputs))
+                want, live_launches = launches_of(
+                    lambda: export_tool.DetectorProgram(model, post, cfg, True)(*inputs))
+            gaps = export_tool.largest_gaps(got, want)
+            expected = {k: v for k, v in per_forward.items() if v}
+            print(f"export_configs: {name} ({Path(config).name}, MSDA_GATHER_QUANT={quant}) --with-postprocess "
+                  f"B=1 {H}x{W} {cfg.dtype} in {export_s:.1f} s, {path.stat().st_size / 2**20:.1f} MiB; encoder "
+                  f"sampling recorded {recorded!r}; kernel operators in the graph {graph_ops}; launches inside the "
+                  f"loaded program {program_launches}, live forward {live_launches}; loaded vs live largest |d| - 1e-3 "
+                  f"|want| {gaps} (atol 1e-5); card: {smi}")
+            if (set(graph_ops) != {f"salience_detr.{op}.default" for op in ops} or recorded != sampling
+                    or program_launches != expected or live_launches != expected
+                    or not all(g <= export_tool.ATOL for g in gaps.values())):
+                raise AssertionError(f"export_configs: the {name} program lacks a kernel operator, records another "
+                                     "sampling, launched other kernels than the live forward's or differs from "
+                                     "the live model (export_configs line)")
+            for k, v in program_launches.items():
+                totals[k] += v
+            del served, model, post, program, loaded, got, want
+            torch.cuda.empty_cache()
+    finally:
+        if old is None:
+            os.environ.pop("MSDA_GATHER_QUANT", None)
+        else:
+            os.environ["MSDA_GATHER_QUANT"] = old
+    print(f"export_configs: phase_s={time.perf_counter() - t0:.2f}")
+    return totals
+
+
+# the canvas of tests/test_torch_port_flagship_parity.py (the smallest whose
+# levels give the full 900 proposals) and its padded second image
+GAP_CANVAS, GAP_PADDED = (128, 352), (100, 301)
+
+
+def phase_bf16_gap(smi):
+    """ROADMAP C-2's full-model bound: the flagship (seed-0 weights) on the
+    canvas of the slow CPU parity test (which holds the port's float32
+    forward to the JAX model's at rtol 1e-3 / atol 1e-3), B=2, the second
+    image padded, in float32 on the card (TF32 off, as the smoke sets it)
+    and under the config's bf16 autocast.  Printed: per image the share of
+    the float32 forward's 900 proposal tokens that the bf16 forward also
+    selects, and the share at the same position; over the tokens both
+    select, the largest |bf16 - f32| of the last decoder layer's sigmoid
+    scores and boxes at each forward's own position of the token, with the
+    share of elements beyond rtol 1e-3 / atol 1e-3."""
+    cfg = load_config(DEFAULT_CONFIG)
+    model, _ = build_salience_detr(cfg, torch.device("cuda"), torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(21)
+    images = torch.randn(2, 3, *GAP_CANVAS, generator=gen).cuda()
+    sizes = torch.tensor([list(GAP_CANVAS), list(GAP_PADDED)]).cuda()
+    with torch.no_grad():
+        f32 = model(images, sizes)
+        with train_step_module.eval_autocast(images.device, cfg.dtype):
+            b16 = model(images, sizes)
+    if not all(torch.isfinite(b16[k]).all() for k in ("pred_class", "pred_coord")):
+        raise AssertionError("bf16_gap: the bf16 forward is not finite")
+    shared, same_place, gaps = [], [], {"scores": [], "boxes": []}
+    for i in range(2):
+        f_tok, b_tok = (out["proposal_index"][i].cpu().numpy() for out in (f32, b16))
+        common, at_f, at_b = np.intersect1d(f_tok, b_tok, return_indices=True)
+        shared.append(round(len(common) / len(f_tok), 4))
+        same_place.append(round(float((f_tok == b_tok).mean()), 4))
+        for key, name, fn in (("scores", "pred_class", torch.sigmoid), ("boxes", "pred_coord", lambda t: t)):
+            a = fn(f32[name][-1][i].float())[torch.from_numpy(at_f).cuda()]
+            b = fn(b16[name][-1][i].float())[torch.from_numpy(at_b).cuda()]
+            gaps[key].append(((b - a).abs(), 1e-3 + 1e-3 * a.abs()))
+    parts = {k: (float(max(g.max() for g, _ in v)),
+                 float(torch.cat([(g > lim).flatten() for g, lim in v]).float().mean())) for k, v in gaps.items()}
+    print(f"bf16_gap: flagship seed 0, B=2 {GAP_CANVAS[0]}x{GAP_CANVAS[1]} (image 2 {GAP_PADDED[0]}x{GAP_PADDED[1]}), "
+          f"{cfg.dtype} autocast against float32 on the card: proposal tokens selected by both, by image {shared} "
+          f"(at the same position {same_place}); over those tokens, last decoder layer: sigmoid scores max |d| "
+          f"{parts['scores'][0]:.4e} (share beyond rtol 1e-3 / atol 1e-3 {parts['scores'][1]:.4f}), boxes max |d| "
+          f"{parts['boxes'][0]:.4e} ({parts['boxes'][1]:.4f}); card: {smi}")
+    del model
+    torch.cuda.empty_cache()
+
+
 QUALITY_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_quality"
 QUALITY_TIMEOUT_S = 900
 # the small model of the quality tools: 2 encoder and 2 decoder layers; the
@@ -3301,15 +3472,17 @@ def phase_quality(smi):
 
 
 def quality_child_main(out):
-    """Phase quality in a process of its own (``chip_smoke.py
-    --quality-child DIR``): the kernels loaded from the build, the card
-    held as in the main process (``exact_float32``); writes the phase's
-    launch counts to DIR/launches.json."""
+    """Phases quality and then export_configs in a process of their own
+    (``chip_smoke.py --quality-child DIR``): the kernels loaded from the
+    build, the card held as in the main process (``exact_float32``); writes
+    each phase's launch counts to DIR/launches.json."""
     from salience_detr_torch.utils.env import configure_numerics
 
     native.load()
     configure_numerics(exact_float32=True)
-    launches = phase_quality(card_line())
+    smi = card_line()
+    launches = {"quality": phase_quality(smi)}
+    launches["export"] = phase_export_configs(smi)
     (Path(out) / "launches.json").write_text(json.dumps(launches))
     return 0
 
@@ -3317,8 +3490,9 @@ def quality_child_main(out):
 class QualityChild:
     """Runs ``quality_child_main`` beside the main process's later phases:
     its output goes to QUALITY_DIR/child.log, and ``join`` waits for it
-    (QUALITY_TIMEOUT_S), prints its ``quality:`` line and its seconds, and
-    raises if it failed; ``stop`` kills it if it still runs."""
+    (QUALITY_TIMEOUT_S), prints its ``quality:`` and ``export_configs:``
+    lines and its seconds, returns its phases' launches and raises if it
+    failed; ``stop`` kills it if it still runs."""
 
     def __init__(self):
         QUALITY_DIR.mkdir(parents=True, exist_ok=True)
@@ -3334,7 +3508,7 @@ class QualityChild:
         self.log.close()
         text = (QUALITY_DIR / "child.log").read_text()
         for line in text.splitlines():
-            if line.startswith("quality:"):
+            if line.startswith(("quality:", "export_configs:")):
                 print(line)
         print(f"quality_process: rc {rc}, {time.perf_counter() - self.t0:.1f} s from its start, beside phases "
               f"train_repeat to ddp_cards")
@@ -3775,15 +3949,16 @@ def phase_train_repeat(smi):
     synthetic batch of phase train) with ``--use-deterministic-algorithms``'
     numerics (``utils.env.configure_numerics(True)``) in processes of their
     own (``salience_detr_torch.tools.repeat_check train``; the setting is
-    global): float32 twice in one process, bf16 twice in one process and
-    once in another.  The losses, every gradient and every parameter after
+    global): float32 twice in one process, bf16 once in each of two
+    processes (a third bf16 run was cut for the smoke's time).  The
+    losses, every gradient and every parameter after
     the step must be bitwise equal within each dtype; prints the library ops
     that ``torch.use_deterministic_algorithms`` warned about."""
     t0 = time.perf_counter()
     root = DDP_DIR / "repeat"
     root.mkdir(parents=True, exist_ok=True)
     facts = []
-    for dtype, runs in (("f32", (2,)), ("bf16", (2, 1))):
+    for dtype, runs in (("f32", (2,)), ("bf16", (1, 1))):
         outs = [root / f"train_{dtype}_{i}.json" for i in range(len(runs))]
         for out, n in zip(outs, runs):
             run_cli(["-m", "salience_detr_torch.tools.repeat_check", "train", "--deterministic", "--dtype", dtype,
@@ -4305,9 +4480,10 @@ def phase_ddp_eval(smi):
     launcher's variables, LOCAL_RANK 0 for both) in exact mode
     (--torch-checkpoint, a saved seed-1 exact-mode state dict) on the eval
     phase's split at --batch-size 2, against the same command in one process,
-    made three times (``repeat_check eval``, which records each module
-    output of the first batch): the three one-process result files and the
-    merged one must be byte-equal (ROADMAP C-26: cuDNN's attention gave the
+    made twice (``repeat_check eval``, which records each module output of
+    the first batch; a third run was cut for the smoke's time): the two
+    one-process result files and the merged one must be byte-equal (ROADMAP
+    C-26: cuDNN's attention gave the
     first process of a call other bits), and so must the merged file's
     stats (rescored here on the split and on one whose boxes are the top
     predictions, where the random-weight model scores above zero); rank 0
@@ -4324,7 +4500,7 @@ def phase_ddp_eval(smi):
     torch.cuda.empty_cache()
     args = ["-m", "salience_detr_torch.test", "--coco-img", str(img_dir), "--coco-ann", str(ann),
             "--torch-checkpoint", str(ckpt), "--batch-size", "2"]
-    singles = ("one", "again", "third")
+    singles = ("one", "again")
     for d in (*singles, "ranks"):
         (root / d).mkdir()
     one_s = []
@@ -4717,7 +4893,7 @@ def main(argv=None):
     parser.add_argument("--phases", nargs="+", default=None,
                         choices=("msda_ordered", "deform_conv", "dcn_captured", "steps_e2e", "train_repeat",
                                  "ddp_train", "ddp_nccl", "ddp_eval", "ddp_cards", "numerics_cost", "serve_q8",
-                                 "tools", "quality"),
+                                 "msda_q8", "tools", "export_configs", "bf16_gap", "quality"),
                         help="run the device and build phases and these alone, and print no result line")
     args = parser.parse_args(argv)
     if args.ddp_rank is not None:
@@ -4769,9 +4945,10 @@ def main(argv=None):
     phase_dcn_slice()
     dcn_serve_launches = phase_dcn_serve(smi)
     dcn_train_launches = phase_dcn_train(smi)
-    q8_sample_err, q8_t = phase_msda_q8(smi, args.baseline_csrc)
+    q8_sample_err, q8_t, q8_t16 = phase_msda_q8(smi, args.baseline_csrc)
     q8_launches = phase_serve_q8(smi)
     phase_tools(smi)
+    phase_bf16_gap(smi)
     stage_launches, stage_results = phase_msda_stages(smi, args.baseline_csrc)
     phase_nms_past_budget(smi)
     phase_backbone_slice()
@@ -4789,9 +4966,10 @@ def main(argv=None):
         phase_ddp_nccl(smi)
         phase_ddp_eval(smi)
         phase_ddp_cards(smi)
-        quality_launches = quality.join()
+        child_launches = quality.join()
     finally:
         quality.stop()
+    quality_launches, export_launches = child_launches["quality"], child_launches["export"]
     print("backbone launches " + "; ".join(
         f"{k} {{{', '.join(f'{n}: {v}' for n, v in l.items() if v)}}}" for k, l in backbone_launches.items()))
     print(f"serve launches {serve_launches}; train launches {train_launches}; "
@@ -4799,7 +4977,8 @@ def main(argv=None):
           f"train_coco_strong launches ({STRONG_STEPS} steps) {strong_launches}; "
           f"train_mixed launches (1 step) {mixed_launches}; "
           f"eval launches (NMS filter on) {eval_launches}; dcn_serve launches {dcn_serve_launches}; "
-          f"dcn_train launches {dcn_train_launches}; serve_q8 launches {q8_launches}; "
+          f"dcn_train launches {dcn_train_launches}; serve_q8 launches (bf16 and fp16) {q8_launches}; "
+          f"export_configs launches (inside the loaded programs) { {k: v for k, v in export_launches.items() if v} }; "
           f"quality launches (overfit_check and validate_static_shapes) "
           f"{ {k: v for k, v in quality_launches.items() if v} }; msda_stages launches {stage_launches}")
     # K1-K4, K9: no single PyTorch call computes them (MSDA is a grid_sample
@@ -4828,10 +5007,11 @@ def main(argv=None):
         # K9 launches on the eval path with the NMS filter on (phase eval's run 1)
         kernel_entry("nms_keep_forward", "nms_keep.cu", "salience_detr_tpu/ops/nms.py:133",
                      eval_launches["nms_keep"], 0.0, keep_t),
-        # B6 on the R50-DCN train path (phase dcn_train), timed at DCN_HOT;
+        # B6 on the R50-DCN train path (phase dcn_train) and inside the
+        # exported R50-DCN program (phase export_configs), timed at DCN_HOT;
         # library: F.grid_sample in f32 and its autograd backward
         kernel_entry("deform_conv_forward", "deform_conv.cu", "salience_detr_tpu/models/bricks/deform_conv.py:20",
-                     dcn_train_launches["deform_conv"], dcn_fwd_err, dcn_t[0]),
+                     dcn_train_launches["deform_conv"] + export_launches["deform_conv"], dcn_fwd_err, dcn_t[0]),
         kernel_entry("deform_conv_backward", "deform_conv.cu", "salience_detr_tpu/models/bricks/deform_conv.py:20",
                      dcn_train_launches["deform_conv_backward"], dcn_bwd_err, dcn_t[1]),
         # the 16-bit DCN layer at F <= 128 (sampling, mask and the einsum of
@@ -4841,15 +5021,21 @@ def main(argv=None):
         # layer's recompute in backward)
         kernel_entry("deform_conv_fused", "deform_conv_gemm.cu",
                      "salience_detr_tpu/models/bricks/deform_conv.py:20, :102",
-                     dcn_train_launches["deform_conv_fused"], fused_err, fused_t),
-        # B8 on the int8 serve path (phase serve_q8), timed on a served
-        # forward's encoder layer 0; no PyTorch call computes it.  The
-        # quantisation is held bit-exact (phase msda_q8 raises otherwise)
+                     dcn_train_launches["deform_conv_fused"] + export_launches["deform_conv_fused"], fused_err,
+                     fused_t),
+        # B8 on the int8 serve path in bf16 and fp16 (phase serve_q8) and
+        # inside the exported int8 program (phase export_configs), timed on a
+        # served bf16 forward's encoder layer 0 (the float16 kernels' times in
+        # fp16_ms / fp16_plain_ms / fp16_bound_ms); no PyTorch call computes
+        # it.  The quantisation and the sample are held bit-exact (phase
+        # msda_q8 raises otherwise)
         kernel_entry("msda_q8_quantize", "msda_q8.cu", "salience_detr_tpu/ops/deform_attn.py:910",
-                     q8_launches["msda_q8_quantize"], 0.0, q8_t[0]),
+                     q8_launches["msda_q8_quantize"] + export_launches["msda_q8_quantize"], 0.0, q8_t[0]),
         kernel_entry("msda_q8_sample", "msda_q8.cu", "salience_detr_tpu/ops/deform_attn.py:910",
-                     q8_launches["msda_q8_sample"], q8_sample_err, q8_t[1]),
+                     q8_launches["msda_q8_sample"] + export_launches["msda_q8_sample"], q8_sample_err, q8_t[1]),
     ]
+    for entry, (ms, plain_ms, bound_ms, _) in zip(kernels[-2:], q8_t16):
+        entry.update(fp16_ms=ms, fp16_plain_ms=plain_ms, fp16_bound_ms=bound_ms)
     for name, source, replaces in (
         ("gather_sum", "gather_sum.cu", "tools/bench_gather.py:64"),
         ("weighted_reduce", "weighted_reduce.cu", "tools/bench_msda2.py:201, tools/bench_msda3.py:44"),

@@ -20,6 +20,12 @@
 //     core's einsum operands in the compute dtype; every product and sum is
 //     one IEEE operation in the plain version's order, so the two agree bit
 //     for bit.
+//   * T is the value's dtype, float32, bfloat16 or float16 (a dtype code, as
+//     the DCN entry points take: kFloat32, kBFloat16, kFloat16 in
+//     msda_common.cuh).  float16 rounds to nearest even into its subnormals
+//     below 2^-14 (__float2half_rn), as PyTorch's .to(torch.float16) does:
+//     a corner weight of 1e-6 is a subnormal float16 (a multiple of 2^-24)
+//     where it is a normal bfloat16.
 //
 // What bounds it on an H100: bytes.  The sampler's gathers, as in K1
 // (msda.cu): at the flagship's first encoder layer (B=4, Q=11403, L=P=4, C=256)
@@ -35,7 +41,7 @@
 // int8 channels a lane in one 16-byte load, so each corner row is one 256 B
 // request serving all heads and a warp serves two queries (narrower heads
 // take 8, 4, 2 or 1 channels a lane, so that a lane stays in one head); a
-// point's four corner loads are issued without branches; in bf16 output a
+// point's four corner loads are issued without branches; in 16-bit output a
 // corner channel costs a byte permute, a subtraction and one fused
 // multiply-add (exact: see corner_add).  The int8 -> f32 conversion is the
 // permute and the subtraction.
@@ -56,11 +62,12 @@
 // quotient's integer except within a few ulps of a half-integer step; there
 // (0.6% of the captured encoder's bf16 elements) the sign of one fused
 // residual decides it, still without a division.  The table goes out in
-// streaming stores.  A thread holds 16-byte words (8 channels in bf16, 4 in
-// f32).
+// streaming stores.  A thread holds 16-byte words (8 channels in bf16 or
+// f16, 4 in f32).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -386,8 +393,12 @@ __device__ __forceinline__ float round_to(float v) {
 // bf16 w has 8 significant bits and v 7, so w * v is exact in f32 (also
 // below the normal range: it is a multiple of 2^-133) and one fused
 // multiply-add rounds exactly as the plain version's multiply, then add
-// (tests/test_torch_port_msda_q8_fma.py checks every such product).  An
-// f32 w is not short enough: there the multiply and the add stay apart.
+// (tests/test_torch_port_msda_q8_fma.py checks every such product).  In
+// f16 w has 11 significant bits (fewer as a subnormal), so w * v has at
+// most 18 of f32's 24, and it is a multiple of 2^-24 no smaller than 2^-24
+// in magnitude where it is not 0, inside f32's normal range: exact too, and
+// the fused multiply-add is again the multiply, then the add.  An f32 w is
+// not short enough: there the multiply and the add stay apart.
 template <typename T>
 __device__ __forceinline__ float corner_add(float s, float w, float v) {
   if constexpr (sizeof(T) == 2) {
@@ -403,9 +414,11 @@ __device__ __forceinline__ float corner_add(float s, float w, float v) {
 // reads the level's clamped row with weight 0, which adds +-0 to the sum and
 // changes nothing (the sum is never -0, and the table holds no NaN or inf),
 // so the loads of a point are in flight together.  The head's attention
-// weight times the bf16-rounded corner sum stays a separate multiply and add:
+// weight times the rounded corner sum stays a separate multiply and add:
 // that product of two bf16 values can fall below the f32 normal range,
-// where a fused multiply-add would round otherwise.
+// where a fused multiply-add would round otherwise.  (Two f16 values have
+// 22 significant bits and a product of at least 2^-48 in magnitude, exact
+// in f32; the separate operations round the same there.)
 template <typename T, int CPL, int LPQ>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 msda_q8_sample_kernel(const int8_t* __restrict__ table, const float* __restrict__ scale,
@@ -577,32 +590,42 @@ int dispatch_sample(const void* table, const void* scale, const LevelTable& leve
 
 }  // namespace
 
-// value (rows, C) f32 or bf16; absmax a zeroed (C,) u32 scratch (left
-// holding the absmax bits); table (rows, C) int8 and scale (C,) f32 are
-// written.  One cooperative launch.
-extern "C" int msda_q8_quantize(const void* value, int value_is_bf16, void* absmax, void* table,
+// value (rows, C) in value_dtype (kFloat32, kBFloat16 or kFloat16); absmax a
+// zeroed (C,) u32 scratch (left holding the absmax bits); table (rows, C)
+// int8 and scale (C,) f32 are written.  One cooperative launch.
+extern "C" int msda_q8_quantize(const void* value, int value_dtype, void* absmax, void* table,
                                 void* scale, int64_t rows, int C, void* stream) {
   if (C <= 0 || C % 8 || 256 % (C / 8) || rows <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (value_is_bf16) return quantize<__nv_bfloat16>(value, absmax, table, scale, rows, C, s);
-  return quantize<float>(value, absmax, table, scale, rows, C, s);
+  switch (value_dtype) {
+    case kFloat32: return quantize<float>(value, absmax, table, scale, rows, C, s);
+    case kBFloat16: return quantize<__nv_bfloat16>(value, absmax, table, scale, rows, C, s);
+    case kFloat16: return quantize<__half>(value, absmax, table, scale, rows, C, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // table (B, S, C) int8, scale (C,) f32, loc (B, Q, L, P, 2) f32, attn (B, Q,
-// H, L, P) f32 -> out (B, Q, C) in bf16 (out_is_bf16) or f32.
+// H, L, P) f32 -> out (B, Q, C) in out_dtype (kFloat32, kBFloat16 or
+// kFloat16), the dtype the corner weights, corner sums and attention
+// weights are rounded to.
 extern "C" int msda_q8_sample(const void* table, const void* scale, LevelTable levels,
-                              const void* loc, const void* attn, void* out, int out_is_bf16,
+                              const void* loc, const void* attn, void* out, int out_dtype,
                               int B, int S, int Q, int C, int H, int P, void* stream) {
   if (sample_lane_channels(C, H) == 0 || levels.num_levels <= 0 || levels.num_levels > kLevelsMax ||
-      level_table_tokens(levels) != S) {
+      level_table_tokens(levels) != S || out_dtype < kFloat32 || out_dtype > kFloat16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (static_cast<int64_t>(B) * Q == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (out_is_bf16) {
-    return dispatch_sample<__nv_bfloat16>(table, scale, levels, loc, attn, out, B, S, Q, C, H, P, s);
+  switch (out_dtype) {
+    case kBFloat16:
+      return dispatch_sample<__nv_bfloat16>(table, scale, levels, loc, attn, out, B, S, Q, C, H, P, s);
+    case kFloat16:
+      return dispatch_sample<__half>(table, scale, levels, loc, attn, out, B, S, Q, C, H, P, s);
+    default:
+      return dispatch_sample<float>(table, scale, levels, loc, attn, out, B, S, Q, C, H, P, s);
   }
-  return dispatch_sample<float>(table, scale, levels, loc, attn, out, B, S, Q, C, H, P, s);
 }

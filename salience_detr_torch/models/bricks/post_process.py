@@ -4,7 +4,8 @@ num_classes, cxcywh -> xyxy scaled to the original image size, and the
 optional confidence and NMS filters as a ``valid`` mask (shapes stay fixed):
 the confidence filter applies when ``confidence_score > 0``, the
 class-agnostic greedy NMS on the scaled top-k boxes (one ``nms_keep_mask``
-call for the batch) when ``nms_iou_threshold > 0``."""
+call for the batch) when ``nms_iou_threshold > 0``; and
+``SegmentationPostProcess``, query masks to a per-pixel class map."""
 
 from __future__ import annotations
 
@@ -54,3 +55,34 @@ class PostProcess:
         if self.nms_iou_threshold > 0:
             valid &= nms_keep_mask(boxes, self.nms_iou_threshold)
         return {"scores": scores, "labels": labels, "boxes": boxes, "valid": valid}
+
+
+class SegmentationPostProcess:
+    """Query masks -> a per-pixel class map (the port of the JAX package's
+    ``SegmentationPostProcess``, the functional equivalent of the
+    reference's unused one): each query takes its argmax class, the queries
+    of a class are averaged into one sigmoid mask (an empty class's mask is
+    zero), the per-class stack is resized bilinearly to ``target_hw`` and
+    argmaxed over the classes.
+
+    The resize is ``jax.image.resize(method="bilinear")``'s: half-pixel
+    centres, the triangle kernel widened by the scale where it shrinks
+    (anti-aliasing) and renormalised at the borders, which is
+    ``F.interpolate(..., mode="bilinear", align_corners=False,
+    antialias=True)``.  Both argmaxes take the first of equal values, as
+    ``jnp.argmax`` does."""
+
+    def __call__(
+        self,
+        pred_logits: torch.Tensor,  # (B, Q, C)
+        pred_masks: torch.Tensor,  # (B, Q, h, w)
+        target_hw,  # (H, W) output size
+    ) -> torch.Tensor:
+        B, Q, C = pred_logits.shape
+        onehot = torch.nn.functional.one_hot(pred_logits.argmax(-1), C).float()  # (B, Q, C)
+        masks = pred_masks.float().sigmoid()
+        num = torch.einsum("bqc,bqhw->bchw", onehot, masks)
+        den = onehot.sum(1).clamp_min(1.0)[..., None, None]
+        per_class = torch.nn.functional.interpolate(num / den, size=tuple(int(n) for n in target_hw),
+                                                    mode="bilinear", align_corners=False, antialias=True)
+        return per_class.argmax(1)  # (B, H, W)

@@ -33,6 +33,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 MAX_LEVELS = 16  # kLevelsMax in csrc/levels.cuh
+# the C entry points' element-type codes (kFloat32, kBFloat16, kFloat16 in
+# csrc/msda_common.cuh), for the DCN and int8 MSDA kernels
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 LAUNCHES = {
     "msda": 0, "msda_backward": 0, "msda_backward_ordered": 0, "grid_nms": 0, "hungarian": 0, "nms_keep": 0,

@@ -17,7 +17,11 @@ the exact per-head sampling of ``ms_deform_attn_core`` /
   on CUDA tensors they launch the kernels or raise.  The backward has two
   designs for d_value (:func:`backward_design` picks one): the scatter of
   float atomics, and the ordered pull, bitwise repeatable, which runs under
-  ``torch.use_deterministic_algorithms``.
+  ``torch.use_deterministic_algorithms``;
+* :func:`ms_deform_attn_q8` is the int8 head-shared sampling of the eval
+  encoder (``MSDA_GATHER_QUANT=int8``), forward only, through the
+  registered operators ``torch.ops.salience_detr.q8_quantize`` and
+  ``q8_sample`` (``csrc/msda_q8.cu``), with its plain versions beside it.
 
 Semantics: grid_sample with align_corners=False and zero padding; corners
 outside their level get weight 0 and are never read (nor written by the
@@ -497,16 +501,12 @@ def ms_deform_attn_q8_plain(
     return q8_sample_plain(*q8_quantize_plain(value), spatial_shapes, locations, weights, value.dtype)
 
 
-def q8_quantize(value: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`q8_quantize_plain` on a CPU tensor; on CUDA the quantise kernel
-    (one cooperative launch: the absmax pass, a grid barrier, the table
-    pass), or raise.  The kernel takes the absmax scratch zeroed."""
-    if value.device.type == "cpu":
-        return q8_quantize_plain(value)
-    if value.device.type != "cuda":
-        raise RuntimeError(f"q8_quantize: no kernel for device {value.device}")
-    if value.dim() != 3 or value.dtype not in (torch.float32, torch.bfloat16) or not value.is_contiguous():
-        raise ValueError(f"q8_quantize: want a contiguous float32/bfloat16 (B, S, C) value, got "
+def _q8_quantize_cuda(value: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The quantise kernel (one cooperative launch: the absmax pass, a grid
+    barrier, the table pass) on a contiguous float32, bfloat16 or float16
+    value, or raise.  The kernel takes the absmax scratch zeroed."""
+    if value.dim() != 3 or value.dtype not in native.DTYPE_CODES or not value.is_contiguous():
+        raise ValueError(f"q8_quantize: want a contiguous float32/bfloat16/float16 (B, S, C) value, got "
                          f"{value.dtype} {tuple(value.shape)}")
     B, S, C = value.shape
     if C % 8 or 256 % (C // 8) or value.data_ptr() % 16:
@@ -517,33 +517,21 @@ def q8_quantize(value: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     scale = torch.empty(C, dtype=torch.float32, device=value.device)
     lib = native.load()
     with torch.cuda.device(value.device):
-        err = lib.msda_q8_quantize(value.data_ptr(), int(value.dtype == torch.bfloat16), absmax.data_ptr(),
+        err = lib.msda_q8_quantize(value.data_ptr(), native.DTYPE_CODES[value.dtype], absmax.data_ptr(),
                                    table.data_ptr(), scale.data_ptr(), B * S, C, native.stream_of(value))
     native.check(err, "msda_q8_quantize")
     native.LAUNCHES["msda_q8_quantize"] += 1
     return table, scale
 
 
-def q8_sample(
-    table: torch.Tensor,
-    scale: torch.Tensor,
-    spatial_shapes: Sequence[Tuple[int, int]],
-    locations: torch.Tensor,
-    weights: torch.Tensor,
-    dtype: torch.dtype,
-) -> torch.Tensor:
-    """:func:`q8_sample_plain` on CPU tensors; on CUDA the sampling kernel,
-    or raise.  The kernel holds CPL int8 channels a lane, the largest of 16,
-    8, 4, 2, 1 that divides a head's C / H channels, and C / CPL lanes a
-    query must divide 32: for C a power of two from 32 to 512, any H that
-    divides 32 (the parent design's set, C = 32 to 256, and C = 512)."""
-    if table.device.type == "cpu":
-        return q8_sample_plain(table, scale, spatial_shapes, locations, weights, dtype)
-    if table.device.type != "cuda":
-        raise RuntimeError(f"q8_sample: no kernel for device {table.device}")
+def _q8_sample_cuda(table, scale, spatial_shapes, locations, weights, dtype):
+    """The sampling kernel, or raise.  It holds CPL int8 channels a lane,
+    the largest of 16, 8, 4, 2, 1 that divides a head's C / H channels, and
+    C / CPL lanes a query must divide 32: for C a power of two from 32 to
+    512, any H that divides 32."""
     B, S, C, Q, L, P, H = _check_q8_shapes(table, spatial_shapes, locations, weights)
-    if table.dtype != torch.int8 or not table.is_contiguous() or dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"q8_sample: want a contiguous int8 table and a float32/bfloat16 output, got "
+    if table.dtype != torch.int8 or not table.is_contiguous() or dtype not in native.DTYPE_CODES:
+        raise TypeError(f"q8_sample: want a contiguous int8 table and a float32/bfloat16/float16 output, got "
                         f"{table.dtype} -> {dtype}")
     cpl = 16
     while C % H == 0 and (C // H) % cpl:
@@ -561,12 +549,86 @@ def q8_sample(
     with torch.cuda.device(table.device):
         err = lib.msda_q8_sample(
             table.data_ptr(), scale.data_ptr(), native.level_table(spatial_shapes),
-            loc.data_ptr(), attn.data_ptr(), out.data_ptr(), int(dtype == torch.bfloat16),
+            loc.data_ptr(), attn.data_ptr(), out.data_ptr(), native.DTYPE_CODES[dtype],
             B, S, Q, C, H, P, native.stream_of(table),
         )
     native.check(err, "msda_q8_sample")
     native.LAUNCHES["msda_q8_sample"] += 1
     return out
+
+
+# B8 as two registered operators, ``torch.ops.salience_detr.q8_quantize`` and
+# ``q8_sample``, dispatched as K1's: the plain versions on the CPU, the
+# kernels on CUDA (which raise rather than give way), fake implementations
+# from the shapes, so that ``torch.export`` traces the int8 encoder and a
+# loaded program launches both kernels.  Forward only (the path is eval's).
+@torch.library.custom_op("salience_detr::q8_quantize", mutates_args=(), device_types="cpu",
+                         schema="(Tensor value) -> (Tensor, Tensor)")
+def q8_quantize_op(value):
+    return q8_quantize_plain(value)
+
+
+@q8_quantize_op.register_kernel("cuda")
+def _q8_quantize_op_cuda(value):
+    return _q8_quantize_cuda(value)
+
+
+@q8_quantize_op.register_fake
+def _q8_quantize_op_fake(value):
+    refuse_meta(value, "q8_quantize")
+    if value.dim() != 3:
+        raise ValueError(f"q8_quantize: want a (B, S, C) value, got {tuple(value.shape)}")
+    return value.new_empty(value.shape, dtype=torch.int8), value.new_empty((value.shape[2],), dtype=torch.float32)
+
+
+@torch.library.custom_op("salience_detr::q8_sample", mutates_args=(), device_types="cpu",
+                         schema="(Tensor table, Tensor scale, Tensor locations, Tensor weights, int[] levels, "
+                                "ScalarType dtype) -> Tensor")
+def q8_sample_op(table, scale, locations, weights, levels, dtype):
+    return q8_sample_plain(table, scale, level_pairs(levels), locations, weights, dtype)
+
+
+@q8_sample_op.register_kernel("cuda")
+def _q8_sample_op_cuda(table, scale, locations, weights, levels, dtype):
+    return _q8_sample_cuda(table, scale, level_pairs(levels), locations, weights, dtype)
+
+
+@q8_sample_op.register_fake
+def _q8_sample_op_fake(table, scale, locations, weights, levels, dtype):
+    refuse_meta(table, "q8_sample")
+    B, S, C, Q, L, P, H = _check_q8_shapes(table, level_pairs(levels), locations, weights)
+    return table.new_empty((B, Q, C), dtype=dtype)
+
+
+def q8_sample_flops(table_shape, scale_shape, locations_shape, *args, out_shape=None, **kwargs) -> int:
+    """FLOPs of one sample as :func:`ms_deform_attn_flops` counts K1's: 4
+    corners of C channels a (b, q, l, p), a multiply and an add each."""
+    B, Q, L, P, _ = locations_shape
+    return 2 * 4 * B * Q * table_shape[2] * L * P
+
+
+register_flop_formula(torch.ops.salience_detr.q8_sample)(q8_sample_flops)
+
+
+def q8_quantize(value: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The op ``salience_detr::q8_quantize``: :func:`q8_quantize_plain` on a
+    CPU tensor; on CUDA the quantise kernel on a contiguous float32,
+    bfloat16 or float16 value, or raise."""
+    return q8_quantize_op(value)
+
+
+def q8_sample(
+    table: torch.Tensor,
+    scale: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    locations: torch.Tensor,
+    weights: torch.Tensor,
+    dtype: torch.dtype,
+) -> torch.Tensor:
+    """The op ``salience_detr::q8_sample``: :func:`q8_sample_plain` on CPU
+    tensors; on CUDA the sampling kernel (output float32, bfloat16 or
+    float16), or raise."""
+    return q8_sample_op(table, scale, locations, weights, flat_levels(spatial_shapes), dtype)
 
 
 def ms_deform_attn_q8(
@@ -577,7 +639,9 @@ def ms_deform_attn_q8(
 ) -> torch.Tensor:
     """Forward-only int8 head-shared MSDA: :func:`ms_deform_attn_q8_plain` on
     CPU tensors, the two kernels of ``csrc/msda_q8.cu`` on CUDA tensors (or
-    raise); same contract as the plain version."""
-    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    raise), each a registered operator; same contract as the plain version,
+    for a float32, bfloat16 or float16 value (a float16 model rounds the
+    corner weights, corner sums and attention weights to float16, as the JAX
+    core computes in the value's dtype)."""
     table, scale = q8_quantize(value.contiguous())
-    return q8_sample(table, scale, shapes, locations, weights, value.dtype)
+    return q8_sample(table, scale, spatial_shapes, locations, weights, value.dtype)

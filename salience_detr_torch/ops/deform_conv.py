@@ -11,15 +11,20 @@ one GEMM of the sampled columns with the (9 * Cin, F) kernel.
   :func:`deform_conv_sample_backward_plain` its plain backward, the spec of
   the gather backward there; both run on any device;
 * :func:`deform_conv_sample` is the differentiable wrapper of those two
-  kernels (a ``torch.autograd.Function``): on CPU tensors its forward and
+  kernels, the registered operators ``torch.ops.salience_detr.deform_conv_columns``
+  and ``deform_conv_backward`` (fake implementations for ``torch.export``,
+  an autograd formula, FLOP formulas): on CPU tensors its forward and
   backward are the plain versions, on CUDA tensors they launch the kernels
   or raise;
 * :func:`deform_conv2d_plain` is the whole layer in plain PyTorch (the
   sampling, then ``torch.matmul`` in x's dtype), the spec of the fused
   kernel in ``csrc/deform_conv_gemm.cu``, and :func:`deform_conv2d` its
-  differentiable wrapper, the layer's route (see its docstring): the fused
-  kernel for 16-bit layers of F <= 128, the columns kernel and
-  ``torch.matmul`` for the others.
+  differentiable wrapper, the layer's route (see its docstring) between two
+  operators: ``deform_conv_fused`` (the fused kernel) for 16-bit layers of
+  F <= 128, ``deform_conv_unfused`` (the columns kernel and
+  ``torch.matmul``) for the others.
+
+``import salience_detr_torch`` registers the operators.
 
 Layouts are the JAX package's: x (B, H, W, Cin) channels-last; offsets (B,
 Ho, Wo, 18) with (dy, dx) interleaved per tap; mask (B, Ho, Wo, 9); columns
@@ -39,8 +44,11 @@ from __future__ import annotations
 from typing import Iterator, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from salience_detr_torch import native
+from salience_detr_torch.native import DTYPE_CODES
+from salience_detr_torch.ops.misc import refuse_meta
 
 TAPS = 9  # a 3x3 kernel with padding 1
 
@@ -170,11 +178,6 @@ def _kernel_matrix(weight: torch.Tensor, C: int) -> torch.Tensor:
     return weight.reshape(TAPS * C, weight.shape[2])
 
 
-# the C entry points' element-type codes (kFloat32, kBFloat16, kFloat16 in
-# csrc/msda_common.cuh)
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-
-
 def _check_kernel_inputs(x, offsets, mask, stride):
     if x.device.type != "cuda":
         raise RuntimeError(f"deform_conv_sample: no kernel for device {x.device}")
@@ -243,32 +246,98 @@ def _backward_cuda(x, offsets, mask, stride, d_cols, need_x=True):
     return d_x, d_off.to(offsets.dtype), d_mask.to(mask.dtype)
 
 
-class _DeformConvSample(torch.autograd.Function):
-    """Forward and backward kernels on CUDA tensors, the plain versions on CPU
-    tensors; nothing on CUDA gives way to a plain version.  The backward
-    writes no d_x when x needs no gradient."""
+def _sample_fake_shape(x, offsets, mask, stride):
+    refuse_meta(x, "deform_conv")
+    B, H, W, C, Ho, Wo = _check_shapes(x, offsets, mask, stride)
+    return B, Ho, Wo, C
 
-    @staticmethod
-    def forward(ctx, x, offsets, mask, stride):
-        ctx.stride = stride
-        ctx.save_for_backward(x, offsets, mask)
-        if x.device.type == "cpu":
-            return deform_conv_sample_plain(x, offsets, mask, stride)
-        return _forward_cuda(x, offsets, mask, stride)
 
-    @staticmethod
-    def backward(ctx, d_cols):
-        x, offsets, mask = ctx.saved_tensors
-        backward = deform_conv_sample_backward_plain if x.device.type == "cpu" else _backward_cuda
-        grads = backward(x, offsets, mask, ctx.stride, d_cols, need_x=ctx.needs_input_grad[0])
-        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None)
+# B6 as registered operators, dispatched as K1's (ops/deform_attn.py): the
+# plain versions on the CPU, the kernels on CUDA (which raise rather than
+# give way), fake implementations from the shapes, so that ``torch.export``
+# traces R50-DCN and a loaded program launches the kernels.
+# ``salience_detr::deform_conv_columns`` is the columns kernel, differentiable
+# through ``salience_detr::deform_conv_backward`` (the gather backward,
+# which writes no d_x when x needs no gradient: it returns an empty tensor
+# then).
+@torch.library.custom_op("salience_detr::deform_conv_columns", mutates_args=(), device_types="cpu",
+                         schema="(Tensor x, Tensor offsets, Tensor mask, int stride) -> Tensor")
+def deform_conv_columns_op(x, offsets, mask, stride):
+    return deform_conv_sample_plain(x, offsets, mask, stride)
+
+
+@deform_conv_columns_op.register_kernel("cuda")
+def _deform_conv_columns_op_cuda(x, offsets, mask, stride):
+    return _forward_cuda(x, offsets, mask, stride)
+
+
+@deform_conv_columns_op.register_fake
+def _deform_conv_columns_op_fake(x, offsets, mask, stride):
+    B, Ho, Wo, C = _sample_fake_shape(x, offsets, mask, stride)
+    return x.new_empty((B, Ho, Wo, TAPS, C))
+
+
+@torch.library.custom_op("salience_detr::deform_conv_backward", mutates_args=(), device_types="cpu",
+                         schema="(Tensor x, Tensor offsets, Tensor mask, Tensor d_cols, int stride, bool need_x) "
+                                "-> (Tensor, Tensor, Tensor)")
+def deform_conv_backward_op(x, offsets, mask, d_cols, stride, need_x):
+    d_x, d_off, d_mask = deform_conv_sample_backward_plain(x, offsets, mask, stride, d_cols, need_x)
+    return (d_x if need_x else x.new_empty((0,))), d_off, d_mask
+
+
+@deform_conv_backward_op.register_kernel("cuda")
+def _deform_conv_backward_op_cuda(x, offsets, mask, d_cols, stride, need_x):
+    d_x, d_off, d_mask = _backward_cuda(x, offsets, mask, stride, d_cols, need_x)
+    return (d_x if need_x else x.new_empty((0,))), d_off, d_mask
+
+
+@deform_conv_backward_op.register_fake
+def _deform_conv_backward_op_fake(x, offsets, mask, d_cols, stride, need_x):
+    _sample_fake_shape(x, offsets, mask, stride)
+    return x.new_empty(x.shape if need_x else (0,)), torch.empty_like(offsets), torch.empty_like(mask)
+
+
+def _columns_setup_context(ctx, inputs, output):
+    x, offsets, mask, stride = inputs
+    ctx.stride = stride
+    ctx.save_for_backward(x, offsets, mask)
+
+
+def _columns_backward(ctx, d_cols):
+    x, offsets, mask = ctx.saved_tensors
+    need_x = ctx.needs_input_grad[0]
+    grads = deform_conv_backward_op(x, offsets, mask, d_cols, ctx.stride, need_x)
+    return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None)
+
+
+deform_conv_columns_op.register_autograd(_columns_backward, setup_context=_columns_setup_context)
+
+
+def deform_conv_columns_flops(x_shape, offsets_shape, *args, out_shape=None, **kwargs) -> int:
+    """FLOPs of the columns as :func:`ops.deform_attn.ms_deform_attn_flops`
+    counts K1's: 4 corners of C channels a (b, ho, wo, tap), a multiply and
+    an add each (the bilinear weights and the mask are not counted)."""
+    B, Ho, Wo, _ = offsets_shape
+    return 2 * 4 * B * Ho * Wo * TAPS * x_shape[3]
+
+
+def deform_conv_backward_flops(x_shape, offsets_shape, *args, out_shape=None, **kwargs) -> int:
+    """FLOPs of the gather backward: three multiply-adds a corner channel
+    (the sample again, for d_mask; the dot product with the row, for the
+    offsets; the row's share of d_x)."""
+    return 3 * deform_conv_columns_flops(x_shape, offsets_shape)
+
+
+register_flop_formula(torch.ops.salience_detr.deform_conv_columns)(deform_conv_columns_flops)
+register_flop_formula(torch.ops.salience_detr.deform_conv_backward)(deform_conv_backward_flops)
 
 
 def deform_conv_sample(
     x: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor, stride: int
 ) -> torch.Tensor:
     """Differentiable modulated deformable sampling through the kernels
-    (``csrc/deform_conv.cu``); same contract as :func:`deform_conv_sample_plain`.
+    (``csrc/deform_conv.cu``), the op ``salience_detr::deform_conv_columns``;
+    same contract as :func:`deform_conv_sample_plain`.
 
     On CUDA, x must be a contiguous float32, bfloat16 or float16 tensor with C in
     (32, 64, 128) or a multiple of 256 (the forward's lanes hold 16 bytes of
@@ -276,7 +345,7 @@ def deform_conv_sample(
     offsets and mask are cast to float32 for the kernels, since autocast does
     not reach a kernel call, and their gradients come back in their dtypes.
     """
-    return _DeformConvSample.apply(x, offsets, mask, int(stride))
+    return deform_conv_columns_op(x, offsets, mask, int(stride))
 
 
 # the widest F the 16-bit route gives the fused kernel, from the two routes
@@ -330,30 +399,56 @@ def _product(cols, weight):
     return torch.matmul(cols.reshape(B * Ho * Wo, TAPS * C), w).reshape(B, Ho, Wo, -1)
 
 
-class _DeformConv2d(torch.autograd.Function):
-    """The layer's forward by dtype and F (see :func:`deform_conv2d`); the
-    backward recomputes the columns (no columns are saved), takes d_cols =
-    d_out @ W^T and dW = cols^T @ d_out by ``torch.matmul`` in x's dtype, then
-    the sampling's backward (the gather kernel on CUDA, the plain backward on
-    the CPU)."""
+# The layer's two routes as operators, ``salience_detr::deform_conv_fused``
+# (the fused kernel) and ``salience_detr::deform_conv_unfused`` (the columns
+# kernel, then ``torch.matmul``), each the plain layer on the CPU; the
+# product runs in x's dtype, whatever autocast the caller runs under.  Their
+# backward is one: it recomputes the columns (no columns are saved), takes
+# d_cols = d_out @ W^T and dW = cols^T @ d_out by ``torch.matmul`` in x's
+# dtype, then the gather backward.
+def _layer_plain(x, offsets, mask, weight, stride):
+    with torch.autocast(x.device.type, enabled=False):
+        return deform_conv2d_plain(x, offsets, mask, weight, stride)
 
-    @staticmethod
-    def forward(ctx, x, offsets, mask, weight, stride):
-        ctx.stride = stride
-        ctx.save_for_backward(x, offsets, mask, weight)
-        # the product runs in x's dtype, whatever autocast the caller runs under
-        with torch.autocast(x.device.type, enabled=False):
-            if x.device.type == "cpu":
-                return deform_conv2d_plain(x, offsets, mask, weight, stride)
-            if uses_fused_kernel(x.dtype, weight.shape[-1]):
-                return _fused_cuda(x, offsets, mask, weight, stride)
-            return _product(_forward_cuda(x, offsets, mask, stride), weight)
 
-    @staticmethod
-    def backward(ctx, d_out):
-        x, offsets, mask, weight = ctx.saved_tensors
-        cpu = x.device.type == "cpu"
-        cols = (deform_conv_sample_plain if cpu else _forward_cuda)(x, offsets, mask, ctx.stride)
+def _layer_fake(x, offsets, mask, weight, stride):
+    B, Ho, Wo, C = _sample_fake_shape(x, offsets, mask, stride)
+    return x.new_empty((B, Ho, Wo, _kernel_matrix(weight, C).shape[1]))
+
+
+@torch.library.custom_op("salience_detr::deform_conv_fused", mutates_args=(), device_types="cpu",
+                         schema="(Tensor x, Tensor offsets, Tensor mask, Tensor weight, int stride) -> Tensor")
+def deform_conv_fused_op(x, offsets, mask, weight, stride):
+    return _layer_plain(x, offsets, mask, weight, stride)
+
+
+@deform_conv_fused_op.register_kernel("cuda")
+def _deform_conv_fused_op_cuda(x, offsets, mask, weight, stride):
+    return _fused_cuda(x, offsets, mask, weight, stride)
+
+
+@torch.library.custom_op("salience_detr::deform_conv_unfused", mutates_args=(), device_types="cpu",
+                         schema="(Tensor x, Tensor offsets, Tensor mask, Tensor weight, int stride) -> Tensor")
+def deform_conv_unfused_op(x, offsets, mask, weight, stride):
+    return _layer_plain(x, offsets, mask, weight, stride)
+
+
+@deform_conv_unfused_op.register_kernel("cuda")
+def _deform_conv_unfused_op_cuda(x, offsets, mask, weight, stride):
+    with torch.autocast("cuda", enabled=False):
+        return _product(_forward_cuda(x, offsets, mask, stride), weight)
+
+
+def _layer_setup_context(ctx, inputs, output):
+    x, offsets, mask, weight, stride = inputs
+    ctx.stride = stride
+    ctx.save_for_backward(x, offsets, mask, weight)
+
+
+def _layer_backward(ctx, d_out):
+    x, offsets, mask, weight = ctx.saved_tensors
+    with torch.autocast(x.device.type, enabled=False):
+        cols = deform_conv_columns_op(x, offsets, mask, ctx.stride)
         B, Ho, Wo, _, C = cols.shape
         w = _kernel_matrix(weight, C).to(x.dtype)
         g = d_out.reshape(B * Ho * Wo, -1).to(x.dtype)
@@ -362,10 +457,22 @@ class _DeformConv2d(torch.autograd.Function):
             d_w = torch.matmul(cols.reshape(B * Ho * Wo, TAPS * C).t(), g).reshape(weight.shape).to(weight.dtype)
         del cols
         d_cols = torch.matmul(g, w.t()).reshape(B, Ho, Wo, TAPS, C)
-        backward = deform_conv_sample_backward_plain if cpu else _backward_cuda
-        d_x, d_off, d_mask = backward(x, offsets, mask, ctx.stride, d_cols, need_x=ctx.needs_input_grad[0])
-        grads = (d_x, d_off, d_mask)
-        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), d_w, None)
+        grads = deform_conv_backward_op(x, offsets, mask, d_cols, ctx.stride, ctx.needs_input_grad[0])
+    return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), d_w, None)
+
+
+def deform_conv2d_flops(x_shape, offsets_shape, mask_shape, weight_shape, *args, out_shape=None, **kwargs) -> int:
+    """FLOPs of the layer: the product, 2 B Ho Wo 9 Cin F, plus its
+    sampling (:func:`deform_conv_columns_flops`)."""
+    B, Ho, Wo, _ = offsets_shape
+    return 2 * B * Ho * Wo * TAPS * x_shape[3] * weight_shape[2] + deform_conv_columns_flops(x_shape, offsets_shape)
+
+
+for _op in (deform_conv_fused_op, deform_conv_unfused_op):
+    _op.register_fake(_layer_fake)
+    _op.register_autograd(_layer_backward, setup_context=_layer_setup_context)
+register_flop_formula(torch.ops.salience_detr.deform_conv_fused)(deform_conv2d_flops)
+register_flop_formula(torch.ops.salience_detr.deform_conv_unfused)(deform_conv2d_flops)
 
 
 def deform_conv2d(
@@ -374,21 +481,22 @@ def deform_conv2d(
     """The differentiable DCNv2 layer; same contract as
     :func:`deform_conv2d_plain`, the output in x's dtype.
 
-    The forward's route is chosen by the tensors' device, x's dtype and the
-    kernel's F alone (:func:`uses_fused_kernel`), never on a failure:
+    The route is one of two operators, chosen by x's dtype and the kernel's
+    F alone (:func:`uses_fused_kernel`; static when ``torch.export`` traces),
+    never on a failure; on CPU tensors each is :func:`deform_conv2d_plain`:
 
-    * CPU tensors: :func:`deform_conv2d_plain`;
-    * CUDA, x bfloat16 or float16 (serving and training under autocast) and
-      F a multiple of 8 up to :data:`FUSED_MAX_F`: the fused kernel
-      (``csrc/deform_conv_gemm.cu``, counted as ``deform_conv_fused``), the
-      sampling and the product on the tensor cores (wgmma, its loads and
-      sums in warpgroups of their own), no columns written;
-    * CUDA, any other layer (x float32, or F above 128 or not a multiple of
-      8): the columns kernel (counted as ``deform_conv``), then
-      ``torch.matmul`` in x's dtype.  At F = 256 and 512 (R50-DCN's stages
-      3-4) this is faster than the fused kernel on an H100: the fused
-      kernel's tiles read W's rows again, as much traffic as the corners,
-      where cuBLAS reads the columns once.
+    * x bfloat16 or float16 (serving and training under autocast) and F a
+      multiple of 8 up to :data:`FUSED_MAX_F`: ``salience_detr::deform_conv_fused``,
+      on CUDA the fused kernel (``csrc/deform_conv_gemm.cu``, counted as
+      ``deform_conv_fused``), the sampling and the product on the tensor
+      cores (wgmma, its loads and sums in warpgroups of their own), no
+      columns written;
+    * any other layer (x float32, or F above 128 or not a multiple of 8):
+      ``salience_detr::deform_conv_unfused``, on CUDA the columns kernel
+      (counted as ``deform_conv``), then ``torch.matmul`` in x's dtype.  At
+      F = 256 and 512 (R50-DCN's stages 3-4) this is faster than the fused
+      kernel on an H100: the fused kernel's tiles read W's rows again, as
+      much traffic as the corners, where cuBLAS reads the columns once.
 
     Both CUDA routes take Cin in (32, 64, 128) or a multiple of 256, the
     columns kernel's set, which the backward's recompute also needs.
@@ -399,4 +507,5 @@ def deform_conv2d(
     its gradient comes back in its own dtype, as do those of offsets and
     mask.
     """
-    return _DeformConv2d.apply(x, offsets, mask, weight, int(stride))
+    op = deform_conv_fused_op if uses_fused_kernel(x.dtype, weight.shape[-1]) else deform_conv_unfused_op
+    return op(x, offsets, mask, weight, int(stride))

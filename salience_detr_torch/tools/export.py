@@ -16,12 +16,17 @@ and padding onto the canvas stay on the host.  On CUDA the forward runs in
 the config's dtype under autocast, as the eval step does (export captures
 the autocast region); on the CPU in float32.
 
-The kernels on this path are registered operators
+The kernels of every config are registered operators
 (``torch.ops.salience_detr.ms_deform_attn``, ``grid_nms_topk`` and, with
-PostProcess's NMS filter on, ``nms_keep_mask``), so the graph calls them and
-a loaded program launches the kernels on the card; ``import
-salience_detr_torch`` registers them, which is all a process needs before
-``torch.export.load``.  ``--checkpoint`` takes the port's state dict (or a
+PostProcess's NMS filter on, ``nms_keep_mask``; R50-DCN's
+``deform_conv_fused`` and ``deform_conv_unfused``; the int8 encoder's
+``q8_quantize`` and ``q8_sample``), so the graph calls them and a loaded
+program launches the kernels on the card; ``import salience_detr_torch``
+registers them, which is all a process needs before ``torch.export.load``.
+As in the JAX tool, ``MSDA_GATHER_QUANT=int8`` is read at trace time: a
+head-shared encoder then bakes the int8 sampling into the program, and the
+saved file records which sampling it holds (:func:`load_program`; the
+tool prints it).  ``--checkpoint`` takes the port's state dict (or a
 training checkpoint's ``"model"``).  ``--verify`` (on by default) loads the
 saved program and holds it against the live model on seeded inputs at rtol
 1e-3 / atol 1e-5.  The tool runs on the card unless ``--device cpu``.
@@ -33,7 +38,7 @@ import argparse
 import os
 import time
 from pathlib import Path
-from typing import Dict, List, Sequence, Union
+from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -100,6 +105,30 @@ def kernel_ops(program: torch.export.ExportedProgram) -> List[str]:
     return [t for t in call_targets(program) if t.startswith("salience_detr.")]
 
 
+SAMPLING_FILE = "encoder_sampling"  # the saved program's record of its encoder sampling
+
+
+def encoder_sampling(program: torch.export.ExportedProgram) -> str:
+    """The encoder sampling a traced program holds: "int8" where it calls
+    the int8 operators (``MSDA_GATHER_QUANT=int8`` at trace time, a
+    head-shared encoder), else "float"."""
+    return "int8" if "salience_detr.q8_sample.default" in call_targets(program) else "float"
+
+
+def save_program(program: torch.export.ExportedProgram, path) -> None:
+    """``torch.export.save`` with the program's encoder sampling recorded
+    beside it."""
+    torch.export.save(program, str(path), extra_files={SAMPLING_FILE: encoder_sampling(program)})
+
+
+def load_program(path) -> Tuple[torch.export.ExportedProgram, str]:
+    """A saved program and the encoder sampling it holds ("float" for a
+    file saved without the record)."""
+    extra = {SAMPLING_FILE: ""}
+    program = torch.export.load(str(path), extra_files=extra)
+    return program, extra[SAMPLING_FILE] or "float"
+
+
 def largest_gaps(got, want) -> Dict[str, float]:
     """Output by output (a dict's keys, or positions), the largest of
     |got - want| - rtol |want| over the elements: at most ATOL where the two
@@ -134,13 +163,15 @@ class ExportedDetector:
     exported on, and per image the detections that are ``valid`` and score
     above ``score_threshold``, in original-image coordinates.  ``import
     salience_detr_torch`` (done here) registers the kernels' operators the
-    program calls."""
+    program calls; ``sampling`` is the encoder sampling the program holds."""
 
     def __init__(self, path_or_program: Union[str, os.PathLike, torch.export.ExportedProgram],
                  min_size: int = 800, max_size: int = 1333, score_threshold: float = 0.0):
         program = path_or_program
-        if not isinstance(program, torch.export.ExportedProgram):
-            program = torch.export.load(str(program))
+        if isinstance(program, torch.export.ExportedProgram):
+            self.sampling = encoder_sampling(program)
+        else:
+            program, self.sampling = load_program(program)
         self.program = program
         names = set(program.graph_signature.user_inputs)
         specs = [n.meta["val"] for n in program.graph.nodes if n.op == "placeholder" and n.name in names]
@@ -219,14 +250,15 @@ def main(argv=None):
     program = export_detector(model, postprocess, cfg, args.batch, args.height, args.width, args.with_postprocess)
     seconds = time.perf_counter() - t0
     Path(args.output).parent.mkdir(parents=True, exist_ok=True)
-    torch.export.save(program, args.output)
+    save_program(program, args.output)
     print(f"exported {os.path.getsize(args.output) / 2**20:.1f} MiB program to {args.output} in {seconds:.1f} s; "
-          f"kernel operators {kernel_ops(program)}")
+          f"kernel operators {kernel_ops(program)}; encoder sampling {encoder_sampling(program)} "
+          f"(MSDA_GATHER_QUANT={os.environ.get('MSDA_GATHER_QUANT', 'none')} at trace time)")
     if args.verify:
         live = DetectorProgram(model, postprocess, cfg, args.with_postprocess).eval()
         device = next(model.parameters()).device
         inputs = example_inputs(args.batch, args.height, args.width, args.with_postprocess, device, seed=1)
-        verify(torch.export.load(args.output), live, inputs)
+        verify(load_program(args.output)[0], live, inputs)
         print(f"verification passed (rtol={RTOL:g}, atol={ATOL:g})")
 
 

@@ -99,9 +99,6 @@ def main(argv=None) -> Dict:
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     overlay = args.variant == "hybrid" and not args.no_int8_overlay
-    if overlay and args.mixed_precision == "fp16":
-        raise SystemExit("the int8 encoder sampling takes float32 or bf16 values: pass --no-int8-overlay with "
-                         "--mixed-precision fp16")
     device = require_device(args.device)
 
     from salience_detr_torch.data.coco import CocoDetection

@@ -1088,7 +1088,7 @@ def test_deform_conv_kernels_reject_what_they_cannot_take(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("H,C", [(8, 256), (4, 32), (4, 128), (1, 256), (16, 256), (32, 256), (2, 64), (8, 64),
                                  (8, 512), (1, 16), (32, 128), (8, 32), (32, 64), (32, 32)])
 def test_msda_q8_kernels_match_plain(cuda, dtype, H, C):
@@ -1123,6 +1123,73 @@ def test_msda_q8_kernels_match_plain(cuda, dtype, H, C):
     assert torch.equal(ms_deform_attn_q8(value, levels, locs, w), ms_deform_attn_q8_plain(value, levels, locs, w))
     assert native.LAUNCHES["msda_q8_quantize"] == before["msda_q8_quantize"] + 2
     assert native.LAUNCHES["msda_q8_sample"] == before["msda_q8_sample"] + 2
+
+
+@pytest.mark.gpu
+def test_msda_q8_float16_rounds_subnormal_corner_weights_as_plain(cuda):
+    """ROADMAP C-29: points 2^-10 to 2^-9 of a pixel past a pixel centre on
+    both axes give corner weights of about 1e-6, float16 subnormals; the
+    float16 sampler rounds them as ``.to(torch.float16)`` does, bit for bit
+    with the plain version, through the registered operators."""
+    from salience_detr_torch.ops.deform_attn import ms_deform_attn_q8, ms_deform_attn_q8_plain
+
+    levels = LEVELS[:3] + [(4, 1)]
+    g = torch.Generator().manual_seed(16)
+    B, Q, P, H, C = 2, 37, 4, 8, 256
+    value = (torch.randn(B, sum(h * w for h, w in levels), C, generator=g) * 3).to(cuda, torch.float16)
+    locs = torch.empty(B, Q, len(levels), P, 2)
+    for lvl, (h, w_) in enumerate(levels):
+        for axis, size in ((0, w_), (1, h)):
+            pixel = torch.randint(-1, size + 1, (B, Q, P), generator=g).float()
+            frac = 2.0 ** -10 * (1 + torch.rand(B, Q, P, generator=g))
+            locs[:, :, lvl, :, axis] = (pixel + frac + 0.5) / size
+    w = torch.rand(B, Q, H, len(levels), P, generator=g)
+    w = (w / w.sum((-2, -1), keepdim=True)).to(cuda, torch.float16)
+    locs = locs.to(cuda)
+    before = dict(native.LAUNCHES)
+    got = ms_deform_attn_q8(value, levels, locs, w)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float16 and torch.equal(got, ms_deform_attn_q8_plain(value, levels, locs, w))
+    assert native.LAUNCHES["msda_q8_sample"] == before["msda_q8_sample"] + 1
+
+
+@pytest.mark.gpu
+def test_b6_b8_operators_launch_the_kernels(cuda):
+    """The registered operators of B6 and B8 on CUDA tensors launch their
+    kernels (one count each) and equal the plain versions as the wrappers'
+    tests hold them: B8 bitwise, B6 columns bitwise, the fused layer within
+    one bf16 ulp of the plain layer (its product runs on the tensor cores)."""
+    from salience_detr_torch.ops import deform_attn, deform_conv
+
+    ops = torch.ops.salience_detr
+    g = torch.Generator().manual_seed(17)
+    x = torch.randn(2, 20, 24, 128, generator=g).to(cuda, torch.bfloat16)
+    off = torch.randn(2, 20, 24, 18, generator=g).to(cuda)
+    msk = torch.rand(2, 20, 24, 9, generator=g).to(cuda)
+    weight = (torch.randn(9, 128, 128, generator=g) / 32).to(cuda)
+    before = dict(native.LAUNCHES)
+    cols = ops.deform_conv_columns(x, off, msk, 1)
+    fused = ops.deform_conv_fused(x, off, msk, weight, 1)
+    unfused = ops.deform_conv_unfused(x, off, msk, weight, 1)
+    d_x, d_off, d_mask = ops.deform_conv_backward(x, off, msk, cols, 1, True)
+    torch.cuda.synchronize()
+    assert torch.equal(cols, deform_conv.deform_conv_sample_plain(x, off, msk, 1))
+    plain = deform_conv.deform_conv2d_plain(x, off, msk, weight, 1).float()
+    assert torch.allclose(fused.float(), plain, atol=4e-3, rtol=1e-2)
+    assert torch.allclose(unfused.float(), plain, atol=4e-3, rtol=1e-2)
+    assert d_x.shape == x.shape and d_off.shape == off.shape and d_mask.shape == msk.shape
+    value = torch.randn(2, sum(h * w for h, w in LEVELS), 256, generator=g).to(cuda, torch.bfloat16)
+    locs = torch.rand(2, 50, len(LEVELS), 4, 2, generator=g).to(cuda)
+    w = torch.rand(2, 50, 8, len(LEVELS), 4, generator=g).to(cuda, torch.bfloat16)
+    table, scale = ops.q8_quantize(value)
+    out = ops.q8_sample(table, scale, locs, w, [n for hw in LEVELS for n in hw], torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(out, deform_attn.q8_sample_plain(*deform_attn.q8_quantize_plain(value), LEVELS, locs, w,
+                                                        torch.bfloat16))
+    after = {k: native.LAUNCHES[k] - before[k] for k in native.LAUNCHES}
+    assert {k: v for k, v in after.items() if v} == {"deform_conv": 2, "deform_conv_fused": 1,
+                                                     "deform_conv_backward": 1, "msda_q8_quantize": 1,
+                                                     "msda_q8_sample": 1}
 
 
 @pytest.mark.gpu

@@ -8,7 +8,8 @@ power-of-two level sizes and dyadic pixel positions and weights, so every
 product and sum is exact), including points outside and on the borders of
 their levels and 1-wide levels; within rtol 1e-5 (atol 1e-6) of it on random
 float32 inputs; within one bf16 ulp of it in bfloat16 (both round the same
-operands; their f32 sums may differ in order); the quantisation error bound
+operands; their f32 sums may differ in order); equal to it in float16, also
+where the corner weights are float16 subnormals; the quantisation error bound
 scale / 2 against the exact head-shared MSDA; the int8 table equal to the
 JAX package's; and the module's routing: int8 in eval at G = 1 with the
 switch set, equal to the JAX module under the same switch (rtol 1e-5),
@@ -97,6 +98,41 @@ def test_plain_matches_jax_in_bfloat16():
     got = ms_deform_attn_q8_plain(t(value).bfloat16(), LEVELS, t(locs), t(w).bfloat16())
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7, atol=1e-6)
+
+
+def subnormal_corner_inputs(seed):
+    """Random inputs whose points sit 2^-10 to 2^-9 of a pixel past a pixel
+    centre on both axes, so that a corner weight wx * wy of about 1e-6 is
+    a subnormal float16 (below 2^-14) where it is a normal bfloat16."""
+    value, locs, w = random_inputs(seed)
+    rng = np.random.default_rng(seed + 100)
+    for lvl, (h, w_) in enumerate(LEVELS):
+        for axis, size in ((0, w_), (1, h)):
+            pixel = rng.integers(-1, size + 1, size=locs.shape[:2] + locs.shape[3:4])
+            frac = rng.uniform(2.0 ** -10, 2.0 ** -9, size=pixel.shape)
+            locs[:, :, lvl, :, axis] = (pixel + frac + 0.5) / size
+    return value, locs, w
+
+
+@pytest.mark.parametrize("case", ["random", "subnormal corner weights"])
+def test_plain_matches_jax_in_float16(case):
+    """ROADMAP C-29: the int8 core under a float16 model.  The JAX core
+    reduces in the value's dtype (float16 here) and the plain version rounds
+    the same operands to float16, subnormals included: equal bit for bit
+    on these inputs."""
+    value, locs, w = random_inputs(3) if case == "random" else subnormal_corner_inputs(5)
+    if case != "random":
+        x = locs[..., 0] * np.array([w_ for _, w_ in LEVELS], np.float32)[:, None] - 0.5
+        y = locs[..., 1] * np.array([h for h, _ in LEVELS], np.float32)[:, None] - 0.5
+        corner = (x - np.floor(x)) * (y - np.floor(y))
+        assert ((corner > 0) & (corner < 2.0 ** -14)).mean() > 0.9
+    want = np.asarray(ms_deform_attn_core_shared_q8(
+        jnp.asarray(value, jnp.float16), LEVELS, jnp.asarray(locs), jnp.asarray(w, jnp.float16), 4
+    ).astype(jnp.float32))
+    got = ms_deform_attn_q8_plain(t(value).half(), LEVELS, t(locs), t(w).half())
+    assert got.dtype == torch.float16
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    assert torch.equal(ms_deform_attn_q8(t(value).half(), LEVELS, t(locs), t(w).half()), got)
 
 
 def test_quantisation_matches_jax_and_its_error_bound():

@@ -13,6 +13,12 @@ float64 (exact for these operands) and compared with their float32 rounding.
   range, but not below it: a seeded sample with the extremes finds inexact
   products there, where a fused multiply-add would round differently from a
   multiply then an add.  The kernel keeps that multiply and add apart.
+* In float16 output (ROADMAP C-29) every int8 value times every float16
+  value in [0, 1] (15,361 values, the subnormals from 2^-24 included) is
+  exact in float32 too, and so is every product of two finite float16
+  values (at most 22 significant bits, at least 2^-48 in magnitude): the
+  sampler's fused corner add rounds as the plain version's multiply, then
+  add.
 """
 
 import numpy as np
@@ -68,3 +74,29 @@ def test_bf16_times_bf16_is_exact_only_in_the_normal_range():
     # one of them: the smallest bf16 subnormal times 1.0078125 * 2^-20
     small = bf16_values([0x0001])[0] * bf16_values([0x3581])[0]
     assert not exact_in_f32(np.array([small]))[0]
+
+
+def f16_values(bits):
+    """float16 bit patterns (uint16) -> float64 values."""
+    return np.asarray(bits, np.uint16).view(np.float16).astype(np.float64)
+
+
+def test_int8_times_unit_f16_is_exact_in_float32():
+    w = f16_values(np.arange(0, 0x3C01))  # +0 ... 1.0, subnormals included
+    assert w.min() == 0.0 and w.max() == 1.0 and len(w) == 15361 and w[1] == 2.0 ** -24
+    v = np.arange(-128, 128, dtype=np.float64)
+    p = w[:, None] * v[None, :]
+    assert exact_in_f32(p).all()
+    assert np.abs(p[p != 0]).min() == 2.0 ** -24  # inside the float32 normal range
+
+
+def test_f16_times_f16_is_exact_in_float32():
+    bits = np.arange(0, 1 << 16, dtype=np.uint32)
+    finite = bits[((bits >> 10) & 0x1F) != 0x1F]
+    values = f16_values(finite)
+    rng = np.random.default_rng(1)
+    a = np.concatenate([values, rng.choice(values, 2_000_000)])
+    b = np.concatenate([rng.choice(values, len(values)), rng.choice(values, 2_000_000)])
+    p = a * b
+    assert exact_in_f32(p).all()
+    assert np.abs(p[p != 0]).min() >= 2.0 ** -48 > F32_TINY

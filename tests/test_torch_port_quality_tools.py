@@ -203,9 +203,17 @@ def test_quality_campaign_appends_its_line(tmp_path, monkeypatch):
     assert "int8_curve" not in result and len(out.read_text().splitlines()) == 2
 
 
-def test_quality_campaign_refuses_the_int8_overlay_under_fp16():
-    """B8 samples float32 or bf16 values (ROADMAP C-29): a hybrid fp16 run
-    asks for --no-int8-overlay before it trains."""
-    with pytest.raises(SystemExit, match="no-int8-overlay"):
-        quality_campaign.main(["--device", "cpu", "--variant", "hybrid", "--seed", "0",
-                               "--mixed-precision", "fp16"])
+def test_quality_campaign_runs_the_int8_overlay_under_fp16(tmp_path, monkeypatch):
+    """B8 takes float16 values (ROADMAP C-29, repaired): a hybrid run under
+    ``--mixed-precision fp16`` evaluates its weights with the int8 overlay
+    too.  On the CPU the campaign's model runs in float32 (the fp16 int8
+    core itself is held against the JAX core in test_torch_port_msda_q8.py)."""
+    out = tmp_path / "runs.jsonl"
+    monkeypatch.setenv("MSDA_GATHER_QUANT", "none")
+    result = quality_campaign.main(["--device", "cpu", "--variant", "hybrid", "--seed", "0", "--steps", "1",
+                                    "--eval-every", "1", "--canvas", "64", "96", "--n-train", "2", "--n-val", "2",
+                                    "--workdir", str(tmp_path / "data"), "--out", str(out),
+                                    "--mixed-precision", "fp16"])
+    assert [c["step"] for c in result["int8_curve"]] == [1]
+    assert set(result["launches_per_eval_forward"]) == {"none", "int8"}
+    assert json.loads(out.read_text().splitlines()[0]) == result

@@ -14,6 +14,8 @@ gradients (ROADMAP C-15); the port's, like the clip of both, counts the
 trainable ones only.  The JAX side here reads the norm the clip sees through
 a probe chained in front of its optimizer."""
 
+from typing import NamedTuple
+
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp
@@ -27,7 +29,7 @@ from salience_detr_tpu.data import loader as jloader
 from salience_detr_tpu.data import transforms as jt
 from salience_detr_tpu.engine import optim as jax_optim
 from salience_detr_tpu.models.backbones.resnet import frozen_param_predicate
-from salience_detr_tpu.models.bricks import denoising as jax_dn
+from salience_detr_tpu.models.bricks import denoising as jax_dn  # noqa: F401 (tests/test_torch_port_ddp_step.py)
 from salience_detr_tpu.models.bricks.criterion import default_weight_dict as jax_weight_dict
 from salience_detr_tpu.models.detectors.salience_detr import normalize_images as jax_normalize
 from salience_detr_tpu.models.factory import build_salience_detr as build_jax
@@ -74,9 +76,28 @@ def load_batches(root, seed, count, batch=BATCH):
     return [w for w, _ in pairs], [g for _, g in pairs], len(port_loader)
 
 
+class NormProbeState(NamedTuple):
+    norm: jnp.ndarray  # the trainable gradients' global norm at the last update
+
+
+class RootDenoisingRng(fnn.Module):
+    """The key ``make_rng("denoising")`` gives at the root scope of an apply,
+    which is where the detector draws its CDN key: flax derives it from the
+    apply's key, the scope path and the call count alone."""
+
+    @fnn.compact
+    def __call__(self):
+        return self.make_rng("denoising")
+
+
 class JaxSide:
-    """The JAX train step from ``variables``, capturing each micro-batch's
-    CDN draws and the trainable gradients' norm."""
+    """The JAX train step from ``variables``, with each micro-batch's CDN
+    draws and the trainable gradients' norm.  Neither leaves the compiled
+    step through a host callback, so the persistent compilation cache keeps
+    the step (ROADMAP C-31): the norm is the state of a probe chained in
+    front of the optimizer, and the draws are made again outside the step
+    from its key, split as ``make_train_step`` splits it (per micro-batch,
+    then the denoising half of the model's keys)."""
 
     def __init__(self, jcfg, variables, steps_per_epoch, accumulate_steps):
         self.model, crit, sal, _ = build_jax(jcfg)
@@ -88,30 +109,41 @@ class JaxSide:
         trainable = jax.tree_util.tree_map_with_path(
             lambda p, _: not frozen(jax_optim._strip_backbone(p)), params)
         self.draws, self.norms = [], []
+        self.accumulate_steps = accumulate_steps
+        self.cdn = self.model.bind({"params": params}).denoising_generator
 
         def probe_update(grads, state, params=None):
             kept = jax.tree.map(lambda g, t: g if t else jnp.zeros_like(g), grads, trainable)
-            jax.debug.callback(lambda n: self.norms.append(float(n)), optax.global_norm(kept))
-            return grads, state
+            return grads, NormProbeState(optax.global_norm(kept))
 
-        tx = optax.chain(optax.GradientTransformation(lambda p: optax.EmptyState(), probe_update), tx)
+        probe = optax.GradientTransformation(lambda p: NormProbeState(jnp.zeros((), jnp.float32)), probe_update)
+        tx = optax.chain(probe, tx)
         self.state = TrainState(step=jnp.zeros((), jnp.int32), params=params, frozen=variables["frozen"],
                                 batch_stats=variables["batch_stats"], opt_state=tx.init(params))
         self.step_fn = jax_make_train_step(self.model, crit, sal, tx, jax_weight_dict(jcfg.num_decoder_layers),
                                            donate=False, accumulate_steps=accumulate_steps)
 
     def interceptor(self, next_fun, args, kwargs, context):
-        if isinstance(context.module, jax_dn.GenerateCDNQueries) and context.method_name == "__call__":
-            jax.debug.callback(lambda *a: self.draws.append([np.asarray(x) for x in a]),
-                               *jax_cdn_draws(context.module, args[3], args[0].shape[0]), ordered=True)
         return next_fun(*args, **kwargs)
+
+    def cdn_draws(self, batch, key):
+        """The CDN draws of each micro-batch of a step on ``key``."""
+        A = max(self.accumulate_steps, 1)
+        keys = [key] if A == 1 else list(jax.random.split(key, A))
+        micro = len(batch["labels"]) // A
+        return [[np.asarray(x) for x in jax_cdn_draws(
+            self.cdn, RootDenoisingRng().apply({}, rngs={"denoising": jax.random.split(k)[0]}), micro)]
+            for k in keys]
 
     def step(self, batch, key):
         jbatch = {k: jnp.asarray(batch[k]) for k in ("image_sizes", "boxes", "labels", "gt_valid")}
         jbatch["images"] = jax_normalize(jnp.asarray(batch["images"], jnp.float32) / 255.0)
+        key = jax.random.PRNGKey(key)
         with fnn.intercept_methods(self.interceptor):
-            self.state, metrics = self.step_fn(self.state, jbatch, jax.random.PRNGKey(key))
+            self.state, metrics = self.step_fn(self.state, jbatch, key)
         jax.effects_barrier()
+        self.draws += self.cdn_draws(batch, key)
+        self.norms.append(float(self.state.opt_state[0].norm))
         return {k: float(v) for k, v in metrics.items()}
 
     def state_dict(self, tcfg):
