@@ -43,6 +43,7 @@ from salience_detr_torch.ops.misc import (
 )
 from salience_detr_torch.ops.nms import grid_nms_topk
 from salience_detr_torch.ops.pos_encoding import get_sine_pos_embed
+from salience_detr_torch.utils.profiling import scope
 
 LN_EPS = 1e-5
 
@@ -315,14 +316,16 @@ class SalienceTransformer(nn.Module):
         C = self.embed_dim
         L = len(spatial_shapes)
 
-        feat_flatten = torch.cat([f.flatten(2).transpose(1, 2) for f in multi_level_feats], 1)
-        mask_flatten = flatten_multi_level(multi_level_masks)
-        lvl_pos = flatten_multi_level(
-            [p + self.level_embeds[i].to(p.dtype) for i, p in enumerate(multi_level_pos)]
-        )
-        backbone_output_memory, _ = self._gen_encoder_output_proposals(
-            feat_flatten + lvl_pos, mask_flatten, spatial_shapes, valid_hw
-        )
+        with scope("flatten_inputs"):
+            feat_flatten = torch.cat([f.flatten(2).transpose(1, 2) for f in multi_level_feats], 1)
+            mask_flatten = flatten_multi_level(multi_level_masks)
+            lvl_pos = flatten_multi_level(
+                [p + self.level_embeds[i].to(p.dtype) for i, p in enumerate(multi_level_pos)]
+            )
+        with scope("backbone_memory_proj"):
+            backbone_output_memory, _ = self._gen_encoder_output_proposals(
+                feat_flatten + lvl_pos, mask_flatten, spatial_shapes, valid_hw
+            )
 
         # static per-level budgets from the canvas; per-image focus counts
         level_token_nums = [max(int(sz * r), 1) for sz, r in zip(level_sizes, self.level_filter_ratio)]
@@ -333,31 +336,33 @@ class SalienceTransformer(nn.Module):
         # high -> low level salience cascade
         selected_score, selected_inds, salience_score = [], [], [None] * L
         score = None
-        for level_idx in range(L - 1, -1, -1):
-            h, w = spatial_shapes[level_idx]
-            s0, s1 = starts[level_idx], starts[level_idx + 1]
-            level_memory = backbone_output_memory[:, s0:s1]
-            mask = mask_flatten[:, s0:s1]
-            if level_idx != L - 1:
-                up = bilinear_resize_align_corners(score, (h, w)).reshape(B, h * w, 1)
-                level_memory = level_memory + level_memory * up * self.alpha[level_idx].to(level_memory.dtype)
-            score_tok = self.enc_mask_predictor(level_memory)  # (B, hw, 1)
-            valid_score = torch.where(mask, score_tok.min(), score_tok[..., 0])
-            score = score_tok.reshape(B, h, w, 1)
-            level_score, level_inds = stable_topk(valid_score, min(level_token_nums[level_idx], h * w))
-            selected_inds.append(level_inds + s0)
-            selected_score.append(level_score)
-            salience_score[level_idx] = score
+        with scope("salience_cascade"):
+            for level_idx in range(L - 1, -1, -1):
+                h, w = spatial_shapes[level_idx]
+                s0, s1 = starts[level_idx], starts[level_idx + 1]
+                level_memory = backbone_output_memory[:, s0:s1]
+                mask = mask_flatten[:, s0:s1]
+                if level_idx != L - 1:
+                    up = bilinear_resize_align_corners(score, (h, w)).reshape(B, h * w, 1)
+                    level_memory = level_memory + level_memory * up * self.alpha[level_idx].to(level_memory.dtype)
+                score_tok = self.enc_mask_predictor(level_memory)  # (B, hw, 1)
+                valid_score = torch.where(mask, score_tok.min(), score_tok[..., 0])
+                score = score_tok.reshape(B, h, w, 1)
+                level_score, level_inds = stable_topk(valid_score, min(level_token_nums[level_idx], h * w))
+                selected_inds.append(level_inds + s0)
+                selected_score.append(level_score)
+                salience_score[level_idx] = score
 
         # global sort and per-layer prefixes
-        selected_score = torch.cat(selected_score[::-1], 1)
-        selected_inds = torch.cat(selected_inds[::-1], 1)
-        _, order = stable_topk(selected_score, selected_score.shape[1])
-        selected_inds = selected_inds.gather(1, order)
-        K = selected_inds.shape[1]
-        layer_ks = [max(int(K * r), 1) for r in self.layer_filter_ratio]
-        foreground_score = flatten_multi_level([s[..., 0] for s in salience_score])
-        foreground_score = torch.where(mask_flatten, foreground_score.min(), foreground_score)
+        with scope("salience_sort"):
+            selected_score = torch.cat(selected_score[::-1], 1)
+            selected_inds = torch.cat(selected_inds[::-1], 1)
+            _, order = stable_topk(selected_score, selected_score.shape[1])
+            selected_inds = selected_inds.gather(1, order)
+            K = selected_inds.shape[1]
+            layer_ks = [max(int(K * r), 1) for r in self.layer_filter_ratio]
+            foreground_score = flatten_multi_level([s[..., 0] for s in salience_score])
+            foreground_score = torch.where(mask_flatten, foreground_score.min(), foreground_score)
 
         # encoder: deformable attention samples the ORIGINAL feat_flatten in
         # every layer; updated memory is only seen through the gathered queries
@@ -365,25 +370,27 @@ class SalienceTransformer(nn.Module):
         output = feat_flatten
         last_inds = None
         for layer_id, layer in enumerate(self.encoder.layers):
-            inds = selected_inds[:, : layer_ks[layer_id]]
-            upd = torch.arange(inds.shape[1], device=inds.device)[None] < focus_token_nums[:, None]
-            last_inds = inds
-            query = _take(output, inds)
-            query_pos = _take(lvl_pos, inds)
-            fg_pre = foreground_score.gather(1, inds)
-            ref = _take(enc_ref_points, inds).reshape(B, -1, L, 2)
-            score_tgt = self.encoder_class_head(query)
-            query = layer(
-                query, query_pos, feat_flatten, ref, spatial_shapes, mask_flatten,
-                score_tgt, fg_pre,
-            )
-            merged = torch.where(upd[..., None], query.to(output.dtype), _take(output, inds))
-            output = output.scatter(1, inds[..., None].expand(-1, -1, C), merged)
+            with scope(f"encoder_layer_{layer_id}"):
+                inds = selected_inds[:, : layer_ks[layer_id]]
+                upd = torch.arange(inds.shape[1], device=inds.device)[None] < focus_token_nums[:, None]
+                last_inds = inds
+                query = _take(output, inds)
+                query_pos = _take(lvl_pos, inds)
+                fg_pre = foreground_score.gather(1, inds)
+                ref = _take(enc_ref_points, inds).reshape(B, -1, L, 2)
+                score_tgt = self.encoder_class_head(query)
+                query = layer(
+                    query, query_pos, feat_flatten, ref, spatial_shapes, mask_flatten,
+                    score_tgt, fg_pre,
+                )
+                merged = torch.where(upd[..., None], query.to(output.dtype), _take(output, inds))
+                output = output.scatter(1, inds[..., None].expand(-1, -1, C), merged)
 
         # background embedding for the non-foreground tokens
-        bg = self.encoder.background_embedding(spatial_shapes).to(output.dtype)
-        bg = bg[None].expand(B, -1, -1).scatter(1, last_inds[..., None].expand(-1, -1, C), 0.0)
-        memory = output + bg * (~mask_flatten[..., None])
+        with scope("background_embed"):
+            bg = self.encoder.background_embedding(spatial_shapes).to(output.dtype)
+            bg = bg[None].expand(B, -1, -1).scatter(1, last_inds[..., None].expand(-1, -1, C), 0.0)
+            memory = output + bg * (~mask_flatten[..., None])
 
         # RepVGG-PluX neck re-fusion on the 2D maps
         maps = [
@@ -393,19 +400,22 @@ class SalienceTransformer(nn.Module):
         memory = torch.cat([f.flatten(2).transpose(1, 2) for f in self.neck(maps)], 1)
 
         # two-stage proposals: top-4N tokens -> grid NMS -> N
-        output_memory, output_proposals = self._gen_encoder_output_proposals(
-            memory, mask_flatten, spatial_shapes, valid_hw
-        )
-        enc_outputs_class = self.encoder_class_head(output_memory)
-        enc_outputs_coord = (self.encoder_bbox_head(output_memory) + output_proposals).sigmoid()
+        with scope("two_stage_heads"):
+            output_memory, output_proposals = self._gen_encoder_output_proposals(
+                memory, mask_flatten, spatial_shapes, valid_hw
+            )
+            enc_outputs_class = self.encoder_class_head(output_memory)
+            enc_outputs_coord = (self.encoder_bbox_head(output_memory) + output_proposals).sigmoid()
         topk = min(self.two_stage_num_proposals * 4, S)
         num_proposals = min(self.two_stage_num_proposals, topk)
-        _, topk_index = stable_topk(enc_outputs_class.max(-1).values, topk)
-        nms_index = grid_nms_topk(
-            topk_index.to(torch.int32).contiguous(), spatial_shapes, num_proposals
-        ).long()
-        enc_class = _take(enc_outputs_class, nms_index)
-        enc_coord = _take(enc_outputs_coord, nms_index)
+        with scope("proposal_topk"):
+            _, topk_index = stable_topk(enc_outputs_class.max(-1).values, topk)
+        with scope("proposal_nms"):
+            nms_index = grid_nms_topk(
+                topk_index.to(torch.int32).contiguous(), spatial_shapes, num_proposals
+            ).long()
+            enc_class = _take(enc_outputs_class, nms_index)
+            enc_coord = _take(enc_outputs_coord, nms_index)
 
         target = self.tgt_embed.weight[None, :num_proposals].expand(B, -1, -1).to(memory.dtype)
         reference_points = enc_coord.detach()
@@ -427,20 +437,21 @@ class SalienceTransformer(nn.Module):
         outputs_classes, outputs_coords = [], []
         vr_scale = torch.cat([valid_ratios, valid_ratios], -1)[:, None]  # (B, 1, L, 4)
         for i, layer in enumerate(dec.layers):
-            ref_in = reference_points.detach()[:, :, None] * vr_scale  # (B, Q, L, 4)
-            query_sine = get_sine_pos_embed(ref_in[:, :, 0, :], num_pos_feats=self.embed_dim // 2)
-            query_pos = dec.ref_point_head(query_sine.to(query.dtype))
-            query = layer(
-                query, query_pos, ref_in, value, spatial_shapes, key_padding_mask, attn_mask
-            )
-            normed = dec.norm(query)
-            outputs_classes.append(dec.class_head[i](normed))
-            outputs_coords.append(
-                (dec.bbox_head[i](normed) + inverse_sigmoid(reference_points)).sigmoid()
-            )
-            if i == len(dec.layers) - 1:
-                break
-            reference_points = (
-                dec.bbox_head[i](query) + inverse_sigmoid(reference_points.detach())
-            ).sigmoid()
+            with scope(f"decoder_layer_{i}"):
+                ref_in = reference_points.detach()[:, :, None] * vr_scale  # (B, Q, L, 4)
+                query_sine = get_sine_pos_embed(ref_in[:, :, 0, :], num_pos_feats=self.embed_dim // 2)
+                query_pos = dec.ref_point_head(query_sine.to(query.dtype))
+                query = layer(
+                    query, query_pos, ref_in, value, spatial_shapes, key_padding_mask, attn_mask
+                )
+                normed = dec.norm(query)
+                outputs_classes.append(dec.class_head[i](normed))
+                outputs_coords.append(
+                    (dec.bbox_head[i](normed) + inverse_sigmoid(reference_points)).sigmoid()
+                )
+                if i == len(dec.layers) - 1:
+                    break
+                reference_points = (
+                    dec.bbox_head[i](query) + inverse_sigmoid(reference_points.detach())
+                ).sigmoid()
         return torch.stack(outputs_classes), torch.stack(outputs_coords)

@@ -35,6 +35,7 @@ from salience_detr_torch.models.bricks.denoising import (
 from salience_detr_torch.models.bricks.salience_transformer import SalienceTransformer
 from salience_detr_torch.ops import misc as misc_ops
 from salience_detr_torch.ops.pos_encoding import sine_position_embedding
+from salience_detr_torch.utils.profiling import scope
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -62,16 +63,17 @@ class SalienceDETR(nn.Module):
         and the matching queries (``pred_*``)."""
         canvas = tuple(images.shape[-2:])
         feats = self.neck(self.backbone(images))  # [(B, C, h, w)]
-        shapes = [tuple(f.shape[-2:]) for f in feats]
-        valid_hw = misc_ops.multi_level_valid_sizes(image_sizes, canvas, shapes)
-        masks = [misc_ops.rect_mask(v, s) for v, s in zip(valid_hw, shapes)]
-        pos_embeds = [
-            sine_position_embedding(
-                m, num_pos_feats=self.transformer.embed_dim // 2, normalize=True, offset=-0.5
-            )
-            for m in masks
-        ]
-        vr = misc_ops.valid_ratios(valid_hw, shapes)
+        with scope("masks_pos_embeds"):
+            shapes = [tuple(f.shape[-2:]) for f in feats]
+            valid_hw = misc_ops.multi_level_valid_sizes(image_sizes, canvas, shapes)
+            masks = [misc_ops.rect_mask(v, s) for v, s in zip(valid_hw, shapes)]
+            pos_embeds = [
+                sine_position_embedding(
+                    m, num_pos_feats=self.transformer.embed_dim // 2, normalize=True, offset=-0.5
+                )
+                for m in masks
+            ]
+            vr = misc_ops.valid_ratios(valid_hw, shapes)
         label_query = box_query = attn_mask = None
         if targets is not None:
             if draws is None:

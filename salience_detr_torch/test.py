@@ -34,6 +34,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from salience_detr_torch import native
 from salience_detr_torch.data.coco import CocoDetection, CocoIndex
 from salience_detr_torch.data.loader import DetectionLoader, DevicePrefetcher, to_device
 from salience_detr_torch.engine.train import evaluate
@@ -144,6 +145,7 @@ def evaluate_split(args, mesh) -> Dict[str, float]:
                               functools.partial(to_device, cfg=cfg), device)
     stats = evaluate(make_eval_step(model, postprocess, cfg.dtype), loader, evaluator, logger=logger,
                      all_gather_fn=mesh.all_gather_object if mesh.distributed else None)
+    logger.info("kernel launches: " + " ".join(f"{k}={v}" for k, v in native.LAUNCHES.items() if v))
     if args.save_results and mesh.rank == 0:
         n = save_results(evaluator, args.save_results)
         logger.info(f"Saved {n} predictions to {args.save_results}")

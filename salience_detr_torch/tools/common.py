@@ -1,6 +1,7 @@
 """What the port's user tools share: the flags that name the model (the
 card unless ``--device cpu``), the model itself through the serving
-``Predictor``, and a folder of images through the eval geometry.
+``Predictor``, a folder of images through the eval geometry, and a
+``Trainer`` with its synthetic batches at a chosen canvas.
 
 Imports torch, numpy and the port only."""
 
@@ -48,3 +49,20 @@ def folder_batches(image_dir: str, cfg: SalienceDETRConfig, device, limit: Optio
         canvas, sizes, orig = letterbox([dataset[i]["image"]], cfg, device)
         yield dataset.paths[i], {"canvas": canvas, "images": normalize_images(canvas.float() / 255.0),
                                  "image_sizes": sizes, "orig_sizes": orig}
+
+
+def synthetic_trainer(cfg: SalienceDETRConfig, device, steps: int, batch: int = 4,
+                      canvas: Optional[Tuple[int, int]] = None, mesh=None):
+    """A ``Trainer`` of ``cfg`` from seed 0 (``steps`` steps an epoch, the
+    train config's canvas unless ``canvas``) and its first ``steps``
+    synthetic batches of ``batch`` images (the gt counts ``GT_COUNTS``
+    cycled; a data-parallel rank's rows of them with ``mesh``)."""
+    from salience_detr_torch.train import GT_COUNTS, TRAIN_CONFIG, Trainer
+    from salience_detr_torch.utils.config import Config
+
+    train_cfg = Config(str(TRAIN_CONFIG)).to_dict()
+    if canvas:
+        train_cfg["train_canvas"] = list(canvas)
+    trainer = Trainer(cfg, device, seed=0, steps_per_epoch=steps, train_cfg=train_cfg, mesh=mesh)
+    counts = [GT_COUNTS[i % len(GT_COUNTS)] for i in range(batch)]
+    return trainer, list(trainer.batches(steps, seed=0, counts=counts))

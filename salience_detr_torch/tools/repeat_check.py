@@ -6,6 +6,7 @@ run computes, tensor by tensor, and compare records of several runs.
     python -m salience_detr_torch.tools.repeat_check eval --out F.json [--ops] -- <salience_detr_torch.test arguments>
     python -m salience_detr_torch.tools.repeat_check compare A.json B.json [...]
     python -m salience_detr_torch.tools.repeat_check ranks --out DIR [--world 2] [--dtype f32] [--deterministic]
+        [--model-config F] [--canvas H W] [--device cuda|cpu]
 
 * ``train``: ``--runs`` flagship ``Trainer`` steps in this process, each on
   a model built anew from seed 0 and the same synthetic batch (B=4, the
@@ -24,13 +25,17 @@ run computes, tensor by tensor, and compare records of several runs.
   its backward included, or the first batch's forward; ``compare`` then
   names the first op whose outputs differ.
 * ``ranks``: where a data-parallel step 0 parts from one process.  The
-  flagship ``Trainer``'s first step on the synthetic batch, as ``--world``
-  gloo ranks sharing card 0 and as one process on the whole batch, each
-  recording every module output of the forward whose first dimension is
-  the batch (rank 0's rows of it; larger ones as an evenly strided sample
-  of ``SAMPLED_ELEMENTS``); prints, in call order, the first module output
-  whose rows differ at all, the first beyond 1e-6 and beyond 1e-3 of its
-  largest magnitude, and the step's largest relative metric gap.
+  ``Trainer``'s first step on the synthetic batch (the flagship, or
+  ``--model-config`` on ``--canvas``), as ``--world`` gloo ranks sharing
+  card 0 (``--device cpu``: the CPU) and as one process on the whole batch,
+  each recording every module output of the forward whose first dimension
+  is the batch (rank 0's rows of it; larger ones as an evenly strided
+  sample of ``SAMPLED_ELEMENTS``) and the indices of every discrete
+  selection of the transformer (each ``stable_topk`` and the grid NMS, named
+  by its source line); prints, in call order, the first module output whose
+  rows differ at all, the first beyond 1e-6 and beyond 1e-3 of its largest
+  magnitude, the first selection that picks other indices, and the step's
+  largest relative metric gap.
 * ``compare``: what differs from the first record (an eval record's first
   module output that differs, or whether the result files do; a train
   run's metrics, gradients and parameters, every run of every file against
@@ -166,26 +171,64 @@ def eval_run(test_args: List[str], ops: bool) -> Dict:
     return {"calls": calls, "ops": recorder.ops, "stats": stats, "result_sha1": saved}
 
 
-def record_rows(world: int, dtype: torch.dtype, deterministic: bool, out: Path) -> None:
+class SelectionRecorder:
+    """While entered, records the indices (rank 0's ``rows``) of every
+    ``stable_topk`` and grid NMS call of the transformer, named by the
+    source line that made it; the functions are restored on exit."""
+
+    def __init__(self, rows: int):
+        from salience_detr_torch.models.bricks import salience_transformer
+
+        self.module, self.rows, self.selections = salience_transformer, rows, []
+        self.saved, self.recording = {}, True
+
+    def wrap(self, name):
+        real = getattr(self.module, name)
+
+        def recording(*args, **kwargs):
+            out = real(*args, **kwargs)
+            index = out[1] if isinstance(out, tuple) else out
+            if self.recording:
+                line = sys._getframe(1).f_lineno
+                self.selections.append({"name": f"{name} (salience_transformer.py:{line})",
+                                        "indices": index.detach()[:self.rows].cpu()})
+            return out
+
+        return recording
+
+    def __enter__(self):
+        for name in ("stable_topk", "grid_nms_topk"):
+            self.saved[name] = getattr(self.module, name)
+            setattr(self.module, name, self.wrap(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self.saved.items():
+            setattr(self.module, name, real)
+
+
+def record_rows(world: int, dtype: torch.dtype, deterministic: bool, out: Path, config: str = None,
+                canvas=None, device: str = "cuda") -> None:
     """One process of ``ranks``: a rank (under the launcher's variables) or
     the whole batch; rank 0 and the one process write ``out``."""
     import dataclasses
 
     from salience_detr_torch.inference import DEFAULT_CONFIG, load_config
     from salience_detr_torch.parallel.mesh import init_distributed, mean_over_ranks, shutdown
-    from salience_detr_torch.train import Trainer
+    from salience_detr_torch.tools.common import synthetic_trainer
     from salience_detr_torch.utils.env import configure_numerics
 
     configure_numerics(deterministic, exact_float32=True)
-    mesh = init_distributed("cuda", "gloo")
+    mesh = init_distributed(device, "gloo")
     try:
-        cfg = dataclasses.replace(load_config(DEFAULT_CONFIG), dtype=dtype)
-        trainer = Trainer(cfg, mesh.device, seed=0, steps_per_epoch=1, mesh=mesh if mesh.distributed else None)
-        batch = next(trainer.batches(1, seed=0))
+        cfg = dataclasses.replace(load_config(config or DEFAULT_CONFIG), dtype=dtype)
+        trainer, (batch,) = synthetic_trainer(cfg, mesh.device, 1, canvas=canvas,
+                                              mesh=mesh if mesh.distributed else None)
         rows = batch["images"].shape[0] // (1 if mesh.distributed else world)
         names = {m: n for n, m in trainer.model.named_modules()}
         calls: List[Dict] = []
         state = {"recording": True}
+        selections = SelectionRecorder(rows)
 
         def keep(module, args, output):
             if not state["recording"]:
@@ -200,16 +243,17 @@ def record_rows(world: int, dtype: torch.dtype, deterministic: bool, out: Path) 
                     calls.append({"module": names.get(module, type(module).__name__), "index": i,
                                   "shape": list(o.shape[1:]), "rows": x.cpu()})
             if module is trainer.model:  # the forward ended: the backward records nothing
-                state["recording"] = False
+                state["recording"] = selections.recording = False
 
         handle = torch.nn.modules.module.register_module_forward_hook(keep)
         try:
-            metrics = trainer.step(batch, trainer.generator)
+            with selections:
+                metrics = trainer.step(batch, trainer.generator)
         finally:
             handle.remove()
         metrics = {k: float(v) for k, v in (mean_over_ranks(metrics) if mesh.distributed else metrics).items()}
         if mesh.rank == 0:
-            torch.save({"calls": calls, "metrics": metrics}, out)
+            torch.save({"calls": calls, "selections": selections.selections, "metrics": metrics}, out)
     finally:
         shutdown(mesh)
 
@@ -228,23 +272,32 @@ def ranks_report(ranks_file: Path, one_file: Path) -> str:
         for level in RANKS_LEVELS:
             if gap > level and level not in firsts:
                 firsts[level] = f"call {i} of {len(b['calls'])}: {x['module']}[{x['index']}] {x['shape']} gap {gap:.3e}"
+    flips = "none"
+    for i, (x, y) in enumerate(zip(a.get("selections", []), b.get("selections", []))):
+        if x["indices"].shape != y["indices"].shape or not torch.equal(x["indices"], y["indices"]):
+            where = (x["indices"] != y["indices"]).nonzero() if x["indices"].shape == y["indices"].shape else None
+            at = f" first at image {int(where[0][0])} rank {int(where[0][1])}" if where is not None else ""
+            flips = f"selection {i} of {len(b['selections'])}: {x['name']} {list(x['indices'].shape)}{at}"
+            break
     metric_gap = max(abs(a["metrics"][k] - v) / max(abs(v), 1e-12) for k, v in b["metrics"].items())
     worst = max(b["metrics"], key=lambda k: abs(a["metrics"][k] - b["metrics"][k]) / max(abs(b["metrics"][k]), 1e-12))
     parts = [f"beyond {level:g}: {firsts.get(level, 'none')}" for level in RANKS_LEVELS]
     if -1.0 in firsts:
         parts.append(f"module sequences part at {firsts[-1.0]}")
-    return (f"{compared} module outputs compared; first {'; first '.join(parts)}; largest metric gap "
-            f"{metric_gap:.3e} ({worst})")
+    return (f"{compared} module outputs compared; first {'; first '.join(parts)}; first selection that "
+            f"differs: {flips}; largest metric gap {metric_gap:.3e} ({worst})")
 
 
-def ranks_check(world: int, dtype: str, deterministic: bool, out: Path) -> str:
+def ranks_check(world: int, dtype: str, deterministic: bool, out: Path, config: str = None, canvas=None,
+                device: str = "cuda") -> str:
     from salience_detr_torch.tools import ddp_check
 
     out.mkdir(parents=True, exist_ok=True)
     args = ["-m", "salience_detr_torch.tools.repeat_check", "ranks", "--world", str(world), "--dtype", dtype,
-            "--out", str(out)] + (["--deterministic"] if deterministic else [])
+            "--out", str(out), "--device", device] + (["--deterministic"] if deterministic else []) + \
+        (["--model-config", config] if config else []) + (["--canvas", *map(str, canvas)] if canvas else [])
     ddp_check.launch(args, world, one_device=True, timeout=900)
-    record_rows(world, DTYPES[dtype], deterministic, out / "one.pt")
+    record_rows(world, DTYPES[dtype], deterministic, out / "one.pt", config, canvas, device)
     return ranks_report(out / "ranks.pt", out / "one.pt")
 
 
@@ -308,18 +361,23 @@ def main(argv=None) -> int:
     p.add_argument("--runs", type=int, default=2)
     p.add_argument("--ops", action="store_true", help="also record every aten op's outputs")
     p.add_argument("--world", type=int, default=2, help="ranks: the ranks sharing card 0")
+    p.add_argument("--model-config", default=None, help="ranks: a model config in place of the flagship")
+    p.add_argument("--canvas", type=int, nargs=2, default=None, metavar=("H", "W"),
+                   help="ranks: the synthetic batch's canvas in place of the train config's")
+    p.add_argument("--device", default="cuda", help="ranks: cuda (card 0, the default) or cpu")
     args = p.parse_args(argv)
     if args.mode == "compare":
         return 0 if compare(args.files) else 1
     if args.mode == "ranks":
         from salience_detr_torch.parallel.mesh import launched
 
+        where = (args.model_config, args.canvas, args.device)
         if launched():  # one rank of the check
-            record_rows(args.world, DTYPES[args.dtype], args.deterministic, Path(args.out) / "ranks.pt")
+            record_rows(args.world, DTYPES[args.dtype], args.deterministic, Path(args.out) / "ranks.pt", *where)
         else:
             print(f"repeat_check ranks: {args.world} gloo ranks against one process, {args.dtype}, "
                   f"{'--use-deterministic-algorithms' if args.deterministic else 'default numerics'}: "
-                  f"{ranks_check(args.world, args.dtype, args.deterministic, Path(args.out))}")
+                  f"{ranks_check(args.world, args.dtype, args.deterministic, Path(args.out), *where)}")
         return 0
     if args.mode == "train":
         record = train_runs(DTYPES[args.dtype], args.deterministic, args.runs, args.ops)

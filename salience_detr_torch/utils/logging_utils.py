@@ -148,5 +148,7 @@ class MetricLogger:
                     self.logger.info(f"{header} [{i}] {self} time: {iter_time}")
             i += 1
             end = time.time()
-        elapsed = str(datetime.timedelta(seconds=int(time.time() - start)))
-        self.logger.info(f"{header} Total time: {elapsed}")
+        total_s = time.time() - start
+        elapsed = str(datetime.timedelta(seconds=int(total_s)))
+        self.logger.info(f"{header} Total time: {elapsed} ({total_s:.4f} s, {i} its, median "
+                         f"{iter_time.median if i else 0.0:.4f} s / it of the last {min(i, 20)})")

@@ -17,12 +17,28 @@ ratio), 1)``, ratios 0.4 / 0.8 / 1.0 / 1.0) is its ratio's share, not the
 floor of 1.
 
 Checked: the salience maps at rtol 1e-3 / atol 1e-3 (the full-model
-tolerance); per image the proposal top-k indices and the NMS output
-exactly, and where the NMS output agrees the selected proposals' logits and
-boxes and every decoder layer's class logits and boxes at the same
-tolerance.  Where
-an index parts, the test fails, and its message shows the first parting
-rank, the two tokens' scores in both packages and their gaps."""
+tolerance); per image the proposal top-k set and the NMS output exactly,
+the top-k order exactly but for neighbours whose scores lie within
+ORDER_ULPS float32 ulps in both packages, and where the NMS output agrees
+the selected proposals' logits and boxes and every decoder layer's class
+logits and boxes at the same tolerance.  Where an index parts beyond that,
+the test fails, and its message shows the first parting rank, the two
+tokens' scores in both packages and their gaps.
+
+Why the order may part between near-ties: the two packages' float32 sums
+part from the backbone's first normalisation on (``tests/flagship_parity_walk.py``
+walks the forward).  The stem convolution agrees bitwise; the FrozenBatchNorm
+after it does not, because XLA:CPU contracts its ``x * w + b`` into one fused
+multiply-add and rounds its ``rsqrt`` otherwise (42% of its outputs), and
+the first 3x3 convolution, the LayerNorms and the Linear heads part on
+identical inputs by oneDNN's and MKL's order of sums against XLA:CPU's
+(88%, 65% and 92% of their outputs).  By the proposal scores the gap is a
+median of 4 and at most 29 ulps a token, so two tokens a few ulps apart may
+rank either way.  The one such pair, the second image's tokens 332 and 121
+at rank 533 of 936, lies 5 ulps apart in the port at the two torch threads
+this test pins (2.27335238 / 2.27335119; 2 ulps at 8 threads, whose sums run
+in another order) and 3 in JAX (2.27335072 / 2.27335143).  ORDER_ULPS is the
+larger measured gap."""
 
 import dataclasses
 import math
@@ -41,10 +57,12 @@ from salience_detr_torch.models.bricks import salience_transformer as port_st
 from salience_detr_torch.models.factory import build_salience_detr
 from salience_detr_torch.weights import state_dict_from_jax
 from tests.torch_port_common import jax_variable_shapes, random_variables, t
+from tests.torch_port_common import two_torch_threads  # noqa: F401 (an autouse fixture: the port's sums follow the thread count)
 
 CANVAS = (128, 352)
 PADDED = (100, 301)
 RTOL, ATOL = 1e-3, 1e-3
+ORDER_ULPS = 5  # the measured gap of the one near-tie that ranks the other way (module docstring)
 
 
 def grid_survivors(topk_index, levels):
@@ -70,6 +88,23 @@ def parted(name, got, want, port_scores, jax_scores):
     return (f"{name} parts at rank {i}: port token {a}, JAX token {b}; port scores {port_scores[a]:.9g} / "
             f"{port_scores[b]:.9g} (gap {port_scores[a] - port_scores[b]:.3e}), JAX scores {jax_scores[a]:.9g} / "
             f"{jax_scores[b]:.9g} (gap {jax_scores[a] - jax_scores[b]:.3e})")
+
+
+def order_partings(got, want, port_scores, jax_scores, ulps=ORDER_ULPS):
+    """The pairs of tokens that the two rankings order differently and
+    whose scores are more than ``ulps`` float32 ulps apart in either
+    package, as (port rank, port rank) pairs of ``got``."""
+    jax_rank = np.empty(int(max(want.max(), got.max())) + 1, np.int64)
+    jax_rank[want] = np.arange(len(want))
+    r = jax_rank[got]
+    i, j = np.nonzero(np.triu(r[:, None] > r[None, :], 1))  # i before j in the port, after it in JAX
+
+    def apart(scores):
+        a, b = scores[got[i]].astype(np.float32), scores[got[j]].astype(np.float32)
+        return np.abs(a.astype(np.float64) - b) > ulps * np.spacing(np.maximum(np.abs(a), np.abs(b)))
+
+    far = apart(port_scores) | apart(jax_scores)
+    return list(zip(i[far].tolist(), j[far].tolist()))
 
 
 @pytest.mark.slow
@@ -137,7 +172,9 @@ def test_flagship_full_width_and_depth_matches_jax(monkeypatch):
         # the vmapped JAX callbacks arrive in no fixed image order: pair by the top-k
         jax_topk, jax_out = max(jax_nms, key=lambda p: int((p[0] == port_topk[b]).sum()))
         assert grid_survivors(jax_topk, levels) < 900  # the NMS backfills
-        if not np.array_equal(port_topk[b], jax_topk):
+        if set(port_topk[b].tolist()) != set(jax_topk.tolist()):
+            partings.append(f"image {b} proposal top-k sets differ")
+        elif order_partings(port_topk[b], jax_topk, port_scores[b], jax_scores[b]):
             partings.append(parted(f"image {b} proposal top-k", port_topk[b], jax_topk, port_scores[b],
                                    jax_scores[b]))
         if not np.array_equal(port_out[b], jax_out):

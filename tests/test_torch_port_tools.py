@@ -146,7 +146,8 @@ def test_notebooks_are_what_the_generator_writes():
 def test_tools_run_without_jax(tmp_path):
     """The new modules imported in a fresh process and the tools' functions
     run on the tiny model (parameters and FLOPs, an export with its check,
-    the salience maps, a Grad-CAM, a folder through InferenceDataset), with
+    the salience maps, a Grad-CAM, a folder through InferenceDataset), the
+    twins of the last root tools imported and the campaign report run, with
     neither JAX nor the JAX package imported."""
     np.save(tmp_path / "x.npy", np.random.default_rng(0).integers(0, 256, (70, 90, 3), dtype=np.uint8))
     script = f"""
@@ -155,6 +156,8 @@ import torch
 from salience_detr_torch.models.factory import SalienceDETRConfig
 from salience_detr_torch.tools import benchmark_model, export, feature_viz, grad_cam, make_notebooks
 from salience_detr_torch.tools import visualize_datasets
+from salience_detr_torch.tools import backbone_bench, bench_loader, parity_runbook, profile_trace
+from salience_detr_torch.tools import quality_campaign_report, trace_report
 from salience_detr_torch.inference import Predictor
 from salience_detr_torch.tools.common import folder_batches
 from salience_detr_torch.utils import visualize
@@ -170,6 +173,8 @@ export.verify(program, export.DetectorProgram(model, post, cfg, True),
 maps = feature_viz.salience_maps(model, cfg, batch["images"], batch["image_sizes"])
 cam, logits, coords = grad_cam.make_cam_fn(model, 1, 5, cfg)(batch["images"], batch["image_sizes"])
 assert len(maps) == 4 and bool(torch.isfinite(cam).all())
+assert quality_campaign_report.report(str(quality_campaign_report.RECORDS))[0].endswith("seeds [0]")
+assert trace_report.category("void at::vectorized_elementwise_kernel<4>") == "elementwise_reduce"
 assert "jax" not in sys.modules and "salience_detr_tpu" not in sys.modules, sorted(sys.modules)
 print("ok")
 """

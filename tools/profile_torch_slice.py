@@ -37,7 +37,6 @@ import argparse
 import dataclasses
 import json
 import os
-import re
 import statistics
 import subprocess
 import sys
@@ -53,38 +52,12 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from salience_detr_torch.inference import DEFAULT_CONFIG, Predictor, load_config, preprocess  # noqa: E402
+from salience_detr_torch.tools.trace_report import category  # noqa: E402
 from salience_detr_torch.train import Trainer  # noqa: E402
 
-# first matching pattern names the category of a kernel
-CATEGORIES = [
-    ("msda_q8", r"msda_q8_sample_kernel|q8_absmax_kernel|q8_table_kernel"),
-    # B6 backward: the gather's seven kernels (and the earlier design's name)
-    ("deform_conv_backward", r"deform_conv_backward_kernel|dcn_(zero|count|scan_sums|scan_offsets|place|gather|"
-                             r"combine)_kernel"),
-    ("deform_conv_fused", r"deform_conv_fused_kernel"),
-    ("deform_conv", r"deform_conv_forward_kernel"),
-    ("msda", r"msda_forward_kernel"),
-    ("msda_backward", r"msda_backward_kernel"),
-    ("grid_nms", r"grid_nms_kernel"),
-    ("hungarian", r"hungarian_kernel"),
-    ("conv", r"fprop|dgrad|conv|cudnn|nchw|nhwc|implicit"),
-    ("sdpa", r"flash|fmha|attention"),
-    ("gemm", r"gemm|cutlass|cublas|matmul|splitK"),
-    ("sort_topk", r"sort|radix|topk"),
-    ("index_scatter", r"index|gather|scatter"),
-    ("norm", r"norm|welford"),
-    ("elementwise_reduce", r"elementwise|vectorized|reduce|unrolled|CatArray|copy|fill"),
-]
 BATCH = 4
 ITERS = 5
 SEED = 0
-
-
-def category(name: str) -> str:
-    for cat, pattern in CATEGORIES:
-        if re.search(pattern, name, re.IGNORECASE):
-            return cat
-    return "other"
 
 
 def measure(run, iters: int):
